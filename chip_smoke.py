@@ -2,21 +2,32 @@
 """Smoke check of cogaps_tpu_torch on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-sweep kernel from cogaps_tpu_torch/csrc/sweep.cu, holds it against its
-plain PyTorch version on the card, drives the port's main path through
+sweep kernels from cogaps_tpu_torch/csrc/ (sweep.cu and atlas.cu, one
+nvcc each, started together), holds each against its plain PyTorch
+version on the card, drives the port's dense main path through
 ``CoGAPS()`` and the multi-chain throughput harness on GIST, runs a
-5,000 x 2,000 k=10 dataset, and fails on the first phase that fails.
-Without a CUDA device, or without the package beside it, it exits
-non-zero and prints no result.
+5,000 x 2,000 k=10 dataset, drives the sparse model through
+``CoGAPS(sparse_optimization=True)``, the sparse multi-chain engine and
+the atlas engine, and fails on the first phase that fails. Without a
+CUDA device, or without the package beside it, it exits non-zero and
+prints no result.
 
 Phases:
   1 device  — name and power limit (nvidia-smi);
-  2 build   — nvcc build of the sweep kernel, with ptxas's report;
-  3 kernels — kernel vs plain version on CUDA tensors at the main path's
-              sampler shapes (GIST A and P, and a 5000-row sampler), NCH=4,
-              in exact mode (the same uniform slab) and in fast mode
-              (in-kernel Philox): equal done, counts and elem table, mass
-              and M within 1e-5, Y within 1e-3; per-call times;
+  2 build   — nvcc builds of both kernels, with ptxas's reports;
+  3 kernels — kernel vs plain version on CUDA tensors, in exact mode (the
+              same uniform slab) and in fast mode (in-kernel Philox);
+              per-call times:
+              K1, the dense sweep, at the main path's sampler shapes (GIST
+              A and P, a 5000-row sampler), NCH=4, and K2, the same kernel
+              fed the sparse model's tables (2000 x 10000, k=10, A and P
+              samplers), NCH=4: equal done, counts and elem table, mass
+              and M within 1e-5, Y within 1e-3;
+              K4, the CSR sparse sweep, at the atlas shape (30000 x 50000,
+              2% nonzeros, k=50, B=512, C=2^19, A and P samplers): equal
+              done, sweeps, counts, n and elem; mass and M within atol
+              5e-3, rtol 1e-4 (sums over a row's nonzeros in another
+              order, tests/test_atlas_engine.py:218-227);
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda):
               meanChiSq below 2x the golden GIST value, and the kernel
               launched at least twice per iteration of each phase;
@@ -24,7 +35,20 @@ Phases:
               the same gate; updates/s;
   6 realistic — 4 chains of a synthetic 5000 x 2000 matrix (k=10), 100
               iterations per phase: a finite, falling chi^2 history;
-              updates/s and peak device memory.
+              updates/s and peak device memory;
+  7 sparse  — the iteration time of each sparse mode (dense, ell, xla)
+              from one state of a 2000 x 10000 k=10 matrix with 87%
+              structural zeros, then CoGAPS(sparse_optimization=True,
+              k=10, 500 iterations): finite meanChiSq, chi^2 history
+              falling 5x, two kernel launches per iteration;
+  8 sparse multichain — SparseMultichainEngine, 4 such chains, 200 + 200
+              iterations: finite, falling chi^2 in every chain; updates/s
+              and peak memory;
+  9 atlas   — AtlasEngine (the engine of run_atlas) on a 30000 x 50000
+              COO matrix with 2% nonzeros, k=50, 100 + 100 iterations:
+              finite, falling chi^2, M equal to the atom masses per
+              element within 2e-4, two K4 launches per iteration;
+              updates/s, peak memory, set-up time.
 
 The last line is {"ok": true, "device": {...}}; the one before it is the
 card's name and power limit; before that, one JSON line describing each
@@ -181,36 +205,120 @@ def locate_divergence(case, source):
             return
 
 
-def phase_kernels(device):
+def time_calls(fn, reps):
+    """ms per call of fn() by CUDA events, after two warm-up calls."""
     import torch
-    from cogaps_tpu_torch.bench_harness import synthetic_dense
-    from cogaps_tpu_torch.io import parsers
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_plain(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def uniform_source(nch, B, device, seed=7, sweeps=512):
+    import torch
+    slab = torch.as_tensor(np.random.default_rng(seed).random(
+        (nch, sweeps * 16, B), dtype=np.float32), device=device)
+
+    def source(c, first, n):
+        if (first + n) * 16 > slab.shape[1]:
+            raise RuntimeError("uniform slab used up")
+        return slab[c, first * 16:(first + n) * 16]
+
+    return source
+
+
+def random_atoms(rng, nch, NR, k, C, device):
+    """Compact atom tables of n0 = min(C/4, NB/3) random atoms per chain
+    and M from them."""
+    import torch
+    from cogaps_tpu_torch.ops.atoms import AtomTable, total_mass_per_element
+    NB = NR * k
+    n0 = int(min(C // 4, NB // 3))
+    elem = np.full((nch, C), -1, np.int32)
+    mass = np.zeros((nch, C), np.float32)
+    for c in range(nch):
+        elem[c, :n0] = rng.integers(0, NB, n0)
+        mass[c, :n0] = rng.gamma(2.0, 0.5, n0)
+    to = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    atoms = AtomTable(mass=to(mass), elem=to(elem),
+                      n=to(np.full(nch, n0, np.int32)))
+    M = torch.stack([total_mass_per_element(atoms.chain(c), NB).reshape(NR, k)
+                     for c in range(nch)])
+    return atoms, M
+
+
+# bytes and float32 operations of one update call that the bound counts
+# (PERF.md section 6): each proposal touches one row (birth, death) or
+# two (move, exchange); the atom table is read and written once
+def sweep_bound_ms(processed, n_atoms, row_bytes, prop_flops,
+                   fixed_bytes=0):
+    p = np.asarray(processed.cpu(), np.int64).reshape(-1, 4)
+    rows = p[:, 0] + p[:, 1] + 2 * (p[:, 2] + p[:, 3])
+    n_bytes = (fixed_bytes + float(rows.sum()) * row_bytes
+               + 16.0 * float(np.asarray(n_atoms.cpu(), np.int64).sum()))
+    flops = float(p.sum()) * prop_flops
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_F32_PER_S = 67e12  # float32 outside the tensor cores
+
+
+def tables_case(name, D, rows_are_genes, k, B, C, nch, budget, seed, device):
+    """NCH sparse-model sampler states and the (SQ, Y0, G) tables of one
+    update call (models/sparse.kernel_tables), made from a numpy seed as
+    make_case makes the dense ones."""
+    import torch
+    from cogaps_tpu_torch.models import dense, sparse
+    from cogaps_tpu_torch.ops.sweep import MassParams, make_consts
+    rng = np.random.default_rng(seed)
+    Dm = D if rows_are_genes else D.T
+    NR, m = Dm.shape
+    r, c = np.nonzero(Dm)
+    csr = sparse.coo_to_csr(r, c, Dm[r, c], NR)
+    Wd, D1 = (w[0].to(device) for w in sparse.dense_weights(csr, m))
+    atoms, M = random_atoms(rng, nch, NR, k, C, device)
+    other = torch.as_tensor(rng.gamma(2.0, 1.0, (nch, m, k)).astype(
+        np.float32), device=device)
+    SQ, Y0, G = sparse.kernel_tables(Wd, D1, other, M)
+    phase = dense.DensePhase(SQ=SQ, Z=G, col_nz=other.amax(dim=1) > 0.0)
+    lam = 0.01 * float(np.sqrt(k / Dm[Dm != 0].mean()))
+    to = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    return dict(name=name, atoms=atoms, M=M, Y=Y0, phase=phase,
+                consts=make_consts(NR, m, k, C, B, 0.01),
+                mass=MassParams(lam=to(np.full(nch, lam, np.float32)),
+                                max_gibbs_mass=to(np.full(nch, 100.0 / lam,
+                                                          np.float32))),
+                budgets=to(np.full(nch, budget, np.int32)), nch=nch, B=B)
+
+
+def run_sweep_cases(cases, device, reps=10):
+    """K1/K2 cases: kernel vs plain in both modes, then per-call times in
+    fast mode. Returns (rows, max_err) with rows (name, kernel ms, plain
+    ms, bound ms, bound_by)."""
+    import torch
     from cogaps_tpu_torch.ops import sweep_cuda
-
-    D_gist, _, _ = parsers.read_matrix(GIST_CSV)
-    [D_big] = synthetic_dense(5000, 2000, 10, 1, 0)
-    cases = [
-        make_case("GIST A sampler (1363x9, k=7, B=1024, C=8192)", D_gist,
-                  True, 7, 1024, 8192, 4, 4000, 1, device),
-        make_case("GIST P sampler (9x1363, k=7, B=32, C=1024)", D_gist,
-                  False, 7, 32, 1024, 4, 2000, 2, device),
-        make_case("5000-row sampler (5000x2000, k=10, B=1024, C=32768)",
-                  D_big, True, 10, 1024, 32768, 4, 4000, 3, device),
-    ]
-    del D_big
-    results = []
-    max_err = 0.0
-    failed = []
+    results, failed, max_err = [], [], 0.0
     for case in cases:
-        nch, B = case["nch"], case["B"]
-        slab = torch.as_tensor(np.random.default_rng(7).random(
-            (nch, 512 * 16, B), dtype=np.float32), device=device)
-
-        def source(c, first, n, slab=slab):
-            if (first + n) * 16 > slab.shape[1]:
-                raise RuntimeError("uniform slab used up")
-            return slab[c, first * 16:(first + n) * 16]
-
+        nch, B, K = case["nch"], case["B"], case["consts"].k
+        source = uniform_source(nch, B, device)
         key = sweep_cuda.PhiloxKey(
             key0=torch.arange(11, 11 + nch, device=device), key1=5)
         args = (case["atoms"], case["M"], case["Y"], case["phase"], 1.0,
@@ -226,30 +334,235 @@ def phase_kernels(device):
                 if what == "exact":
                     locate_divergence(case, source)
                 failed.append((case["name"], what))
-
-        # per-call times in fast mode
-        for _ in range(2):
-            sweep_cuda.run_updates_multi(*args, key)
-        torch.cuda.synchronize()
-        reps = 10
-        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(reps):
-            sweep_cuda.run_updates_multi(*args, key)
-        stop.record()
-        torch.cuda.synchronize()
-        k_ms = start.elapsed_time(stop) / reps
-        t0 = time.perf_counter()
-        sweep_cuda.run_updates_multi_plain(*args, key)
-        torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - t0) * 1e3
+        out_k = sweep_cuda.run_updates_multi(*args, key)
+        k_ms = time_calls(lambda: sweep_cuda.run_updates_multi(*args, key),
+                          reps)
+        p_ms = time_plain(lambda: sweep_cuda.run_updates_multi_plain(
+            *args, key))
+        bound, by = sweep_bound_ms(
+            out_k[5].processed, out_k[0].n, 4 * (5 * K + K * K), 300 + 2 * K)
         log(f"  {case['name']}: kernel {k_ms:.4f} ms/call, plain "
-            f"{p_ms:.1f} ms/call (budget {int(case['budgets'][0])} x "
-            f"{nch} chains)")
-        results.append((case["name"], k_ms, p_ms))
+            f"{p_ms:.1f} ms/call, bound {bound:.6f} ms ({by}) (budget "
+            f"{int(case['budgets'][0])} x {nch} chains)")
+        results.append((case["name"], k_ms, p_ms, bound, by))
     if failed:
         raise AssertionError(f"kernel and plain version disagree: {failed}")
     return results, max_err
+
+
+def phase_kernels(device):
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.io import parsers
+
+    D_gist, _, _ = parsers.read_matrix(GIST_CSV)
+    [D_big] = synthetic_dense(5000, 2000, 10, 1, 0)
+    cases = [
+        make_case("GIST A sampler (1363x9, k=7, B=1024, C=8192)", D_gist,
+                  True, 7, 1024, 8192, 4, 4000, 1, device),
+        make_case("GIST P sampler (9x1363, k=7, B=32, C=1024)", D_gist,
+                  False, 7, 32, 1024, 4, 2000, 2, device),
+        make_case("5000-row sampler (5000x2000, k=10, B=1024, C=32768)",
+                  D_big, True, 10, 1024, 32768, 4, 4000, 3, device),
+    ]
+    del D_big
+    return run_sweep_cases(cases, device)
+
+
+def phase_tables(device, D_sparse):
+    """K2: the sweep kernel on the sparse model's tables."""
+    cases = [
+        tables_case("tables A sampler (2000x10000, k=10, B=1024, C=16384)",
+                    D_sparse, True, 10, 1024, 16384, 4, 4000, 4, device),
+        tables_case("tables P sampler (10000x2000, k=10, B=1024, C=65536)",
+                    D_sparse, False, 10, 1024, 65536, 4, 4000, 5, device),
+    ]
+    return run_sweep_cases(cases, device)
+
+
+TOL_ATLAS_ATOL, TOL_ATLAS_RTOL = 5e-3, 1e-4
+
+
+def atlas_case(name, csr, m, k, B, C, budget, seed, device):
+    import torch
+    from cogaps_tpu_torch.ops.sweep import MassParams, make_consts
+    rng = np.random.default_rng(seed)
+    NR = csr.n_rows
+    atoms, M = random_atoms(rng, 1, NR, k, C, device)
+    other = torch.as_tensor(rng.gamma(2.0, 1.0, (1, m, k)).astype(
+        np.float32), device=device)
+    lam = 0.01 * float(np.sqrt(k / float(csr.val.mean())))
+    to = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    return dict(name=name, atoms=atoms, M=M, csr=csr, other=other,
+                consts=make_consts(NR, m, k, C, B, 0.01),
+                mass=MassParams(lam=to(np.float32([lam])),
+                                max_gibbs_mass=to(np.float32([100.0 / lam]))),
+                budgets=to(np.int32([budget])), B=B)
+
+
+def compare_atlas(case, out_k, out_p, what):
+    """The per-call contract of tests/test_atlas_engine.py:218-227, plus
+    n and elem; returns (problems, max |diff| of mass and M)."""
+    a_k, M_k, done_k, ns_k, cnt_k = out_k
+    a_p, M_p, done_p, ns_p, cnt_p = out_p
+    problems = []
+    for label, x, y in (("done", done_k, done_p), ("sweeps", ns_k, ns_p),
+                        ("n", a_k.n, a_p.n),
+                        ("processed", cnt_k.processed, cnt_p.processed),
+                        ("accepted", cnt_k.accepted, cnt_p.accepted),
+                        ("elem", a_k.elem, a_p.elem)):
+        if not np.array_equal(x.cpu().numpy(), y.cpu().numpy()):
+            problems.append(label)
+    errs = {}
+    for label, x, y in (("mass", a_k.mass, a_p.mass), ("M", M_k, M_p)):
+        x, y = x.double().cpu().numpy(), y.double().cpu().numpy()
+        errs[label] = float(np.abs(x - y).max())
+        if not np.all(np.abs(x - y)
+                      <= TOL_ATLAS_ATOL + TOL_ATLAS_RTOL * np.abs(y)):
+            problems.append(label)
+    log(f"  {case['name']} {what}: done {done_k.tolist()} sweeps "
+        f"{ns_k.tolist()} accepted/processed {cnt_k.accepted.tolist()}/"
+        f"{cnt_k.processed.tolist()} max|diff| mass {errs['mass']:.3g} "
+        f"M {errs['M']:.3g}")
+    return problems, max(errs.values())
+
+
+def locate_atlas_divergence(case, source):
+    """Step K4 and its plain version sweep by sweep (exact mode); print
+    the first sweep after which they differ and its lanes that touch a
+    differing row."""
+    import torch
+    from cogaps_tpu_torch.ops import atlas_cuda
+    args = (case["atoms"], case["M"], case["csr"], case["other"], 1.0,
+            case["budgets"], case["consts"], case["mass"], source)
+    K = case["consts"].k
+    for j in range(1, 1000):
+        k_out = atlas_cuda.run_updates_atlas_multi(*args, max_sweeps=j)
+        p_out = atlas_cuda.run_updates_atlas_multi_plain(*args, max_sweeps=j)
+        dM = (k_out[1][0] - p_out[1][0]).abs().reshape(-1)
+        de = k_out[0].elem[0] != p_out[0].elem[0]
+        if bool(de.any()) or float(dM.max()) > TOL_ATLAS_ATOL:
+            rows = sorted(set((torch.nonzero(dM > TOL_ATLAS_ATOL).flatten()
+                               // K).tolist()))
+            log(f"  first difference: sweep {j - 1}; rows {rows[:8]}, "
+                f"slots {torch.nonzero(de).flatten().tolist()[:8]}, "
+                f"max |dM| {float(dM.max()):.3g}")
+            prev = atlas_cuda.run_updates_atlas_multi_plain(
+                *args, max_sweeps=j - 1)
+            uni = source(0, j - 1, 1)
+            elem, n = prev[0].elem[0], int(prev[0].n[0])
+            for lane in range(case["B"]):
+                u = uni[:, lane].tolist()
+                a1 = min(int(u[5] * max(n, 1)), max(n, 1) - 1)
+                r1 = int(elem[a1]) // K if n else -1
+                if r1 in rows:
+                    kind = ("birth/death" if u[0] < 0.5 else
+                            "move" if u[0] < 0.75 else "exchange")
+                    log(f"    lane {lane}: {kind} row {r1} "
+                        f"u {[f'{x:.9g}' for x in u[:9]]}")
+            return
+        if bool((k_out[2] >= case["budgets"]).all()):
+            return
+
+
+def phase_atlas_kernel(device, side_a, side_p, reps=5):
+    """K4 vs its plain version at the atlas shape, A and P samplers."""
+    import torch
+    from cogaps_tpu_torch.ops import atlas_cuda, sweep_cuda
+    k, B, C = 50, 512, 1 << 19
+    cases = [
+        atlas_case("atlas A sampler (30000 rows, partner 50000, k=50)",
+                   side_a, side_p.n_rows, k, B, C, 4000, 6, device),
+        atlas_case("atlas P sampler (50000 rows, partner 30000, k=50)",
+                   side_p, side_a.n_rows, k, B, C, 4000, 7, device),
+    ]
+    results, failed, max_err = [], [], 0.0
+    for case in cases:
+        source = uniform_source(1, B, device, sweeps=256)
+        key = sweep_cuda.PhiloxKey(key0=torch.tensor([13], device=device),
+                                   key1=3)
+        args = (case["atoms"], case["M"], case["csr"], case["other"], 1.0,
+                case["budgets"], case["consts"], case["mass"])
+        for what, rand in (("exact", source), ("fast", key)):
+            out_k = atlas_cuda.run_updates_atlas_multi(*args, rand)
+            out_p = atlas_cuda.run_updates_atlas_multi_plain(*args, rand)
+            torch.cuda.synchronize()
+            problems, err = compare_atlas(case, out_k, out_p, what)
+            max_err = max(max_err, err)
+            if problems:
+                log(f"  MISMATCH ({what}): {problems}")
+                if what == "exact":
+                    locate_atlas_divergence(case, source)
+                failed.append((case["name"], what))
+        out_k = atlas_cuda.run_updates_atlas_multi(*args, key)
+        k_ms = time_calls(lambda: atlas_cuda.run_updates_atlas_multi(
+            *args, key), reps)
+        p_ms = time_plain(lambda: atlas_cuda.run_updates_atlas_multi_plain(
+            *args, key))
+        csr, m = case["csr"], case["other"].shape[1]
+        nnz_row = csr.idx.numel() / csr.n_rows
+        bound, by = sweep_bound_ms(
+            out_k[4].processed, out_k[0].n, 4 * 2 * k + 8 * nnz_row,
+            300 + nnz_row * (2 * k + 16), fixed_bytes=4 * (m * k + k * k))
+        log(f"  {case['name']}: kernel {k_ms:.4f} ms/call, plain "
+            f"{p_ms:.1f} ms/call, bound {bound:.6f} ms ({by}) (budget "
+            f"{int(case['budgets'][0])}, {nnz_row:.1f} nonzeros per row)")
+        results.append((case["name"], k_ms, p_ms, bound, by))
+    if failed:
+        raise AssertionError(f"K4 and its plain version disagree: {failed}")
+    return results, max_err
+
+
+def build_all():
+    """nvcc for both sources at once; returns {name: (seconds, report)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from cogaps_tpu_torch.ops import atlas_cuda, sweep_cuda
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        _, report = fn()
+        return time.perf_counter() - t0, report
+
+    with ThreadPoolExecutor(2) as pool:
+        futs = {"sweep": pool.submit(timed, sweep_cuda.build),
+                "atlas": pool.submit(timed, atlas_cuda.build)}
+        return {name: f.result() for name, f in futs.items()}
+
+
+def time_modes(D, device, n_warm=150, n_timed=20):
+    """Iteration time of each sparse mode from one state: n_warm
+    equilibration iterations in "dense" mode, then n_timed iterations of
+    each mode from a copy of that state (the rule's measurement)."""
+    import copy
+    import dataclasses
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.engine import EQUILIBRATION, PhiloxRandom
+    from cogaps_tpu_torch.sparse_engine import SparseGapsEngine
+    params = cogaps_tpu_torch.CogapsParams(
+        n_patterns=10, n_iterations=500, seed=3, output_frequency=0)
+    base = params.engine_config(*D.shape)
+    engines = {m: SparseGapsEngine(D, dataclasses.replace(
+        base, sparse_table_mode=m), device) for m in ("dense", "ell", "xla")}
+    warm = engines["dense"]
+    st, ss = warm.run_phase(warm.init_state(), warm.init_stats(),
+                            PhiloxRandom([3], device), EQUILIBRATION, 0,
+                            n_warm)
+    times = {}
+    for mode, eng in engines.items():
+        rand = PhiloxRandom([3], device)
+        st_m, ss_m = copy.deepcopy(st), copy.deepcopy(ss)
+        eng.run_phase(st_m, ss_m, rand, EQUILIBRATION, n_warm, n_warm + 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_m, ss_m = eng.run_phase(st_m, ss_m, rand, EQUILIBRATION, n_warm,
+                                   n_warm + n_timed)
+        torch.cuda.synchronize()
+        times[mode] = (time.perf_counter() - t0) * 1e3 / n_timed
+    return times, int(st.atoms_a.n[0]), int(st.atoms_p.n[0])
+
+
+def falling(hist):
+    return bool(np.isfinite(hist).all() and hist[-1] < hist[0])
 
 
 # ----------------------------------------------------------------------
@@ -264,7 +577,7 @@ def main() -> int:
         log("no CUDA device: torch.cuda.is_available() is false")
         return 3
     import cogaps_tpu_torch
-    from cogaps_tpu_torch.ops import sweep_cuda
+    from cogaps_tpu_torch.ops import atlas_cuda, sweep_cuda
 
     device = torch.device("cuda")
     card = nvidia_smi()
@@ -277,18 +590,38 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _, report = sweep_cuda.build()
-    log(f"[2 build] sweep kernel built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    builds = build_all()
+    log(f"[2 build] both kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s (" + ", ".join(
+            f"{name} {sec:.1f} s" for name, (sec, _) in builds.items()) + ")")
+    for name, (_, report) in builds.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
 
     # 3. kernel vs plain version
+    from cogaps_tpu_torch.bench_harness import synthetic_coo, synthetic_sparse
+    from cogaps_tpu_torch.parallel.atlas_engine import AtlasEngine
     t0 = time.perf_counter()
     kernel_times, max_err = phase_kernels(device)
-    log(f"[3 kernels] kernel == plain version at the main-path shapes "
-        f"({time.perf_counter() - t0:.1f} s)")
+    [D_sparse] = synthetic_sparse(2000, 10000, 10, 1, 11)
+    tables_times, tables_err = phase_tables(device, D_sparse)
+    t1 = time.perf_counter()
+    coo = synthetic_coo(30000, 50000, 0.02, 17)
+    t2 = time.perf_counter()
+    atlas_params = cogaps_tpu_torch.CogapsParams(
+        n_patterns=50, n_iterations=100, seed=9, sparse_optimization=True,
+        output_frequency=25)
+    atlas = AtlasEngine(coo, atlas_params.engine_config(*coo.shape),
+                        chisq_every=1, device=device)
+    torch.cuda.synchronize()
+    atlas_setup = (t2 - t1, time.perf_counter() - t2, len(coo.vals))
+    del coo
+    atlas_times, atlas_err = phase_atlas_kernel(device, atlas.side_a,
+                                                atlas.side_p)
+    log(f"[3 kernels] K1, K2 == plain versions, K4 within its per-call "
+        f"contract, at the main-path shapes ({time.perf_counter() - t0:.1f}"
+        f" s)")
 
     # 4. CoGAPS() on GIST: the main path
     golden = gist_golden_mcs()
@@ -358,17 +691,137 @@ def main() -> int:
     if not np.isfinite(hist).all() or not (hist[:, -1] < hist[:, 0]).all():
         raise AssertionError("chi^2 history is not finite and falling")
 
-    kernel_line = {"kernels": [{
-        "name": "sweep",
-        "route": "cuda",
-        "source": "cogaps_tpu_torch/csrc/sweep.cu",
-        "replaces": "cogaps_tpu/ops/pallas_sweep.py:815",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_times[0][1],
-        "plain_ms": kernel_times[0][2],
-        "shape": kernel_times[0][0],
-    }]}
+    # 7. the sparse model through CoGAPS()
+    from cogaps_tpu_torch.sparse_engine import resolve_sparse_mode
+    t0 = time.perf_counter()
+    mode_ms, n_a, n_p = time_modes(D_sparse, device)
+    log(f"[7 sparse] iteration time by mode at 2000x10000 k=10 "
+        f"({(D_sparse == 0).mean():.4f} zeros, {int((D_sparse != 0).sum())}"
+        f" nonzeros), from one state after 150 iterations (atoms A {n_a}, "
+        f"P {n_p}): " + ", ".join(f"{m} {ms:.4f} ms"
+                                  for m, ms in mode_ms.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    mode = resolve_sparse_mode(1, 2000, 10000, 10, device)
+    n_sp = 500
+    sweep_cuda.run_updates_multi.launches = 0
+    atlas_cuda.run_updates_atlas_multi.launches = 0
+    t0 = time.perf_counter()
+    res = cogaps_tpu_torch.CoGAPS(D_sparse, n_patterns=10,
+                                  n_iterations=n_sp, seed=5,
+                                  sparse_optimization=True, messages=False,
+                                  output_frequency=100, device="cuda")
+    sparse_launches = {"sweep": sweep_cuda.run_updates_multi.launches,
+                       "atlas": atlas_cuda.run_updates_atlas_multi.launches}
+    elapsed = time.perf_counter() - t0
+    h = np.asarray(res.diagnostics["chisqHistory"])
+    ups = res.diagnostics["totalUpdates"] / res.diagnostics[
+        "totalRunningTime"]
+    log(f"  CoGAPS(sparse_optimization=True) k=10 {n_sp} iterations, mode "
+        f"{mode}: meanChiSq {res.mean_chi_sq:.1f}, {ups:.1f} updates/s "
+        f"({res.diagnostics['totalUpdates']} updates), {elapsed:.2f} s, "
+        f"launches {sparse_launches}; chi^2 history "
+        f"{np.round(h, 1).tolist()}")
+    if not np.isfinite(res.mean_chi_sq) or not h[-1] < 0.2 * h[0]:
+        raise AssertionError("sparse CoGAPS did not converge")
+    if sum(sparse_launches.values()) < 2 * 2 * n_sp:
+        raise AssertionError(f"only {sparse_launches} kernel launches")
+
+    # 8. sparse multichain
+    from cogaps_tpu_torch.sparse_engine import (SparseMultichainEngine,
+                                                stack_sparse_device_data)
+    Ds = synthetic_sparse(2000, 10000, 10, 4, 12)
+    params = cogaps_tpu_torch.CogapsParams(
+        n_patterns=10, n_iterations=200, seed=8, output_frequency=50)
+    cfg = params.engine_config(2000, 10000)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data, _ = stack_sparse_device_data(Ds, cfg, device)
+    del Ds
+    eng = SparseMultichainEngine(data, cfg, device)
+    rand = PhiloxRandom([8 + c for c in range(4)], device)
+    state, stats = eng.init_state(), eng.init_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sweep_cuda.run_updates_multi.launches = 0
+    atlas_cuda.run_updates_atlas_multi.launches = 0
+    for ph in (EQUILIBRATION, SAMPLING):
+        state, stats = eng.run_phase(state, stats, rand, ph)
+    hist = stats.chisq_hist.cpu().numpy()
+    t2 = time.perf_counter()
+    multi_launches = {"sweep": sweep_cuda.run_updates_multi.launches,
+                      "atlas": atlas_cuda.run_updates_atlas_multi.launches}
+    log(f"[8 sparse multichain] 4 chains x 2000x10000, k=10, mode "
+        f"{eng.config.sparse_table_mode}, 200+200 iterations: "
+        f"{int(stats.upd.sum()) / (t2 - t1):.1f} updates/s, {t2 - t1:.2f} s "
+        f"(+{t1 - t0:.2f} s set-up), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{multi_launches}")
+    for c in range(4):
+        log(f"  chain {c} chi^2 history {np.round(hist[c], 1).tolist()}")
+    if not all(falling(hist[c]) for c in range(4)):
+        raise AssertionError("sparse chi^2 history is not finite and falling")
+
+    # 9. atlas
+    from cogaps_tpu_torch.ops.atoms import total_mass_per_element
+    from cogaps_tpu_torch.parallel.atlas_engine import AtlasRandom
+    from cogaps_tpu_torch.models import sparse as sparse_model
+    torch.cuda.reset_peak_memory_stats()
+    state, stats = atlas.init_state(), atlas.init_stats()
+    chisq0 = float(sparse_model.sparse_chisq(atlas.side_a, state.M_a[0],
+                                             state.M_p[0]))
+    rand = AtlasRandom(9, device)
+    atlas_cuda.run_updates_atlas_multi.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ph in (EQUILIBRATION, SAMPLING):
+        state, stats = atlas.run_phase(state, stats, rand, ph)
+    hist = stats.chisq_hist[0].cpu().numpy()
+    t1 = time.perf_counter()
+    atlas_launches = atlas_cuda.run_updates_atlas_multi.launches
+    k = atlas.k
+    drift = max(
+        float(((total_mass_per_element(st_atoms.chain(0), nr * k)
+                .reshape(nr, k) - Mx[0]).abs()
+               - 2e-4 * Mx[0].abs()).max())
+        for st_atoms, Mx, nr in ((state.atoms_a, state.M_a, atlas.n_genes),
+                                 (state.atoms_p, state.M_p,
+                                  atlas.n_samples)))
+    log(f"[9 atlas] 30000x50000 COO, {atlas_setup[2]} nonzeros, k=50, "
+        f"100+100 iterations: {int(stats.upd.sum()) / (t1 - t0):.1f} "
+        f"updates/s ({int(stats.upd.sum())} updates in {t1 - t0:.2f} s), "
+        f"set-up {atlas_setup[0]:.1f} s COO generation + {atlas_setup[1]:.1f}"
+        f" s COO -> CSR, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, K4 launches "
+        f"{atlas_launches}, atoms A {int(state.atoms_a.n[0])} P "
+        f"{int(state.atoms_p.n[0])}; chi^2 {chisq0:.1f} at the start, "
+        f"history {np.round(hist, 1).tolist()}; M - atom masses beyond "
+        f"2e-4: {drift:.3g}")
+    if not falling(np.concatenate([[chisq0], hist])) or drift > 2e-4:
+        raise AssertionError("atlas run: chi^2 not falling or M drifted")
+    if atlas_launches < 2 * 200:
+        raise AssertionError(f"only {atlas_launches} K4 launches")
+
+    def entry(name, source, replaces, launches, err, row):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": row[1], "plain_ms": row[2],
+                "bound_ms": row[3], "bound_by": row[4], "library_ms": None,
+                "shape": row[0]}
+
+    table_launches = sparse_launches["sweep"] + multi_launches["sweep"]
+    kernel_line = {"kernels": [
+        entry("sweep", "cogaps_tpu_torch/csrc/sweep.cu",
+              "cogaps_tpu/ops/pallas_sweep.py:815", launches, max_err,
+              kernel_times[0]),
+        entry("sweep_tables", "cogaps_tpu_torch/csrc/sweep.cu",
+              "cogaps_tpu/ops/pallas_sweep.py:1074", table_launches,
+              tables_err, tables_times[0]),
+        entry("atlas", "cogaps_tpu_torch/csrc/atlas.cu",
+              "cogaps_tpu/ops/pallas_atlas.py:760", atlas_launches,
+              atlas_err, atlas_times[0]),
+    ]}
+    if min(e["launches"] for e in kernel_line["kernels"]) <= 0:
+        raise AssertionError("a kernel of the path was never launched")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernel_line))
     print(nvidia_smi())

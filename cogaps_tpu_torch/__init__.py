@@ -2,10 +2,12 @@
 
 The PyTorch port of cogaps_tpu (the JAX package beside it, which stays
 the reference): atomic-prior Gibbs-sampled NMF ``D ~ A @ P.T`` with
-per-element uncertainty and two-phase annealed MCMC. This slice holds
-the dense model's main path: ``CoGAPS()`` and the multi-chain engine,
-with the sweep kernel written in CUDA for Hopper (csrc/sweep.cu). It
-imports torch and numpy only.
+per-element uncertainty and two-phase annealed MCMC. It holds the dense
+and the sparse model: ``CoGAPS()`` (sparse_optimization=True or COO
+input runs sparse_engine.py), the multi-chain engines, and the atlas
+engine (``parallel.atlas_engine.run_atlas``), with the sweep kernels
+written in CUDA for Hopper (csrc/sweep.cu, csrc/atlas.cu). It imports
+torch and numpy only.
 
 Float32 matrix products stay in full float32: the Y tables are formed
 as ((D - M O^T) * invS2) @ O with heavy cancellation, which TF32's ~3

@@ -1,16 +1,18 @@
-"""Top-level user API for the dense model — the PyTorch counterpart of
-cogaps_tpu/api.py (reference: R/CoGAPS.R:90-236).
+"""Top-level user API — the PyTorch counterpart of cogaps_tpu/api.py
+(reference: R/CoGAPS.R:90-236).
 
 ``CoGAPS(data, params=None, n_patterns=..., device="cuda", ...)`` takes
-a numpy array or a csv/tsv/mtx/gct path, validates the inputs
-(R/HelperFunctions.R:194-249), runs the two-phase engine on `device` and
-returns a CogapsResult. `device` is where the engine runs: there is no
-silent fallback, so without a GPU the default raises from torch, and
-the CPU is asked for by name.
+a numpy array, an io.coo.CooMatrix or a csv/tsv/mtx/gct path, validates
+the inputs (R/HelperFunctions.R:194-249), runs the two-phase engine on
+`device` — the dense model, or the sparse model (sparse_engine.py) for
+sparse_optimization=True or COO input — and returns a CogapsResult.
+`device` is where the engine runs: there is no silent fallback, so
+without a GPU the default raises from torch, and the CPU is asked for by
+name.
 
 Not in this slice, and raising NotImplementedError rather than being
-ignored: distributed runs, sparseOptimization, checkpoints and h5/h5ad
-input (ROADMAP.md, "Queue 1").
+ignored: distributed runs, checkpoints and h5/h5ad input (ROADMAP.md,
+"Queue 1").
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 
 from .engine import EQUILIBRATION, SAMPLING, GapsEngine, PhiloxRandom
 from .io import parsers
-from .models import dense
+from .io.coo import CooMatrix
+from .models import dense, sparse
 from .params import CogapsParams
 from .result import CogapsResult, finalize_statistics, mean_chi_sq
 from .utils.logging import log_message, log_worker
@@ -43,6 +46,11 @@ def _load_data(data, transpose: bool):
         if data.endswith((".h5", ".hdf5", ".h5ad")):
             raise _not_ported("h5/h5ad input", "analysis, plots and h5 I/O")
         mat, gene_names, sample_names = parsers.read_matrix(data)
+    elif isinstance(data, CooMatrix):
+        if transpose:
+            data = CooMatrix(rows=data.cols, cols=data.rows, vals=data.vals,
+                             shape=(data.shape[1], data.shape[0]))
+        return data, None, None
     else:
         mat = np.asarray(data, dtype=np.float32)
         if hasattr(data, "index") and hasattr(data, "columns"):  # DataFrame
@@ -58,10 +66,26 @@ def _load_data(data, transpose: bool):
 
 def _check_inputs(D, uncertainty, params: CogapsParams) -> None:
     """Validation rules (reference: R/HelperFunctions.R:194-249)."""
+    if isinstance(D, CooMatrix):
+        if np.isnan(D.vals).any():
+            raise ValueError("NA values in data")
+        if (D.vals < 0).any():
+            raise ValueError("negative values in data matrix")
+        if uncertainty is not None:
+            raise ValueError(
+                "sparse (COO) input uses the implied uncertainty; custom "
+                "uncertainty requires a dense matrix")
+        if params.n_patterns >= min(D.shape) > 1:
+            raise ValueError(
+                "nPatterns must be less than the smaller data dimension")
+        return
     if np.isnan(D).any():
         raise ValueError("NA values in data")
     if (D < 0).any():
         raise ValueError("negative values in data matrix")
+    if params.sparse_optimization and uncertainty is not None:
+        raise ValueError(
+            "must use default uncertainty when enabling sparseOptimization")
     if uncertainty is not None:
         unc = np.asarray(uncertainty, np.float32)
         if unc.shape != D.shape:
@@ -75,7 +99,7 @@ def _check_inputs(D, uncertainty, params: CogapsParams) -> None:
 
 
 def CoGAPS(
-    data: Union[np.ndarray, str],
+    data: Union[np.ndarray, CooMatrix, str],
     params: Optional[CogapsParams] = None,
     n_patterns: Optional[int] = None,
     n_iterations: Optional[int] = None,
@@ -111,8 +135,6 @@ def CoGAPS(
     params.validate()
     if params.distributed is not None:
         raise _not_ported("distributed CoGAPS", "distributed runs")
-    if params.sparse_optimization:
-        raise _not_ported("sparseOptimization", "the sparse model")
     if params.checkpoint_in_file or params.checkpoint_interval > 0:
         raise _not_ported("checkpointing", "checkpoints")
 
@@ -134,15 +156,24 @@ def _run_single(D: np.ndarray, params: CogapsParams, uncertainty,
     """One full engine run (reference: src/Cogaps.cpp:141-215,
     src/GapsRunner.cpp:380-503)."""
     seed = params.resolved_seed()
+    is_coo = isinstance(D, CooMatrix)
     config = params.engine_config(D.shape[0], D.shape[1])
-    engine = GapsEngine(D, uncertainty, config, device)
+    if params.sparse_optimization or is_coo:
+        from .sparse_engine import SparseGapsEngine
+        engine = SparseGapsEngine(D, config, device)
+    else:
+        engine = GapsEngine(D, uncertainty, config, device)
 
     if params.print_messages and not params.running_distributed:
+        model = "Sparse" if params.sparse_optimization else "Dense"
         log_message(
-            f"Data Model: Dense, Normal\nSampler Type: Batched\n"
+            f"Data Model: {model}, Normal\nSampler Type: Batched\n"
             f"nPatterns: {config.n_patterns}, nIterations: {config.n_iterations},"
             f" seed: {seed}, device: {device}")
-        if engine.data_sparsity > 0.80:
+        if params.sparse_optimization or is_coo:
+            log_message("Sparse update mode: "
+                        f"{engine.config.sparse_table_mode}")
+        if not params.sparse_optimization and engine.data_sparsity > 0.80:
             log_message("Warning: data is more than 80% sparse and "
                         "sparseOptimization is not enabled")
 
@@ -165,7 +196,15 @@ def _run_single(D: np.ndarray, params: CogapsParams, uncertainty,
         st["a_sum"], st["a_sumsq"], st["p_sum"], st["p_sumsq"], st["n_stat"])
     if params.which_matrix_fixed != "N":
         mcs = 0.0  # zeroed for fixed-matrix runs (GapsRunner.cpp:478-485)
+    elif is_coo:
+        # the closed form over the nonzeros, never densified
+        # (reference formula: GapsStatistics.cpp:88-111)
+        mcs = float(sparse.sparse_chisq(
+            engine.data.csr_a.to("cpu"), torch.from_numpy(amean),
+            torch.from_numpy(pmean)))
     else:
+        # the sparse model's implied uncertainty max(0.1 D, 0.1) is the
+        # default (GapsStatistics.cpp:106)
         S = (np.asarray(uncertainty, np.float32) if uncertainty is not None
              else dense.default_uncertainty(D))
         mcs = mean_chi_sq(amean, pmean, D, S)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+from .io.coo import CooMatrix
 from .models import dense
 from .parallel.multichain import MultichainEngine, stack_device_data
 from .params import CogapsParams
@@ -35,6 +36,51 @@ def synthetic_dense(n_genes: int, n_samples: int, k: int, n_chains: int,
     P = rng.gamma(2.0, 1.0, (n_samples, k)).astype(np.float32)
     return [np.clip(A @ P.T + rng.normal(0, 0.5, (n_genes, n_samples)), 0,
                     None).astype(np.float32) for _ in range(n_chains)]
+
+
+def synthetic_sparse(n_genes: int, n_samples: int, k: int, n_chains: int,
+                     seed: int, zeros: float = 0.875):
+    """Data with structural zeros, one matrix per chain: D = A @ P.T of
+    gamma factors whose entries are kept with probability q, so that D
+    has a share `zeros` of zeros ((1 - q^2)^k = zeros), zeros a rank-k
+    nonnegative factorization can fit (tests/test_sparse.py's
+    sparse_data, at any size)."""
+    rng = np.random.default_rng(seed)
+    q = float(np.sqrt(1.0 - zeros ** (1.0 / k)))
+    out = []
+    for _ in range(n_chains):
+        A = (rng.gamma(2.0, 1.0, (n_genes, k))
+             * (rng.random((n_genes, k)) < q)).astype(np.float32)
+        P = (rng.gamma(2.0, 1.0, (n_samples, k))
+             * (rng.random((n_samples, k)) < q)).astype(np.float32)
+        out.append((A @ P.T).astype(np.float32))
+    return out
+
+
+def synthetic_coo(n_genes: int, n_samples: int, density: float,
+                  seed: int) -> CooMatrix:
+    """A genes x samples CooMatrix with structural zeros, never dense:
+    every gene and every sample belongs to one of k = round(1/density)
+    programs (uniformly at random), and D[g, s] = a_g * p_s (gamma
+    draws) where the two share a program, else 0 — a rank-k nonnegative
+    factorization with a share ~density of nonzeros, whose zeros the
+    sparse model can fit (unlike nonzeros at uniform positions, which
+    its implied uncertainty S = 0.1 at zeros forbids fitting)."""
+    rng = np.random.default_rng(seed)
+    k = max(1, int(round(1.0 / density)))
+    g_prog = rng.integers(0, k, n_genes)
+    s_prog = rng.integers(0, k, n_samples)
+    a = rng.gamma(2.0, 1.0, n_genes).astype(np.float32)
+    p = rng.gamma(2.0, 1.0, n_samples).astype(np.float32)
+    rows, cols = [], []
+    for prog in range(k):
+        g = np.flatnonzero(g_prog == prog).astype(np.int32)
+        s = np.flatnonzero(s_prog == prog).astype(np.int32)
+        rows.append(np.repeat(g, len(s)))
+        cols.append(np.tile(s, len(g)))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return CooMatrix(rows=rows, cols=cols, vals=a[rows] * p[cols],
+                     shape=(n_genes, n_samples))
 
 
 def run_throughput(D: np.ndarray, params: CogapsParams, n_chains: int = 16,

@@ -269,24 +269,24 @@ def accumulate_stats(cfg: EngineConfig, hist: HistConfig, phase: int,
     return stats
 
 
-def init_chain_state(cfg: EngineConfig, data: DeviceData,
-                     fixed_patterns=None) -> ChainState:
+def init_chain_state(cfg: EngineConfig, n_chains: int, n_genes: int,
+                     n_samples: int, device, fixed_patterns=None) -> ChainState:
     """Empty atom tables and zero factors for every chain; a fixed
     factor is (n, k) for all chains or (NCH, n, k)."""
-    NCH, n_genes, n_samples = data.D.shape
-    dev = data.D.device
     k = cfg.n_patterns
-    M_a = torch.zeros((NCH, n_genes, k), dtype=torch.float32, device=dev)
-    M_p = torch.zeros((NCH, n_samples, k), dtype=torch.float32, device=dev)
+    M_a = torch.zeros((n_chains, n_genes, k), dtype=torch.float32,
+                      device=device)
+    M_p = torch.zeros((n_chains, n_samples, k), dtype=torch.float32,
+                      device=device)
     if cfg.which_matrix_fixed in ("A", "P"):
         fp = torch.as_tensor(np.asarray(fixed_patterns, np.float32),
-                             device=dev)
+                             device=device)
         if cfg.which_matrix_fixed == "A":
             M_a = fp.expand_as(M_a).clone()
         else:
             M_p = fp.expand_as(M_p).clone()
-    return ChainState(atoms_a=init_atoms(cfg.capacity_a, NCH, dev),
-                      atoms_p=init_atoms(cfg.capacity_p, NCH, dev),
+    return ChainState(atoms_a=init_atoms(cfg.capacity_a, n_chains, device),
+                      atoms_p=init_atoms(cfg.capacity_p, n_chains, device),
                       M_a=M_a, M_p=M_p)
 
 
@@ -371,7 +371,11 @@ class ChainEngine:
     """Runs the chains of a DeviceData together: every array carries the
     chain dimension, and each sampler's update call is one kernel launch
     for all chains. GapsEngine (one chain) and parallel/multichain.
-    MultichainEngine build on it."""
+    MultichainEngine build on it; the sparse engines
+    (sparse_engine.SparseChainEngine) share its state, statistics and
+    run_phase with their own data and iteration."""
+
+    iterate = staticmethod(run_iteration)
 
     def __init__(self, data: DeviceData, config: EngineConfig, device):
         device = torch.device(device)
@@ -388,7 +392,8 @@ class ChainEngine:
             config, self.n_genes, self.n_samples)
 
     def init_state(self, fixed_patterns=None) -> ChainState:
-        return init_chain_state(self.config, self.data, fixed_patterns)
+        return init_chain_state(self.config, self.n_chains, self.n_genes,
+                                self.n_samples, self.device, fixed_patterns)
 
     def init_stats(self) -> RunStats:
         return init_run_stats(self.config, self.n_chains, self.n_genes,
@@ -403,7 +408,7 @@ class ChainEngine:
         stop = self.config.n_iterations if stop_iter is None else stop_iter
         every = max(self.config.dispatch_iters, 1)
         for it in range(start_iter, stop):
-            state, stats = run_iteration(
+            state, stats = self.iterate(
                 self.config, self.consts_a, self.consts_p, self.hist, phase,
                 self.data, it, state, stats, rand)
             if progress_cb is not None and (

@@ -44,13 +44,17 @@ class DensePhase(NamedTuple):
 
 
 class AlphaBatch(NamedTuple):
-    """Batched alphaParameters. The dense model's noise floors are 0
-    (cogaps_tpu/models/dense.AlphaBatch)."""
+    """Batched alphaParameters with their float32 noise floors: a Gibbs
+    draw whose |s_mu| is not above its floor is refused
+    (cogaps_tpu/models/dense.AlphaBatch). The dense model's floors are
+    0; the sparse model's are not (models/sparse.py)."""
 
     s1: torch.Tensor
     smu1: torch.Tensor
     s_pair: torch.Tensor
     smu_pair: torch.Tensor
+    err1: torch.Tensor | float = 0.0
+    err_pair: torch.Tensor | float = 0.0
 
 
 def default_uncertainty(D: np.ndarray) -> np.ndarray:

@@ -142,6 +142,14 @@ def poisson_fast(z, lam):
                                    * z), min=0.0).to(torch.int32)
 
 
+def poisson(lam: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Exact Poisson update-budget draw (reference: src/math/Random.cpp:
+    125-170), on lam's device from an explicit generator; the atlas
+    engine's budgets (cogaps_tpu/ops/rng.poisson draws them with
+    jax.random.poisson, so the two packages agree in distribution)."""
+    return torch.poisson(lam, generator=generator).to(torch.int32)
+
+
 def trunc_gamma2_y(u, b):
     """Inverse CDF of a shape-2 gamma truncated to [0, b], in y = x/scale:
     solves 1 - e^-y (1+y) = u * upper by 12 Newton steps (the same-bin

@@ -202,8 +202,10 @@ def sweep(uni: torch.Tensor, atoms: AtomTable, M: torch.Tensor, mstate,
     can1 = model.col_nz[c1] > 0.5
     can2 = model.col_nz[c2] > 0.5
     log_u = gaps_rng.log_uniform(u_acc)
-    rel1 = torch.abs(ab.smu1) > 0.0
-    rel_pair = torch.abs(ab.smu_pair) > 0.0
+    # a Gibbs draw whose s_mu is below the model's float32 noise floor
+    # is refused (cogaps_tpu/ops/sweep.py:331-335)
+    rel1 = torch.abs(ab.smu1) > ab.err1
+    rel_pair = torch.abs(ab.smu_pair) > ab.err_pair
     zero = torch.zeros_like(m1)
     same_elem = elem1 == elem2
 
@@ -233,7 +235,7 @@ def sweep(uni: torch.Tensor, atoms: AtomTable, M: torch.Tensor, mstate,
     birth_acc = is_birth & b_has & (b_mass > EPS)
 
     # death
-    rel_d = torch.abs(ab.smu1 + m1 * ab.s1) > 0.0
+    rel_d = torch.abs(ab.smu1 + m1 * ab.s1) > ab.err1
     rebirth = torch.where(can1 & d_gok & rel_d, d_gm, m1)
     dll_death = rebirth * (d_smu - d_s * rebirth * 0.5)
     death_rebirth = is_death & (log_u < dll_death)

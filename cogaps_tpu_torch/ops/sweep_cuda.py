@@ -20,38 +20,28 @@ Two random modes, as in the JAX kernel:
   to the end of the budget in one launch, reading the budgets from
   device memory: no host synchronisation.
 
-The kernel is built from csrc/sweep.cu with nvcc at first use, into
-cogaps_tpu_torch/_build/, keyed by a hash of the source and the flags,
-and bound with ctypes.
+The kernel is built from csrc/sweep.cu (with csrc/sweep_common.cuh) by
+ops/cuda_build.py at first use. Fed the sparse model's tables (G in the
+Z table's place, models/sparse.kernel_tables) with noise floors 0, the
+same wrapper and kernel are the port of the TPU kernel's tables mode,
+run_updates_pallas_tables(_multi) (K2).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
 from ..models import dense
+from . import cuda_build
 from . import rng as gaps_rng
 from .atoms import AtomTable, stack_atoms
 from .sweep import (MassParams, SamplerConsts, SweepCounts, UniformSource,
                     run_updates)
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "sweep.cu"
-BUILD_DIR = _PKG / "_build"
-# -fmad=false: every float operation rounds on its own, as the separate
-# PyTorch operations of the plain version do
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
 MAX_BATCH = 1024
 _N_OUT = 10  # done, sweeps, processed[4], accepted[4]
 _PLAIN_CHUNK = 8  # sweeps of uniforms the plain version draws at once
@@ -65,40 +55,15 @@ class PhiloxKey(NamedTuple):
     key1: int  # (phase, iteration, sampler) word
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(cuda_home) / "bin" / "nvcc")
-
-
-@functools.cache
 def build() -> tuple:
     """Compile csrc/sweep.cu (once per source hash) and load it.
     Returns (ctypes library, compiler report)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib_path = BUILD_DIR / f"libcogaps_sweep_{digest[:16]}.so"
-    report_path = lib_path.with_suffix(".log")
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        report_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib, report = cuda_build.load("sweep")
     fn = lib.cogaps_sweep_launch
     fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_float] * 3
                    + [ctypes.c_void_p] * 14 + [ctypes.c_int]
                    + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    report = report_path.read_text() if report_path.exists() else ""
     return lib, report
 
 
@@ -137,22 +102,37 @@ def run_updates_multi_plain(atoms, M, Y, phase, temp, n_steps, consts,
     """The plain version of run_updates_multi: ops/sweep.run_updates
     chain by chain, on whatever device the tensors are (inference mode
     trims PyTorch's per-operation overhead)."""
-    NCH = M.shape[0]
-    B = consts.batch
+
+    def one(c, blocks, budget, chain_mass):
+        model = dense.make_model(dense.DensePhase(
+            SQ=phase.SQ[c], Z=phase.Z[c], col_nz=phase.col_nz[c]))
+        return run_updates(blocks, atoms.chain(c), M[c],
+                           dense.DenseCache(Y=Y[c]), temp, budget, consts,
+                           chain_mass, model=model, max_sweeps=max_sweeps)
+
+    outs = plain_chains(one, rand, n_steps, consts.batch, mass, M.device)
+    return (stack_atoms([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]),
+            torch.stack([o[2].Y for o in outs]), *stack_counts(outs, M.device))
+
+
+def plain_chains(one: Callable, rand: Union[PhiloxKey, UniformSource],
+                 n_steps: torch.Tensor, B: int, mass: MassParams, device):
+    """one(c, blocks, budget, mass) for every chain c, where blocks(i) is
+    chain c's sweep-i (16, B) block from `rand` (drawn _PLAIN_CHUNK
+    sweeps at a time; a PhiloxKey gives the fast mode's blocks)."""
     if isinstance(rand, PhiloxKey):
         key = rand
 
         def rand(c, first, n):
             return gaps_rng.philox_uniforms(key.key0[c], key.key1, c, first,
-                                            n, B, device=M.device)
+                                            n, B, device=device)
 
-    budgets = [int(x) for x in n_steps.tolist()]
     outs = []
-    for c in range(NCH):
+    for c, budget in enumerate(n_steps.tolist()):
         slab = {}
 
         def blocks(i, c=c, slab=slab):
-            # draw _PLAIN_CHUNK sweeps' blocks at a time
             first = i - i % _PLAIN_CHUNK
             if first not in slab:
                 slab.clear()
@@ -160,97 +140,123 @@ def run_updates_multi_plain(atoms, M, Y, phase, temp, n_steps, consts,
                     _PLAIN_CHUNK, 16, B)
             return slab[first][i - first]
 
-        model = dense.make_model(dense.DensePhase(
-            SQ=phase.SQ[c], Z=phase.Z[c], col_nz=phase.col_nz[c]))
-        outs.append(run_updates(
-            blocks, atoms.chain(c), M[c], dense.DenseCache(Y=Y[c]), temp,
-            budgets[c], consts,
-            MassParams(lam=mass.lam[c], max_gibbs_mass=mass.max_gibbs_mass[c]),
-            model=model, max_sweeps=max_sweeps))
-    ints = functools.partial(torch.tensor, dtype=torch.int32,
-                             device=M.device)
-    return (stack_atoms([o[0] for o in outs]),
-            torch.stack([o[1] for o in outs]),
-            torch.stack([o[2].Y for o in outs]),
-            ints([o[3] for o in outs]), ints([o[4] for o in outs]),
+        outs.append(one(c, blocks, int(budget), MassParams(
+            lam=mass.lam[c], max_gibbs_mass=mass.max_gibbs_mass[c])))
+    return outs
+
+
+def stack_counts(outs, device):
+    """(done, n_sweeps, counts) of per-chain run_updates results."""
+    ints = functools.partial(torch.tensor, dtype=torch.int32, device=device)
+    return (ints([o[3] for o in outs]), ints([o[4] for o in outs]),
             SweepCounts(processed=torch.stack([o[5].processed for o in outs]),
                         accepted=torch.stack([o[5].accepted for o in outs])))
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
 
 
 def _run_kernel(atoms, M, Y, phase, temp, n_steps, consts, mass, rand,
                 s_max, max_sweeps):
     NCH, NR, K = M.shape
-    B, C = consts.batch, consts.capacity
-    if not 1 <= B <= MAX_BATCH:
-        raise ValueError(f"batch {B} outside [1, {MAX_BATCH}]")
-    if C <= 0 or C & (C - 1):
-        raise ValueError(f"capacity {C} is not a power of two")
-    if (NR, K) != (consts.n_rows, consts.k):
-        raise ValueError("factor shape does not match the sampler constants")
     dev = M.device
-    f32, i32 = torch.float32, torch.int32
+    f32 = torch.float32
     for name, t, dt, shape in (
-            ("atoms.mass", atoms.mass, f32, (NCH, C)),
-            ("atoms.elem", atoms.elem, i32, (NCH, C)),
-            ("atoms.n", atoms.n, i32, (NCH,)), ("M", M, f32, (NCH, NR, K)),
             ("Y", Y, f32, (NCH, NR, K)), ("SQ", phase.SQ, f32, (NCH, NR, K)),
             ("Z", phase.Z, f32, (NCH, NR * K, K)),
-            ("col_nz", phase.col_nz, torch.bool, (NCH, K)),
-            ("lam", mass.lam, f32, (NCH,)),
-            ("max_gibbs_mass", mass.max_gibbs_mass, f32, (NCH,)),
-            ("n_steps", n_steps, i32, (NCH,))):
-        _check(name, t, dt, shape, dev)
-    # the kernel works in place on copies of the state
-    mass_t, elem_t = atoms.mass.clone(), atoms.elem.clone()
-    n_t = atoms.n.clone()
-    M_t, Y_t = M.clone(), Y.clone()
-    SQ, Z, lam, mgm, budget = (phase.SQ, phase.Z, mass.lam,
-                               mass.max_gibbs_mass, n_steps)
-    colnz = phase.col_nz.to(i32)
-    scratch = torch.empty(NCH * (NR + 2 * C + 2), dtype=i32, device=dev)
-    out = torch.empty((NCH, _N_OUT), dtype=i32, device=dev)
+            ("col_nz", phase.col_nz, torch.bool, (NCH, K))):
+        cuda_build.check(name, t, dt, shape, dev)
+    st = KernelState.make(atoms, M, consts, mass, n_steps)
+    Y_t = Y.clone()  # the kernel works in place on copies of the state
+    colnz = phase.col_nz.to(torch.int32)
     lib, _ = build()
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def launch(budget_t, uni, s_lim, key0, key1):
-        with torch.cuda.device(dev):
-            err = lib.cogaps_sweep_launch(
-                NCH, B, C, NR, K, int(consts.local_moves),
-                float(consts.alpha * consts.n_bins),
-                float(consts.domain_length), float(temp),
-                lam.data_ptr(), mgm.data_ptr(), budget_t.data_ptr(),
-                mass_t.data_ptr(), elem_t.data_ptr(), n_t.data_ptr(),
-                M_t.data_ptr(), Y_t.data_ptr(), SQ.data_ptr(), Z.data_ptr(),
-                colnz.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-                uni.data_ptr() if uni is not None else None, s_lim,
-                key0.data_ptr() if key0 is not None else None, key1,
-                stream)
+    def launch(budget_t, uni, s_lim, key0, key1, stream):
+        err = lib.cogaps_sweep_launch(
+            NCH, consts.batch, consts.capacity, NR, K,
+            int(consts.local_moves), float(consts.alpha * consts.n_bins),
+            float(consts.domain_length), float(temp),
+            mass.lam.data_ptr(), mass.max_gibbs_mass.data_ptr(),
+            budget_t.data_ptr(), st.mass.data_ptr(), st.elem.data_ptr(),
+            st.n.data_ptr(), st.M.data_ptr(), Y_t.data_ptr(),
+            phase.SQ.data_ptr(), phase.Z.data_ptr(), colnz.data_ptr(),
+            st.scratch.data_ptr(), st.out.data_ptr(),
+            uni.data_ptr() if uni is not None else None, s_lim,
+            key0.data_ptr() if key0 is not None else None, key1, stream)
         if err != 0:
             raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
         run_updates_multi.launches += 1
 
-    if isinstance(rand, PhiloxKey):
-        _check("key0", rand.key0, torch.int64, (NCH,), dev)
-        launch(budget, None, 0, rand.key0, rand.key1 & 0xFFFFFFFF)
-        done, n_sweeps = out[:, 0], out[:, 1]
-        counts = SweepCounts(processed=out[:, 2:6], accepted=out[:, 6:10])
-    else:
-        # exact mode: slabs of s_max blocks until every budget is spent.
-        # Unfinished chains have all run the same number of sweeps.
-        target = budget.cpu()
-        total = torch.zeros((NCH, _N_OUT), dtype=i32)
+    done, n_sweeps, counts = drive(launch, st, n_steps, consts.batch, rand,
+                                   s_max, max_sweeps)
+    return st.atoms(), st.M, Y_t, done, n_sweeps, counts
+
+
+class KernelState(NamedTuple):
+    """Copies of one update call's state that a sweep kernel works on in
+    place, and its scratch and counter buffers (both kernels share the
+    atom-table and conflict machinery, csrc/sweep_common.cuh)."""
+
+    mass: torch.Tensor
+    elem: torch.Tensor
+    n: torch.Tensor
+    M: torch.Tensor
+    scratch: torch.Tensor  # (NCH * (NR + 2C + 2),) claims and hole flags
+    out: torch.Tensor  # (NCH, _N_OUT) int32 counters
+
+    @staticmethod
+    def make(atoms: AtomTable, M: torch.Tensor, consts: SamplerConsts,
+             mass: MassParams, n_steps: torch.Tensor) -> "KernelState":
+        NCH, NR, K = M.shape
+        B, C = consts.batch, consts.capacity
+        if not 1 <= B <= MAX_BATCH:
+            raise ValueError(f"batch {B} outside [1, {MAX_BATCH}]")
+        if C <= 0 or C & (C - 1):
+            raise ValueError(f"capacity {C} is not a power of two")
+        if (NR, K) != (consts.n_rows, consts.k):
+            raise ValueError(
+                "factor shape does not match the sampler constants")
+        dev = M.device
+        f32, i32 = torch.float32, torch.int32
+        for name, t, dt, shape in (
+                ("atoms.mass", atoms.mass, f32, (NCH, C)),
+                ("atoms.elem", atoms.elem, i32, (NCH, C)),
+                ("atoms.n", atoms.n, i32, (NCH,)),
+                ("M", M, f32, (NCH, NR, K)), ("lam", mass.lam, f32, (NCH,)),
+                ("max_gibbs_mass", mass.max_gibbs_mass, f32, (NCH,)),
+                ("n_steps", n_steps, i32, (NCH,))):
+            cuda_build.check(name, t, dt, shape, dev)
+        return KernelState(
+            mass=atoms.mass.clone(), elem=atoms.elem.clone(),
+            n=atoms.n.clone(), M=M.clone(),
+            scratch=torch.empty(NCH * (NR + 2 * C + 2), dtype=i32,
+                                device=dev),
+            out=torch.empty((NCH, _N_OUT), dtype=i32, device=dev))
+
+    def atoms(self) -> AtomTable:
+        return AtomTable(mass=self.mass, elem=self.elem, n=self.n)
+
+
+def drive(launch: Callable, st: KernelState, n_steps: torch.Tensor, B: int,
+          rand: Union[PhiloxKey, UniformSource], s_max: int,
+          max_sweeps: Optional[int]):
+    """Run a sweep kernel's update call in either random mode.
+    `launch(budgets, uniforms, s_lim, key0, key1, stream)` launches the
+    kernel once on the state `st`. Fast mode: one launch, budgets read
+    on the device. Exact mode: slabs of s_max uniform blocks until every
+    budget is spent (or `max_sweeps` sweeps have run); unfinished chains
+    have all run the same number of sweeps. Returns (done, n_sweeps,
+    counts) on the device."""
+    dev = st.M.device
+    NCH = st.M.shape[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if isinstance(rand, PhiloxKey):
+            cuda_build.check("key0", rand.key0, torch.int64, (NCH,), dev)
+            launch(n_steps, None, 0, rand.key0, rand.key1 & 0xFFFFFFFF,
+                   stream)
+            out = st.out
+            return out[:, 0], out[:, 1], SweepCounts(processed=out[:, 2:6],
+                                                     accepted=out[:, 6:10])
+        target = n_steps.cpu()
+        total = torch.zeros((NCH, _N_OUT), dtype=torch.int32)
         swept = 0
         while bool((total[:, 0] < target).any()):
             s_lim = s_max
@@ -260,14 +266,14 @@ def _run_kernel(atoms, M, Y, phase, temp, n_steps, consts, mass, rand,
                     break
             offs = total[:, 1].tolist()
             uni = torch.stack([rand(c, offs[c], s_lim) for c in range(NCH)]
-                              ).to(device=dev, dtype=f32).contiguous()
-            _check("uniforms", uni, f32, (NCH, s_lim * 16, B), dev)
+                              ).to(device=dev, dtype=torch.float32
+                                   ).contiguous()
+            cuda_build.check("uniforms", uni, torch.float32,
+                             (NCH, s_lim * 16, B), dev)
             left = (target - total[:, 0]).to(device=dev)
-            launch(left, uni, s_lim, None, 0)
-            total += out.cpu()
+            launch(left, uni, s_lim, None, 0, stream)
+            total += st.out.cpu()
             swept += s_lim
-        done, n_sweeps = total[:, 0].to(dev), total[:, 1].to(dev)
-        counts = SweepCounts(processed=total[:, 2:6].to(dev),
-                             accepted=total[:, 6:10].to(dev))
-    return (AtomTable(mass=mass_t, elem=elem_t, n=n_t), M_t, Y_t, done,
-            n_sweeps, counts)
+    return (total[:, 0].to(dev), total[:, 1].to(dev),
+            SweepCounts(processed=total[:, 2:6].to(dev),
+                        accepted=total[:, 6:10].to(dev)))

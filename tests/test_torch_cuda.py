@@ -1,4 +1,5 @@
-"""The CUDA sweep kernel (cogaps_tpu_torch/csrc/sweep.cu) on the card.
+"""The CUDA sweep kernels (cogaps_tpu_torch/csrc/sweep.cu and atlas.cu) on
+the card.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither jax nor the JAX package, so it also runs where those are
@@ -6,12 +7,17 @@ absent, without the suite's conftest.py (which loads jax):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The kernel is held to its plain version (ops/sweep.py, run on the same
-CUDA tensors by sweep_cuda.run_updates_multi_plain) decision for
+The dense sweep kernel, on dense tables (K1) and on the sparse model's
+tables (K2), is held to its plain version (ops/sweep.py, run on the
+same CUDA tensors by sweep_cuda.run_updates_multi_plain) decision for
 decision: equal done, sweeps, counts and elem tables; mass and M within
 1e-5 and Y within 1e-3 (the North-star tolerances; on the card both
 sides use the same float32 operations and CUDA math functions, and
-agree bit for bit in practice)."""
+agree bit for bit in practice). The CSR sweep kernel (K4) is held to
+its plain version (ops/sweep.py with models/sparse.make_model) by the
+per-call contract of tests/test_atlas_engine.py:218-227: equal done,
+sweeps, counts, n and elem; mass and M within atol 5e-3, rtol 1e-4 (it
+sums over a row's nonzeros in another order)."""
 
 import os
 
@@ -19,8 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from cogaps_tpu_torch.models import dense
-from cogaps_tpu_torch.ops import rng, sweep, sweep_cuda
+from cogaps_tpu_torch.models import dense, sparse
+from cogaps_tpu_torch.ops import atlas_cuda, rng, sweep, sweep_cuda
 from cogaps_tpu_torch.ops.atoms import AtomTable, total_mass_per_element
 
 pytestmark = pytest.mark.cuda
@@ -180,6 +186,179 @@ def test_wrapper_checks_inputs(cuda_device):
         sweep_cuda.run_updates_multi(
             atoms, M, Y, phase, 1.0, budgets, consts,
             sweep.MassParams(mass.lam.cpu(), mass.max_gibbs_mass), key)
+
+
+# ----------------------------------------------------------------------
+# K2: the sweep kernel on the sparse model's tables
+# ----------------------------------------------------------------------
+def sparse_data(G, S, seed, density=0.4):
+    rs = np.random.default_rng(seed)
+    D = (rs.gamma(2.0, 1.0, (G, S)) * (rs.random((G, S)) < density))
+    return D.astype(np.float32)
+
+
+def sparse_states(device, D, k, B, C, nch, seed=0):
+    """NCH chains' atoms, M and partner factors on the rows of D."""
+    rs = np.random.default_rng(seed)
+    NR, m = D.shape
+    NB = NR * k
+    mass = np.zeros((nch, C), np.float32)
+    elem = np.full((nch, C), -1, np.int32)
+    n = np.zeros(nch, np.int32)
+    for c in range(nch):
+        n[c] = min(C // 4, NB // 3, 10 + 30 * c)
+        elem[c, :n[c]] = rs.integers(0, NB, n[c])
+        mass[c, :n[c]] = rs.gamma(2.0, 0.5, n[c])
+    to = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    atoms = AtomTable(mass=to(mass), elem=to(elem), n=to(n))
+    M = torch.stack([total_mass_per_element(atoms.chain(c), NB).reshape(NR, k)
+                     for c in range(nch)])
+    other = to(rs.gamma(2.0, 1.0, (nch, m, k)).astype(np.float32))
+    lam = 0.01 * float(np.sqrt(k / D[D != 0].mean()))
+    mass_p = sweep.MassParams(lam=to(np.full(nch, lam, np.float32)),
+                              max_gibbs_mass=to(np.full(nch, 100 / lam,
+                                                        np.float32)))
+    return atoms, M, other, mass_p, sweep.make_consts(NR, m, k, C, B, 0.01)
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("side", ["A", "P"])
+def test_tables_kernel_matches_plain(cuda_device, mode, side):
+    D = sparse_data(60, 35, 1)
+    D = D if side == "A" else D.T
+    atoms, M, other, mass, consts = sparse_states(cuda_device, D, 4, 64,
+                                                  1024, 3)
+    r, c = np.nonzero(D)
+    csr = sparse.coo_to_csr(r, c, D[r, c], D.shape[0])
+    Wd, D1 = (w[0].to(cuda_device)
+              for w in sparse.dense_weights(csr, D.shape[1]))
+    SQ, Y0, G = sparse.kernel_tables(Wd, D1, other, M)
+    phase = dense.DensePhase(SQ=SQ, Z=G, col_nz=other.amax(dim=1) > 0)
+    budgets = torch.tensor([500, 90, 1], dtype=torch.int32,
+                           device=cuda_device)
+    rand = (sweep_cuda.PhiloxKey(key0=torch.tensor([4, 5, 6],
+                                                   device=cuda_device),
+                                 key1=2) if mode == "fast" else
+            lambda c, first, n: rng.philox_uniforms(50 + c, 3, c, first, n,
+                                                    64, device=cuda_device))
+    out_k = sweep_cuda.run_updates_multi(atoms, M, Y0, phase, 0.8, budgets,
+                                         consts, mass, rand, s_max=8)
+    out_p = sweep_cuda.run_updates_multi_plain(atoms, M, Y0, phase, 0.8,
+                                               budgets, consts, mass, rand)
+    torch.cuda.synchronize()
+    assert_same(out_k, out_p)
+
+
+# ----------------------------------------------------------------------
+# K4: the CSR sweep kernel
+# ----------------------------------------------------------------------
+def assert_atlas_same(out_k, out_p):
+    a_k, M_k, done_k, ns_k, cnt_k = out_k
+    a_p, M_p, done_p, ns_p, cnt_p = out_p
+    for x, y in ((done_k, done_p), (ns_k, ns_p), (a_k.n, a_p.n),
+                 (a_k.elem, a_p.elem), (cnt_k.processed, cnt_p.processed),
+                 (cnt_k.accepted, cnt_p.accepted)):
+        assert torch.equal(x.cpu().to(torch.int64), y.cpu().to(torch.int64))
+    torch.testing.assert_close(a_k.mass, a_p.mass, rtol=1e-4, atol=5e-3)
+    torch.testing.assert_close(M_k, M_p, rtol=1e-4, atol=5e-3)
+
+
+ATLAS_SHAPES = [(64, 48, 3, 128, 2048, 0.5), (300, 200, 5, 256, 4096, 0.3),
+                (40, 900, 8, 32, 1024, 0.6)]  # the last: rows of ~540 nnz
+
+
+@pytest.mark.parametrize("shape", ATLAS_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:3])))
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_atlas_kernel_matches_plain(cuda_device, shape, mode):
+    G, S, k, B, C, density = shape
+    D = sparse_data(G, S, 2, density)
+    atoms, M, other, mass, consts = sparse_states(cuda_device, D, k, B, C, 2)
+    r, c = np.nonzero(D)
+    csr = sparse.stack_csr([(r, c, D[r, c])] * 2, G).to(cuda_device)
+    budgets = torch.tensor([400, 37], dtype=torch.int32, device=cuda_device)
+    rand = (sweep_cuda.PhiloxKey(key0=torch.tensor([8, 9],
+                                                   device=cuda_device),
+                                 key1=4) if mode == "fast" else
+            lambda c, first, n: rng.philox_uniforms(70 + c, 5, c, first, n,
+                                                    B, device=cuda_device))
+    before = atlas_cuda.run_updates_atlas_multi.launches
+    out_k = atlas_cuda.run_updates_atlas_multi(
+        atoms, M, csr, other, 0.7, budgets, consts, mass, rand, s_max=8)
+    assert atlas_cuda.run_updates_atlas_multi.launches > before
+    out_p = atlas_cuda.run_updates_atlas_multi_plain(
+        atoms, M, csr, other, 0.7, budgets, consts, mass, rand)
+    torch.cuda.synchronize()
+    assert_atlas_same(out_k, out_p)
+    assert torch.equal(out_k[2].cpu(), budgets.cpu())
+
+
+def test_atlas_kernel_keeps_mass_and_checks_inputs(cuda_device):
+    D = sparse_data(120, 80, 3)
+    atoms, M, other, mass, consts = sparse_states(cuda_device, D, 4, 128,
+                                                  2048, 2)
+    r, c = np.nonzero(D)
+    csr = sparse.stack_csr([(r, c, D[r, c])] * 2, 120).to(cuda_device)
+    budgets = torch.full((2,), 3000, dtype=torch.int32, device=cuda_device)
+    key = sweep_cuda.PhiloxKey(key0=torch.arange(2, device=cuda_device),
+                               key1=1)
+    a, M2, done, ns, cnt = atlas_cuda.run_updates_atlas_multi(
+        atoms, M, csr, other, 1.0, budgets, consts, mass, key)
+    assert (done == 3000).all() and (cnt.accepted <= cnt.processed).all()
+    for ch in range(2):
+        drift = (total_mass_per_element(a.chain(ch), 120 * 4).reshape(120, 4)
+                 - M2[ch]).abs().max()
+        assert float(drift) < 1e-2
+    with pytest.raises(ValueError, match="is on"):
+        atlas_cuda.run_updates_atlas_multi(atoms, M, csr.to("cpu"), other,
+                                           1.0, budgets, consts, mass, key)
+
+
+def test_sparse_engines_on_card(cuda_device):
+    """The sparse engine in every mode, CoGAPS(sparse_optimization=True)
+    and run_atlas on the card: the chi^2 history falls 5x
+    (tests/test_sparse.py:107-114) and the kernels launched."""
+    import dataclasses
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.io.coo import CooMatrix
+    from cogaps_tpu_torch.parallel.atlas_engine import run_atlas
+    from cogaps_tpu_torch.sparse_engine import SparseGapsEngine
+    rs = np.random.default_rng(5)
+    A = rs.gamma(2.0, 1.0, (30, 3)) * (rs.random((30, 3)) < 0.45)
+    P = rs.gamma(2.0, 1.0, (20, 3)) * (rs.random((20, 3)) < 0.45)
+    D = (A @ P.T).astype(np.float32)
+    cfg = cogaps_tpu_torch.CogapsParams(
+        n_patterns=3, n_iterations=300, seed=1,
+        output_frequency=100).engine_config(*D.shape)
+
+    def launches():
+        return (sweep_cuda.run_updates_multi.launches
+                + atlas_cuda.run_updates_atlas_multi.launches)
+
+    for mode in ("dense", "ell", "xla"):
+        before = launches()
+        eng = SparseGapsEngine(
+            D, dataclasses.replace(cfg, sparse_table_mode=mode), cuda_device)
+        st, ss = eng.init_state(), eng.init_stats()
+        rand = PhiloxRandom([1], cuda_device)
+        for ph in (EQUILIBRATION, SAMPLING):
+            st, ss = eng.run_phase(st, ss, rand, ph)
+        h = ss.chisq_hist[0].cpu().numpy()
+        assert h[-1] < 0.2 * h[0], (mode, h)
+        assert launches() - before >= 2 * 2 * 300
+    res = cogaps_tpu_torch.CoGAPS(D, n_patterns=3, n_iterations=300, seed=1,
+                                  messages=False, sparse_optimization=True,
+                                  output_frequency=100, device=cuda_device)
+    h = res.diagnostics["chisqHistory"]
+    assert h[-1] < 0.2 * h[0] and np.isfinite(res.mean_chi_sq)
+    r, c = np.nonzero(D)
+    res = run_atlas(CooMatrix(r, c, D[r, c], D.shape), n_patterns=3,
+                    n_iterations=300, seed=2, messages=False,
+                    device=cuda_device, batch=64, capacity=1024)
+    # 100 * nnz is chi^2 at zero factors
+    assert np.isfinite(res.mean_chi_sq)
+    assert res.mean_chi_sq < 0.2 * 100 * len(r)
 
 
 # ----------------------------------------------------------------------
