@@ -8,7 +8,8 @@ package's XLA sparse sweep per update call on the engine's own
 trajectory, as tests/test_atlas_engine.py:167-227 holds the Pallas atlas
 kernel to it, on that file's 64 x 48, k = 3 toy: every call of a few
 port iterations is replayed through cogaps_tpu/ops/sweep.run_updates
-(op by op, on the same uniforms) with its make_model. Tolerance: that
+(op by op, on the same uniforms) with its make_model; one call is also
+held to the Pallas atlas kernel itself in interpret mode. Tolerance: that
 test's per-call contract — equal done, sweeps and counts (and here the
 elem table) — and M and mass within atol 5e-3, rtol 1e-4 (the two
 packages round the closed forms' sums in another order)."""
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from cogaps_tpu.models import sparse as jsparse
+from cogaps_tpu.ops import pallas_atlas
 from cogaps_tpu.ops.atoms import AtomTable as JAtoms
 from cogaps_tpu.ops.sweep import MassParams as JMass
 from cogaps_tpu.ops.sweep import make_consts as j_make_consts
@@ -28,8 +30,8 @@ from cogaps_tpu.parallel import atlas_engine as jatlas
 from cogaps_tpu.params import CogapsParams as JParams
 from cogaps_tpu_torch import convert, engine
 from cogaps_tpu_torch.io.coo import CooMatrix
-from cogaps_tpu_torch.models import sparse
-from cogaps_tpu_torch.ops.atoms import total_mass_per_element
+from cogaps_tpu_torch.ops.atlas_cuda import run_updates_atlas_multi
+from cogaps_tpu_torch.ops.atoms import AtomTable, total_mass_per_element
 from cogaps_tpu_torch.parallel import atlas_engine
 from cogaps_tpu_torch.params import CogapsParams
 from test_torch_engine import jax_blocks
@@ -152,6 +154,64 @@ def test_plain_atlas_calls_match_jax_xla_sweep(monkeypatch):
             np.testing.assert_allclose(M2[0].numpy(), np.asarray(M1),
                                        atol=5e-3, rtol=1e-4, err_msg=what)
     assert int(state.atoms_a.n[0]) > 10 and int(state.atoms_p.n[0]) > 10
+
+
+def test_plain_atlas_call_matches_pallas_interpret():
+    """One A update call of the port's plain version against
+    cogaps_tpu/ops/pallas_atlas.run_updates_atlas(interpret=True) on the
+    same random state, planes built from the same partner factor, and
+    the same uniforms."""
+    coo, _ = toy_coo()
+    k, C = 3, 2048
+    eng = make_engine(coo)
+    jcfg = JParams(n_patterns=k, n_iterations=60, seed=11,
+                   sparse_optimization=True).engine_config(*coo.shape)
+    jeng = jatlas.AtlasEngine(coo, jcfg, batch=128, group=16, seg=8,
+                              capacity=C, s_max=24)
+    rng = np.random.default_rng(6)
+    n0 = 60
+    elem = np.where(np.arange(C) < n0, rng.integers(0, 64 * k, C), -1
+                    ).astype(np.int32)
+    mass = np.where(np.arange(C) < n0, rng.gamma(2.0, 0.5, C), 0.0
+                    ).astype(np.float32)
+    M = np.zeros(64 * k, np.float32)
+    np.add.at(M, elem[:n0], mass[:n0])
+    M = M.reshape(64, k)
+    partner = rng.gamma(2.0, 1.0, (48, k)).astype(np.float32)
+    jpartner = jnp.asarray(partner)
+    plane = jatlas.rebuild_plane(
+        jnp.zeros((jeng.ap_a.prows, 128), jnp.float32),
+        jeng._arrs["idx_a"], jeng._arrs["dr_a"], jpartner, k)
+    key = jax.random.PRNGKey(5)
+    a1, mmir, done1, ns1, cnt1 = pallas_atlas.run_updates_atlas(
+        key, JAtoms(mass=jnp.asarray(mass), elem=jnp.asarray(elem),
+                    n=jnp.asarray(n0, jnp.int32)),
+        jatlas.make_mirror(jeng.side_a, jnp.asarray(M), k), plane,
+        jnp.zeros((128, 128), jnp.float32).at[:k, :k].set(
+            jpartner.T @ jpartner),
+        jnp.zeros((1, 128), jnp.float32).at[0, :k].set(
+            (partner.max(axis=0) > 0).astype(np.float32)),
+        jnp.float32(1.0), jnp.asarray(60, jnp.int32), jeng.consts_a,
+        jeng.mass_a, jeng.ap_a, s_max=24, interpret=True)
+    a2, M2, done2, ns2, cnt2 = run_updates_atlas_multi(
+        AtomTable(mass=torch.from_numpy(mass)[None],
+                  elem=torch.from_numpy(elem)[None],
+                  n=torch.tensor([n0], dtype=torch.int32)),
+        torch.from_numpy(M)[None], eng.side_a,
+        torch.from_numpy(partner)[None], 1.0,
+        torch.tensor([60], dtype=torch.int32), eng.consts_a, eng.mass_a,
+        lambda c, first, n: jax_blocks(key, first, n, 128))
+    assert int(done2[0]) == int(done1) == 60 and int(ns2[0]) == int(ns1)
+    np.testing.assert_array_equal(cnt2.processed[0].numpy(),
+                                  np.asarray(cnt1.processed))
+    np.testing.assert_array_equal(cnt2.accepted[0].numpy(),
+                                  np.asarray(cnt1.accepted))
+    np.testing.assert_array_equal(a2.elem[0].numpy(), np.asarray(a1.elem))
+    np.testing.assert_allclose(a2.mass[0].numpy(), np.asarray(a1.mass),
+                               atol=5e-3, rtol=1e-4)
+    np.testing.assert_allclose(M2[0].numpy(), np.asarray(mmir)[:, :k],
+                               atol=5e-3, rtol=1e-4)
+    assert int(cnt2.accepted[0].sum()) > 10
 
 
 def test_atlas_engine_keeps_m_equal_to_atom_masses():
