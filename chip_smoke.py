@@ -2,10 +2,11 @@
 """Smoke check of cogaps_tpu_torch on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-sweep kernels from cogaps_tpu_torch/csrc/ (sweep.cu and atlas.cu, one
+kernels from cogaps_tpu_torch/csrc/ (sweep.cu, atlas.cu and span.cu, one
 nvcc each, started together), holds each against its plain PyTorch
 version on the card, drives the port's dense main path through
-``CoGAPS()`` and the multi-chain throughput harness on GIST, runs a
+``CoGAPS()`` and the multi-chain throughput harness on GIST (the fused
+span, and the per-call route on the same data for comparison), runs a
 5,000 x 2,000 k=10 dataset, drives the sparse model through
 ``CoGAPS(sparse_optimization=True)``, the sparse multi-chain engine and
 the atlas engine, and fails on the first phase that fails. Without a
@@ -14,7 +15,8 @@ prints no result.
 
 Phases:
   1 device  — name and power limit (nvidia-smi);
-  2 build   — nvcc builds of both kernels, with ptxas's reports;
+  2 build   — nvcc builds of the three kernel sources, with ptxas's
+              reports;
   3 kernels — kernel vs plain version on CUDA tensors, in exact mode (the
               same uniform slab) and in fast mode (in-kernel Philox);
               per-call times:
@@ -28,11 +30,25 @@ Phases:
               done, sweeps, counts, n and elem; mass and M within atol
               5e-3, rtol 1e-4 (sums over a row's nonzeros in another
               order, tests/test_atlas_engine.py:218-227);
+              K3, the fused span, on GIST with 16 chains (phase 5's
+              width) from a state after 50 per-call equilibration
+              iterations: 5-iteration spans in equilibration and in
+              sampling against its plain version (ops/span.py): equal atom
+              tables and counters, mass, M and the running sums within
+              1e-5 (on a mismatch, one-iteration spans locate the first
+              iteration that differs); its rebuild alone against numpy
+              float64 tables rounded once, bit for bit, at
+              tools/probe_rebuild.py's shape (384 x 9, k=7) and at GIST;
+              times per span, per chunk and per iteration, and the
+              kernel's time with every budget 0 (no sweeps);
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda):
               meanChiSq below 2x the golden GIST value, and the kernel
               launched at least twice per iteration of each phase;
-  5 throughput — run_throughput on GIST, 16 chains, 2000 iterations,
-              the same gate; updates/s;
+  5 throughput — run_throughput on GIST, 16 chains, 2000 iterations (the
+              fused span: K3 launched, the per-call sweep kernel not),
+              then the per-call route on the same data and seeds
+              (ChainEngine.run_phase): the same gate for each; updates/s
+              of each;
   6 realistic — 4 chains of a synthetic 5000 x 2000 matrix (k=10), 100
               iterations per phase: a finite, falling chi^2 history;
               updates/s and peak device memory;
@@ -220,6 +236,26 @@ def time_calls(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, name, reps=5):
+    """Mean device time in ms per call of fn() of the kernels whose name
+    holds `name` (torch.profiler's CUDA events), after a warm-up call:
+    the kernel alone, without the host work around its launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and name in e.name())
+    if not ns:
+        raise RuntimeError(f"torch.profiler recorded no {name} on the card")
+    return ns * 1e-6 / reps
+
+
 def time_plain(fn):
     import torch
     torch.cuda.synchronize()
@@ -265,20 +301,32 @@ def random_atoms(rng, nch, NR, k, C, device):
 # bytes and float32 operations of one update call that the bound counts
 # (PERF.md section 6): each proposal touches one row (birth, death) or
 # two (move, exchange); the atom table is read and written once
-def sweep_bound_ms(processed, n_atoms, row_bytes, prop_flops,
-                   fixed_bytes=0):
+def sweep_work(processed, n_atoms, row_bytes, prop_flops, fixed_bytes=0):
     p = np.asarray(processed.cpu(), np.int64).reshape(-1, 4)
     rows = p[:, 0] + p[:, 1] + 2 * (p[:, 2] + p[:, 3])
     n_bytes = (fixed_bytes + float(rows.sum()) * row_bytes
                + 16.0 * float(np.asarray(n_atoms.cpu(), np.int64).sum()))
-    flops = float(p.sum()) * prop_flops
+    return n_bytes, float(p.sum()) * prop_flops
+
+
+def bound_ms(n_bytes, flops):
+    """The larger of the bytes over the memory rate and the operations
+    over the peak rate, in ms, and which of the two it is."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sweep_bound_ms(processed, n_atoms, row_bytes, prop_flops,
+                   fixed_bytes=0):
+    return bound_ms(*sweep_work(processed, n_atoms, row_bytes, prop_flops,
+                                fixed_bytes))
+
+
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_F32_PER_S = 67e12  # float32 outside the tensor cores
+# float32 outside the tensor cores; also the float64 tensor-core rate of
+# the data sheet, so it bounds the span kernel's float64 rebuild too
+H100_F32_PER_S = 67e12
 
 
 def tables_case(name, D, rows_are_genes, k, B, C, nch, budget, seed, device):
@@ -512,19 +560,273 @@ def phase_atlas_kernel(device, side_a, side_p, reps=5):
     return results, max_err
 
 
+# ----------------------------------------------------------------------
+# phase 3: K3, the fused span
+# ----------------------------------------------------------------------
+def rebuild_bound_ms(G, S, k, nch):
+    """The bound of the rebuild-only entry point: D and invS2 read once
+    (D_t and invS2_t are layouts of the same inputs), both factors read
+    once, every table (Y, SQ, Z of each sampler) written once; the float64
+    operations of span_cuda.rebuild_ops."""
+    from cogaps_tpu_torch.ops.span_cuda import rebuild_ops
+    n_bytes = 4 * nch * (2 * G * S + (G + S) * k + (G + S) * k * (2 + k))
+    return bound_ms(n_bytes, nch * rebuild_ops(G, S, k))
+
+
+def span_bound_ms(G, S, k, nch, n_it, before, after, sampling):
+    """The bound of an n_it-iteration span from the run's own counts. Once
+    a span: D and invS2 read, both factors read and written, the atom
+    tables at the span's end read and written, and the running sums read
+    and written while sampling. The sweeps' row traffic and operations as
+    sweep_bound_ms counts them, and the rebuilds' float64 operations every
+    iteration. The tables the kernel rebuilds and rereads in between are
+    its scratch, neither input nor output of the span."""
+    from cogaps_tpu_torch.ops.span_cuda import rebuild_ops
+    n_bytes = 4 * nch * (2 * G * S + 2 * (G + S) * k)
+    flops = n_it * nch * rebuild_ops(G, S, k)
+    done = after[1].prop_counts - before[1].prop_counts
+    for row, atoms in ((0, after[0].atoms_a), (1, after[0].atoms_p)):
+        b, f = sweep_work(done[:, row], atoms.n, 4 * (5 * k + k * k),
+                          300 + 2 * k)
+        n_bytes, flops = n_bytes + b, flops + f
+    if sampling:
+        n_bytes += 2 * 4 * 2 * (G + S) * k * nch
+    return bound_ms(n_bytes, flops)
+
+
+def compare_span(what, out_k, out_p):
+    """Decision-exact agreement of two spans' (state, stats); returns
+    (problems, largest |difference| of mass, M and the running sums)."""
+    (st_k, ss_k), (st_p, ss_p) = out_k, out_p
+    problems = []
+    for label, x, y in (
+            ("elem_a", st_k.atoms_a.elem, st_p.atoms_a.elem),
+            ("n_a", st_k.atoms_a.n, st_p.atoms_a.n),
+            ("elem_p", st_k.atoms_p.elem, st_p.atoms_p.elem),
+            ("n_p", st_k.atoms_p.n, st_p.atoms_p.n),
+            ("done", ss_k.upd, ss_p.upd),
+            ("sweeps", ss_k.sweep_counts, ss_p.sweep_counts),
+            ("processed", ss_k.prop_counts, ss_p.prop_counts),
+            ("accepted", ss_k.acc_counts, ss_p.acc_counts),
+            ("n_stat", ss_k.n_stat, ss_p.n_stat)):
+        if not np.array_equal(x.cpu().numpy(), y.cpu().numpy()):
+            problems.append(label)
+    errs = {}
+    for label, x, y in (
+            ("mass_a", st_k.atoms_a.mass, st_p.atoms_a.mass),
+            ("mass_p", st_k.atoms_p.mass, st_p.atoms_p.mass),
+            ("M_a", st_k.M_a, st_p.M_a), ("M_p", st_k.M_p, st_p.M_p),
+            ("a_sum", ss_k.a_sum, ss_p.a_sum),
+            ("a_sumsq", ss_k.a_sumsq, ss_p.a_sumsq),
+            ("p_sum", ss_k.p_sum, ss_p.p_sum),
+            ("p_sumsq", ss_k.p_sumsq, ss_p.p_sumsq)):
+        x, y = x.double().cpu().numpy(), y.double().cpu().numpy()
+        errs[label] = float(np.abs(x - y).max())
+        if not np.all(np.abs(x - y) <= TOL_MASS_M + TOL_MASS_M * np.abs(y)):
+            problems.append(label)
+    log(f"  {what}: updates {ss_k.upd.tolist()}, sweeps "
+        f"{ss_k.sweep_counts.tolist()}, atoms A {st_k.atoms_a.n.tolist()} P "
+        f"{st_k.atoms_p.n.tolist()}; max|diff| "
+        + ", ".join(f"{name} {e:.3g}" for name, e in errs.items()))
+    return problems, max(errs.values())
+
+
+def locate_span_divergence(eng, span_args, state, stats, rand):
+    """Run kernel and plain version one iteration at a time from the
+    plain version's state; print the first iteration that differs."""
+    import torch
+    from cogaps_tpu_torch.ops import span, span_cuda
+    cfg, ca, cp, hist, phase, data, it0, n_it = span_args
+    for it in range(it0, it0 + n_it):
+        one = (cfg, ca, cp, hist, phase, data, it, 1, state, stats)
+        out_k = span_cuda.run_span(*one, rand())
+        out_p = span.run_span_plain(*one, rand())
+        torch.cuda.synchronize()
+        problems, _ = compare_span(f"iteration {it} alone", out_k, out_p)
+        if problems:
+            log(f"  first difference: iteration {it} of phase {phase}: "
+                f"{problems}")
+            return
+        state, stats = out_p
+
+
+def numpy_tables(D, inv, M_a, M_p):
+    """Both samplers' tables in numpy float64, each rounded once to
+    float32 (the fields of ops/span.SpanTables)."""
+    def side(X, W, M, O):
+        R = (X - M @ O.T) * W
+        Z = W @ (O[:, :, None] * O[:, None, :]).reshape(len(O), -1)
+        return (R @ O, W @ (O * O), Z.reshape(-1, O.shape[1]),
+                O.max(axis=0) > 0)
+
+    D, inv, M_a, M_p = (x.astype(np.float64) for x in (D, inv, M_a, M_p))
+    out = side(D, inv, M_a, M_p) + side(D.T, inv.T, M_p, M_a)
+    return [x if x.dtype == bool else x.astype(np.float32) for x in out]
+
+
+def rebuild_check(name, D, k, seed, device, reps=20):
+    """The span kernel's rebuild alone against numpy_tables on one chain
+    with random factors; returns (kernel device ms, plain ms, bound ms,
+    bound_by)."""
+    import torch
+    from cogaps_tpu_torch.engine import _device_data
+    from cogaps_tpu_torch.ops import span, span_cuda
+    rng = np.random.default_rng(seed)
+    G, S = D.shape
+    inv = (1.0 / np.maximum(0.1 * D, 0.1) ** 2).astype(np.float32)
+    M_a = rng.gamma(2.0, 1.0, (G, k)).astype(np.float32)
+    M_p = rng.gamma(2.0, 1.0, (S, k)).astype(np.float32)
+    one = np.float32([1.0])
+    data = _device_data(D[None], inv[None], one, one, one, one, device)
+    Ma_t = torch.as_tensor(M_a[None], device=device)
+    Mp_t = torch.as_tensor(M_p[None], device=device)
+    got = span_cuda.rebuild_tables(data, Ma_t, Mp_t)
+    want = numpy_tables(D, inv, M_a, M_p)
+    worst, unequal = 0.0, []
+    for field, x, y in zip(got._fields, got, want):
+        x = x[0].cpu().numpy()
+        if not np.array_equal(x, y):
+            unequal.append(field)
+            if x.dtype != bool:
+                worst = max(worst, float(np.abs(x.astype(np.float64) - y).max()
+                                         / max(np.abs(y).max(), 1e-30)))
+    ms = device_ms(lambda: span_cuda.rebuild_tables(data, Ma_t, Mp_t),
+                   "rebuild_kernel", reps)
+    plain = time_plain(lambda: span.rebuild_tables_plain(data, Ma_t, Mp_t))
+    bound, by = rebuild_bound_ms(G, S, k, 1)
+    log(f"  rebuild alone, {name}: "
+        + ("bit-equal to numpy float64 rounded once" if not unequal else
+           f"UNEQUAL {unequal}, max relative error {worst:.3g}")
+        + f"; {ms:.4f} ms on the device, plain {plain:.4f} ms, bound "
+        f"{bound:.6f} ms ({by})")
+    if unequal:
+        raise AssertionError(f"span rebuild differs from numpy: {unequal}")
+    return ms, plain, bound, by
+
+
+def phase_span(device, reps=5, n_chains=16, seed=21):
+    """K3 against its plain version on GIST (n_chains chains, as phase 5
+    runs it; 5-iteration spans from a state after 50 per-call
+    equilibration iterations), its rebuild alone against numpy, and its
+    times, with the share of the kernel's iteration that is not the
+    sweeps. Returns (row, max_err, extra) with row (name, kernel ms,
+    plain ms, bound ms, bound_by) for the 5-iteration sampling span."""
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import throughput_engine
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, SAMPLING, ChainEngine,
+                                         PhiloxRandom)
+    from cogaps_tpu_torch.io import parsers
+    from cogaps_tpu_torch.ops import span, span_cuda
+    D, _, _ = parsers.read_matrix(GIST_CSV)
+    G, S = D.shape
+    k = 7
+    eng, _ = throughput_engine(D, cogaps_tpu_torch.CogapsParams(
+        n_patterns=k, n_iterations=2000, seed=seed, output_frequency=0),
+        n_chains, None, device)
+    seeds = [seed + c for c in range(n_chains)]
+
+    def rand():
+        return PhiloxRandom(seeds, device)
+
+    class NoSweeps(PhiloxRandom):
+        """Budget normals of -1e30: every budget is 0, so a span runs its
+        rebuilds, statistics and counters, and no sweep."""
+
+        def budget_normals(self, phase, start, n):
+            return torch.full((n_chains, n, 2), -1e30, device=device)
+
+    state, stats = ChainEngine.run_phase(eng, eng.init_state(),
+                                         eng.init_stats(), rand(),
+                                         EQUILIBRATION, 0, 50)
+
+    def args(phase, it0, n_it):
+        return (eng.config, eng.consts_a, eng.consts_p, eng.hist, phase,
+                eng.data, it0, n_it)
+
+    failed, max_err, plain_ms = [], 0.0, {}
+    for phase, it0 in ((EQUILIBRATION, 50), (SAMPLING, 0)):
+        out_k = span_cuda.run_span(*args(phase, it0, 5), state, stats,
+                                   rand())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = span.run_span_plain(*args(phase, it0, 5), state, stats,
+                                    rand())
+        torch.cuda.synchronize()
+        plain_ms[phase] = (time.perf_counter() - t0) * 1e3
+        problems, err = compare_span(
+            f"GIST x{n_chains}, 5 iterations from {it0} of phase {phase}",
+            out_k, out_p)
+        max_err = max(max_err, err)
+        if problems:
+            log(f"  MISMATCH (phase {phase}): {problems}")
+            locate_span_divergence(eng, args(phase, it0, 5), state, stats,
+                                   rand)
+            failed.append(phase)
+        if phase == SAMPLING:
+            bound, by = span_bound_ms(G, S, k, n_chains, 5, (state, stats),
+                                      out_k, True)
+    if failed:
+        raise AssertionError(f"K3 and its plain version disagree: {failed}")
+    warm = rand()  # the budget normals of 256 iterations, drawn once
+
+    def run(phase, it0, n_it):
+        return span_cuda.run_span(*args(phase, it0, n_it), state, stats,
+                                  warm)
+
+    span_ms = time_calls(lambda: run(SAMPLING, 0, 5), reps)
+    chunk_ms = {phase: time_calls(lambda: run(phase, it0, span_cuda.CHUNK),
+                                  reps)
+                for phase, it0 in ((EQUILIBRATION, 50), (SAMPLING, 0))}
+    kernel_ms = device_ms(lambda: run(SAMPLING, 0, span_cuda.CHUNK),
+                          "span_kernel", reps)
+    no_sweeps_ms = device_ms(lambda: span_cuda.run_span(
+        *args(SAMPLING, 0, span_cuda.CHUNK), state, stats,
+        NoSweeps(seeds, device)), "span_kernel", reps) / span_cuda.CHUNK
+    tables_ms = device_ms(lambda: span_cuda.rebuild_tables(
+        eng.data, state.M_a, state.M_p), "rebuild_kernel", reps)
+    log(f"  K3 GIST x{n_chains}: {span_ms:.4f} ms per 5-iteration sampling "
+        f"span ({span_ms / 5:.4f} ms per iteration), plain "
+        f"{plain_ms[SAMPLING]:.1f} ms (equilibration {plain_ms[0]:.1f} ms),"
+        f" bound {bound:.6f} ms ({by}); {span_cuda.CHUNK}-iteration chunk "
+        f"{chunk_ms[EQUILIBRATION]:.4f} ms in equilibration from iteration "
+        f"50 ({chunk_ms[EQUILIBRATION] / span_cuda.CHUNK:.4f} ms per "
+        f"iteration), {chunk_ms[SAMPLING]:.4f} ms in sampling "
+        f"({chunk_ms[SAMPLING] / span_cuda.CHUNK:.4f} ms per iteration); "
+        f"on the device, span_kernel {kernel_ms / span_cuda.CHUNK:.4f} ms "
+        f"per sampling iteration; without sweeps (all budgets 0: rebuilds, "
+        f"statistics, counters) {no_sweeps_ms:.4f} ms, a share "
+        f"{no_sweeps_ms * span_cuda.CHUNK / kernel_ms:.4f}; rebuild_kernel "
+        f"alone on the same state {tables_ms:.4f} ms")
+    probe = rebuild_check("tools/probe_rebuild.py shape (384 x 9, k=7)",
+                          np.random.default_rng(0).gamma(
+                              2.0, 2.0, (384, 9)).astype(np.float32),
+                          7, 1, device)
+    gist = rebuild_check("GIST (1363 x 9, k=7)", D, 7, 2, device)
+    return ((f"GIST x{n_chains}, 5 iterations", span_ms, plain_ms[SAMPLING],
+             bound, by), max_err, {"rebuild_probe": probe,
+                                   "rebuild_gist": gist,
+                                   "chunk_ms": chunk_ms,
+                                   "kernel_ms_per_iter":
+                                       kernel_ms / span_cuda.CHUNK,
+                                   "no_sweeps_ms_per_iter": no_sweeps_ms,
+                                   "rebuild_ms_per_iter": tables_ms})
+
+
 def build_all():
-    """nvcc for both sources at once; returns {name: (seconds, report)}."""
+    """nvcc for every source at once; returns {name: (seconds, report)}."""
     from concurrent.futures import ThreadPoolExecutor
-    from cogaps_tpu_torch.ops import atlas_cuda, sweep_cuda
+    from cogaps_tpu_torch.ops import atlas_cuda, span_cuda, sweep_cuda
 
     def timed(fn):
         t0 = time.perf_counter()
         _, report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futs = {"sweep": pool.submit(timed, sweep_cuda.build),
-                "atlas": pool.submit(timed, atlas_cuda.build)}
+                "atlas": pool.submit(timed, atlas_cuda.build),
+                "span": pool.submit(timed, span_cuda.build)}
         return {name: f.result() for name, f in futs.items()}
 
 
@@ -577,7 +879,7 @@ def main() -> int:
         log("no CUDA device: torch.cuda.is_available() is false")
         return 3
     import cogaps_tpu_torch
-    from cogaps_tpu_torch.ops import atlas_cuda, sweep_cuda
+    from cogaps_tpu_torch.ops import atlas_cuda, span_cuda, sweep_cuda
 
     device = torch.device("cuda")
     card = nvidia_smi()
@@ -591,7 +893,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     builds = build_all()
-    log(f"[2 build] both kernels built and loaded in "
+    log(f"[2 build] the three kernel sources built and loaded in "
         f"{time.perf_counter() - t0:.1f} s (" + ", ".join(
             f"{name} {sec:.1f} s" for name, (sec, _) in builds.items()) + ")")
     for name, (_, report) in builds.items():
@@ -619,7 +921,8 @@ def main() -> int:
     del coo
     atlas_times, atlas_err = phase_atlas_kernel(device, atlas.side_a,
                                                 atlas.side_p)
-    log(f"[3 kernels] K1, K2 == plain versions, K4 within its per-call "
+    span_times, span_err, span_extra = phase_span(device)
+    log(f"[3 kernels] K1, K2, K3 == plain versions, K4 within its per-call "
         f"contract, at the main-path shapes ({time.perf_counter() - t0:.1f}"
         f" s)")
 
@@ -643,21 +946,37 @@ def main() -> int:
     if launches < 2 * 2 * n_it:
         raise AssertionError(f"only {launches} kernel launches")
 
-    # 5. throughput path
-    from cogaps_tpu_torch.bench_harness import run_throughput, synthetic_dense
+    # 5. throughput path: the fused span, then the per-call route
+    import functools
+    from cogaps_tpu_torch.bench_harness import (run_throughput,
+                                                synthetic_dense,
+                                                throughput_engine, time_run)
+    from cogaps_tpu_torch.engine import ChainEngine
     from cogaps_tpu_torch.io import parsers
     D, _, _ = parsers.read_matrix(GIST_CSV)
     params = cogaps_tpu_torch.CogapsParams(
         n_patterns=7, n_iterations=2000, seed=42, output_frequency=0)
     t0 = time.perf_counter()
+    span_cuda.run_span.launches = 0
+    sweep_cuda.run_updates_multi.launches = 0
     r = run_throughput(D, params, n_chains=16, device="cuda")
-    log(f"[5 throughput] GIST k=7, 16 chains, 2000 iterations: "
-        f"{r['updates_per_second']:.1f} updates/s "
-        f"({r['total_updates']} updates in {r['elapsed_s']:.3f} s), "
-        f"meanChiSq {r['mean_chi_sq']:.1f} (gate < {2 * golden:.1f}); "
-        f"card: {card}; phase {time.perf_counter() - t0:.1f} s")
-    if r["mean_chi_sq"] >= 2.0 * golden:
+    span_launches = span_cuda.run_span.launches
+    fused_sweeps = sweep_cuda.run_updates_multi.launches
+    eng, rand = throughput_engine(D, params, 16, None, device)
+    r_call = time_run(eng, rand, D, None,
+                      functools.partial(ChainEngine.run_phase, eng))
+    for route, x in (("fused span (K3)", r), ("per-call", r_call)):
+        log(f"[5 throughput] GIST k=7, 16 chains, 2000 iterations, {route}:"
+            f" {x['updates_per_second']:.1f} updates/s "
+            f"({x['total_updates']} updates in {x['elapsed_s']:.3f} s), "
+            f"meanChiSq {x['mean_chi_sq']:.1f} (gate < {2 * golden:.1f})")
+    log(f"  K3 launches {span_launches}, sweep-kernel launches in the fused"
+        f" run {fused_sweeps}; card: {card}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if max(r["mean_chi_sq"], r_call["mean_chi_sq"]) >= 2.0 * golden:
         raise AssertionError("throughput run did not converge")
+    if span_launches < 2 * 2000 // span_cuda.CHUNK or fused_sweeps:
+        raise AssertionError("the throughput run did not take the fused span")
 
     # 6. realistic size
     from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
@@ -819,9 +1138,14 @@ def main() -> int:
         entry("atlas", "cogaps_tpu_torch/csrc/atlas.cu",
               "cogaps_tpu/ops/pallas_atlas.py:760", atlas_launches,
               atlas_err, atlas_times[0]),
+        entry("span", "cogaps_tpu_torch/csrc/span.cu",
+              "cogaps_tpu/ops/pallas_iter.py:161", span_launches, span_err,
+              span_times),
     ]}
     if min(e["launches"] for e in kernel_line["kernels"]) <= 0:
         raise AssertionError("a kernel of the path was never launched")
+    log(f"K3 rebuild alone (ms, plain ms, bound ms, bound_by): probe shape "
+        f"{span_extra['rebuild_probe']}, GIST {span_extra['rebuild_gist']}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernel_line))
     print(nvidia_smi())

@@ -4,7 +4,8 @@ cogaps_tpu/bench_harness.py.
 Runs C independent chains of the dense engine on one device and reports
 aggregate Gibbs atom-updates per second (the number of proposals
 processed, as totalUpdates counts them) plus the converged meanChiSq of
-chain 0.
+chain 0. With no per-iteration output (output_frequency=0) and few
+samples, MultichainEngine runs whole spans in the fused-span kernel.
 """
 
 from __future__ import annotations
@@ -86,6 +87,14 @@ def synthetic_coo(n_genes: int, n_samples: int, density: float,
 def run_throughput(D: np.ndarray, params: CogapsParams, n_chains: int = 16,
                    uncertainty: Optional[np.ndarray] = None,
                    device="cuda") -> dict:
+    eng, rand = throughput_engine(D, params, n_chains, uncertainty, device)
+    return time_run(eng, rand, D, uncertainty, eng.run_phase)
+
+
+def throughput_engine(D: np.ndarray, params: CogapsParams, n_chains: int,
+                      uncertainty: Optional[np.ndarray], device):
+    """The MultichainEngine of n_chains copies of D, and its random
+    streams (chain c seeded resolved_seed + c)."""
     device = torch.device(device)
     D = np.asarray(D, np.float32)
     cfg = params.engine_config(*D.shape)
@@ -95,19 +104,28 @@ def run_throughput(D: np.ndarray, params: CogapsParams, n_chains: int = 16,
                              cfg, device)
     eng = MultichainEngine(data, cfg, device)
     seed = params.resolved_seed()
-    rand = PhiloxRandom([seed + c for c in range(n_chains)], device)
+    return eng, PhiloxRandom([seed + c for c in range(n_chains)], device)
 
-    # warmup: one dispatch span of each phase (builds the kernel)
-    wu_stop = min(cfg.dispatch_iters, params.n_iterations)
+
+def time_run(eng: MultichainEngine, rand: PhiloxRandom, D: np.ndarray,
+             uncertainty: Optional[np.ndarray], run_phase) -> dict:
+    """A full two-phase run of `eng` through `run_phase` (the engine's
+    own, or ChainEngine.run_phase for the per-call route), after a warm-up
+    span of each phase: updates per second and chain 0's meanChiSq."""
+    cfg = eng.config
+    device = eng.device
+
+    # warmup: one dispatch span of each phase (builds the kernels)
+    wu_stop = min(cfg.dispatch_iters, cfg.n_iterations)
     st, ss = eng.init_state(), eng.init_stats()
-    st, ss = eng.run_phase(st, ss, rand, EQUILIBRATION, 0, wu_stop)
-    st, ss = eng.run_phase(st, ss, rand, SAMPLING, 0, wu_stop)
+    st, ss = run_phase(st, ss, rand, EQUILIBRATION, 0, wu_stop)
+    st, ss = run_phase(st, ss, rand, SAMPLING, 0, wu_stop)
     _sync(device)
 
     t0 = time.perf_counter()
     state, stats = eng.init_state(), eng.init_stats()
-    state, stats = eng.run_phase(state, stats, rand, EQUILIBRATION)
-    state, stats = eng.run_phase(state, stats, rand, SAMPLING)
+    state, stats = run_phase(state, stats, rand, EQUILIBRATION)
+    state, stats = run_phase(state, stats, rand, SAMPLING)
     total_updates = int(stats.upd.sum())  # waits for the device
     elapsed = time.perf_counter() - t0
 
@@ -115,12 +133,13 @@ def run_throughput(D: np.ndarray, params: CogapsParams, n_chains: int = 16,
         stats.a_sum[0].cpu().numpy(), stats.a_sumsq[0].cpu().numpy(),
         stats.p_sum[0].cpu().numpy(), stats.p_sumsq[0].cpu().numpy(),
         int(stats.n_stat[0]))
+    D = np.asarray(D, np.float32)
     S = (np.asarray(uncertainty, np.float32) if uncertainty is not None
          else dense.default_uncertainty(D))
     return {
         "updates_per_second": total_updates / elapsed,
         "total_updates": total_updates,
         "elapsed_s": elapsed,
-        "n_chains": n_chains,
+        "n_chains": eng.n_chains,
         "mean_chi_sq": mean_chi_sq(amean, pmean, D, S),
     }

@@ -116,8 +116,9 @@ class PhiloxRandom:
                                  dtype=torch.int64, device=device)
         self._normals = None  # (phase, first iteration, z_a, z_p)
 
-    def budgets(self, phase: int, it: int, n_a: torch.Tensor,
-                n_p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _block(self, phase: int, it: int):
+        """(first iteration, z_a, z_p) of the block holding `it`: the
+        normals of _BLOCK iterations, each (NCH, _BLOCK)."""
         first = it - it % self._BLOCK
         if self._normals is None or self._normals[:2] != (phase, first):
             keys = torch.tensor(
@@ -126,10 +127,26 @@ class PhiloxRandom:
                 dtype=torch.int64, device=self.key0.device)
             self._normals = (phase, first,
                              *gaps_rng.philox_normals(self.key0, keys))
-        z_a = self._normals[2][:, it - first]
-        z_p = self._normals[3][:, it - first]
-        return (gaps_rng.poisson_fast(z_a, torch.clamp(n_a, min=10).float()),
-                gaps_rng.poisson_fast(z_p, torch.clamp(n_p, min=10).float()))
+        return self._normals[1:]
+
+    def budgets(self, phase: int, it: int, n_a: torch.Tensor,
+                n_p: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        first, z_a, z_p = self._block(phase, it)
+        return (gaps_rng.budget(z_a[:, it - first], n_a),
+                gaps_rng.budget(z_p[:, it - first], n_p))
+
+    def budget_normals(self, phase: int, start: int, n: int) -> torch.Tensor:
+        """The normals behind budgets() for iterations [start, start + n),
+        as one (NCH, n, 2) float32 tensor [A, P] on the device: the fused
+        span kernel (ops/span_cuda.py) forms the budgets from them."""
+        parts, it = [], start
+        while it < start + n:
+            first, z_a, z_p = self._block(phase, it)
+            stop = min(start + n, first + self._BLOCK)
+            parts.append(torch.stack([z_a[:, it - first:stop - first],
+                                      z_p[:, it - first:stop - first]], dim=2))
+            it = stop
+        return torch.cat(parts, dim=1).contiguous()
 
     def sweeps(self, phase: int, it: int, sampler: int) -> PhiloxKey:
         return PhiloxKey(self.key0, stream_key(phase, it, sampler))
@@ -146,11 +163,14 @@ def annealing_temp(cfg: EngineConfig, phase: int, it: int) -> float:
 def run_iteration(cfg: EngineConfig, consts_a: SamplerConsts,
                   consts_p: SamplerConsts, hist: HistConfig, phase: int,
                   data: DeviceData, it: int, state: ChainState,
-                  stats: RunStats, rand) -> Tuple[ChainState, RunStats]:
+                  stats: RunStats, rand, *, tables=dense.tables,
+                  update=run_updates_multi) -> Tuple[ChainState, RunStats]:
     """One MCMC iteration of every chain (reference: GapsRunner.cpp:
     273-325). `rand` provides budgets(phase, it, n_a, n_p) and
     sweeps(phase, it, sampler) (PhiloxRandom, or injected draws in the
-    tests)."""
+    tests). `tables(D, invS2, M, other)` builds an update call's (cache,
+    phase) and `update` runs it; the fused span's plain version
+    (ops/span.py) passes its own."""
     fixed = cfg.which_matrix_fixed
     temp = annealing_temp(cfg, phase, it)
     n_a, n_p = rand.budgets(phase, it, state.atoms_a.n, state.atoms_p.n)
@@ -162,16 +182,16 @@ def run_iteration(cfg: EngineConfig, consts_a: SamplerConsts,
     obs_a = obs_p = None
 
     if fixed != "A":
-        Y = dense.rebuild_cache(data.D, data.invS2, M_a, M_p).Y
-        atoms_a, M_a, _, done_a, ns_a, cnt_a = run_updates_multi(
-            atoms_a, M_a, Y, dense.make_phase(data.invS2, M_p), temp, n_a,
-            consts_a, data.mass_a, rand.sweeps(phase, it, SAMPLER_A))
+        cache, tabs = tables(data.D, data.invS2, M_a, M_p)
+        atoms_a, M_a, _, done_a, ns_a, cnt_a = update(
+            atoms_a, M_a, cache.Y, tabs, temp, n_a, consts_a, data.mass_a,
+            rand.sweeps(phase, it, SAMPLER_A))
         obs_a = (ns_a, cnt_a)
     if fixed != "P":
-        Y = dense.rebuild_cache(data.D_t, data.invS2_t, M_p, M_a).Y
-        atoms_p, M_p, _, done_p, ns_p, cnt_p = run_updates_multi(
-            atoms_p, M_p, Y, dense.make_phase(data.invS2_t, M_a), temp, n_p,
-            consts_p, data.mass_p, rand.sweeps(phase, it, SAMPLER_P))
+        cache, tabs = tables(data.D_t, data.invS2_t, M_p, M_a)
+        atoms_p, M_p, _, done_p, ns_p, cnt_p = update(
+            atoms_p, M_p, cache.Y, tabs, temp, n_p, consts_p, data.mass_p,
+            rand.sweeps(phase, it, SAMPLER_P))
         obs_p = (ns_p, cnt_p)
 
     state = ChainState(atoms_a=atoms_a, atoms_p=atoms_p, M_a=M_a, M_p=M_p)

@@ -20,7 +20,7 @@ turns TF32 off at import: Y is formed with heavy cancellation).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +93,26 @@ def residual(D, invS2, M, other_M):
 def rebuild_cache(D, invS2, M, other_M) -> DenseCache:
     """Y = R @ other at the start of an update call."""
     return DenseCache(Y=torch.matmul(residual(D, invS2, M, other_M), other_M))
+
+
+def tables(D, invS2, M, other_M) -> Tuple[DenseCache, DensePhase]:
+    """The tables of one update call of the sampler of M, in float32."""
+    return rebuild_cache(D, invS2, M, other_M), make_phase(invS2, other_M)
+
+
+def exact_tables(D, invS2, M, other_M) -> Tuple[DenseCache, DensePhase]:
+    """The same tables under the rule of the fused-span kernel
+    (csrc/span.cu): every entry is a float64 sum over the float32
+    operands, rounded once to float32. Products of two floats are exact
+    in float64, so the kernel's summation order and this one's meet the
+    same float32 value unless a sum lies within a few float64 ulps of a
+    float32 rounding boundary. The per-call route keeps `tables`: on an
+    H100 this rule made its 5000x2000 iteration 36% slower
+    (profile_iter), where the fused span does not apply."""
+    cache, phase = tables(*(x.double() for x in (D, invS2, M, other_M)))
+    return (DenseCache(Y=cache.Y.float()),
+            DensePhase(SQ=phase.SQ.float(), Z=phase.Z.float(),
+                       col_nz=phase.col_nz))
 
 
 def alpha_batch(cache: DenseCache, phase: DensePhase, addr) -> AlphaBatch:

@@ -142,6 +142,13 @@ def poisson_fast(z, lam):
                                    * z), min=0.0).to(torch.int32)
 
 
+def budget(z, n_atoms):
+    """The engine's update budget of a sampler with `n_atoms` atoms:
+    poisson_fast at lam = max(n_atoms, 10) (GapsRunner.cpp:293-296).
+    csrc/span.cu::budget_of computes it in the kernel."""
+    return poisson_fast(z, torch.clamp(n_atoms, min=10).float())
+
+
 def poisson(lam: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Exact Poisson update-budget draw (reference: src/math/Random.cpp:
     125-170), on lam's device from an explicit generator; the atlas

@@ -1,20 +1,37 @@
 """Independent chains run as one program — the PyTorch counterpart of
-cogaps_tpu/parallel/multichain.py without the device mesh and without
-the fused-span kernel (ops/pallas_iter.py, still to be ported).
+cogaps_tpu/parallel/multichain.py without the device mesh.
 
 The counterpart of the reference's process-level parallelism (one
 forked C++ engine per data subset, R/DistributedCogaps.R:56-67): chains
-are independent, so their state is stacked along a leading dimension and
-each sampler's update call runs every chain in one kernel launch.
+are independent, so their state is stacked along a leading dimension.
+Where the run records nothing per iteration and the data is small (the
+throughput configuration on GIST), whole spans of iterations run in one
+launch of the fused-span kernel (ops/span_cuda.py, the port of ops/pallas_iter.py);
+otherwise each sampler's update call runs every chain in one kernel
+launch.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
-from ..engine import ChainEngine, DeviceData, _device_data
+from ..engine import (ChainEngine, ChainState, DeviceData, RunStats,
+                      _device_data)
 from ..models import dense
+from ..ops import span_cuda
 from ..params import EngineConfig
+
+# the fused span's domain: its table rebuild runs in one block per chain,
+# for data with few samples, where launches dominate an iteration
+MAX_SPAN_SAMPLES = 128
+# and its size: the rebuild runs on one SM a chain, so the span's
+# iteration grows with span_cuda.rebuild_ops while the per-call route's
+# stays near its host floor. On an H100 (profile_iter, 16 chains) the span
+# is 3-5x faster at GIST (3.3 M operations) and slower from 2000x32 k=7
+# (17.3 M) on; the two meet near 10 M.
+MAX_SPAN_REBUILD_OPS = 10_000_000
 
 
 def stack_device_data(Ds, Ss, cfg: EngineConfig, device) -> DeviceData:
@@ -48,3 +65,43 @@ class MultichainEngine(ChainEngine):
     """C independent chains of stacked data on `device`. `data` carries a
     leading chain axis (stack_device_data); states, statistics and the
     PhiloxRandom seeds follow it."""
+
+    def _fused_ok(self) -> bool:
+        """Whether run_phase takes the fused span: the semantic conditions
+        of cogaps_tpu/parallel/multichain.MultichainEngine._fused_ok
+        (both factors sampled, no histories, snapshots or PUMP counts,
+        n_samples <= 128), and a table rebuild small enough for one block
+        a chain (MAX_SPAN_REBUILD_OPS). Its TPU conditions (backend, mesh,
+        <= 8 chains for the v5e's VMEM) have no counterpart here."""
+        cfg = self.config
+        return (cfg.which_matrix_fixed == "N" and self.hist.n_hist == 0
+                and cfg.n_snapshots == 0 and not cfg.take_pump_samples
+                and self.n_samples <= MAX_SPAN_SAMPLES
+                and span_cuda.rebuild_ops(self.n_genes, self.n_samples,
+                                          cfg.n_patterns)
+                <= MAX_SPAN_REBUILD_OPS)
+
+    def run_phase(self, state: ChainState, stats: RunStats, rand,
+                  phase: int, start_iter: int = 0,
+                  stop_iter: Optional[int] = None, progress_cb=None):
+        """Iterations [start, stop) of one phase: run_spans when
+        _fused_ok() holds, else ChainEngine.run_phase."""
+        run = self.run_spans if self._fused_ok() else super().run_phase
+        return run(state, stats, rand, phase, start_iter, stop_iter,
+                   progress_cb)
+
+    def run_spans(self, state: ChainState, stats: RunStats, rand,
+                  phase: int, start_iter: int = 0,
+                  stop_iter: Optional[int] = None, progress_cb=None):
+        """Iterations [start, stop) of one phase in spans of up to
+        span_cuda.CHUNK iterations, one fused-span launch each, whatever
+        the data's size (progress_cb fires at span ends)."""
+        stop = self.config.n_iterations if stop_iter is None else stop_iter
+        for a in range(start_iter, stop, span_cuda.CHUNK):
+            b = min(a + span_cuda.CHUNK, stop)
+            state, stats = span_cuda.run_span(
+                self.config, self.consts_a, self.consts_p, self.hist, phase,
+                self.data, a, b - a, state, stats, rand)
+            if progress_cb is not None:
+                progress_cb(phase, b, state)
+        return state, stats

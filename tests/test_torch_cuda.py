@@ -17,7 +17,11 @@ agree bit for bit in practice). The CSR sweep kernel (K4) is held to
 its plain version (ops/sweep.py with models/sparse.make_model) by the
 per-call contract of tests/test_atlas_engine.py:218-227: equal done,
 sweeps, counts, n and elem; mass and M within atol 5e-3, rtol 1e-4 (it
-sums over a row's nonzeros in another order)."""
+sums over a row's nonzeros in another order). The fused-span kernel
+(K3, csrc/span.cu) is held to its plain version (ops/span.py) over whole
+iterations in both phases: equal atom tables and counters, mass, M and
+the running sums within 1e-5; its rebuild alone to the plain tables, bit
+for bit."""
 
 import os
 
@@ -26,7 +30,8 @@ import pytest
 import torch
 
 from cogaps_tpu_torch.models import dense, sparse
-from cogaps_tpu_torch.ops import atlas_cuda, rng, sweep, sweep_cuda
+from cogaps_tpu_torch.ops import (atlas_cuda, rng, span, span_cuda, sweep,
+                                  sweep_cuda)
 from cogaps_tpu_torch.ops.atoms import AtomTable, total_mass_per_element
 
 pytestmark = pytest.mark.cuda
@@ -359,6 +364,114 @@ def test_sparse_engines_on_card(cuda_device):
     # 100 * nnz is chi^2 at zero factors
     assert np.isfinite(res.mean_chi_sq)
     assert res.mean_chi_sq < 0.2 * 100 * len(r)
+
+
+# ----------------------------------------------------------------------
+# K3: the fused-span kernel
+# ----------------------------------------------------------------------
+def span_case(device, G=30, S=8, k=3, nch=3, n_warm=20):
+    """NCH chains of toy data after n_warm per-call equilibration
+    iterations, and the MultichainEngine that runs them."""
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, ChainEngine,
+                                         PhiloxRandom)
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    from cogaps_tpu_torch.params import CogapsParams
+    rs = np.random.default_rng(4)
+    A = rs.gamma(2.0, 1.0, (G, k))
+    Ds = [(A @ rs.gamma(2.0, 1.0, (S, k)).T).astype(np.float32)
+          for _ in range(nch)]
+    # 256 threads: the P tables' sums are split over warps (csrc/span.cu)
+    cfg = CogapsParams(n_patterns=k, n_iterations=40, output_frequency=0,
+                       batch_size_a=256).engine_config(G, S)
+    eng = MultichainEngine(stack_device_data(Ds, None, cfg, device), cfg,
+                           device)
+    seeds = list(range(30, 30 + nch))
+    st, ss = ChainEngine.run_phase(eng, eng.init_state(), eng.init_stats(),
+                                   PhiloxRandom(seeds, device),
+                                   EQUILIBRATION, 0, n_warm)
+    return eng, st, ss, seeds
+
+
+def assert_span_same(out_k, out_p):
+    (st_k, ss_k), (st_p, ss_p) = out_k, out_p
+    for x, y in ((st_k.atoms_a.elem, st_p.atoms_a.elem),
+                 (st_k.atoms_a.n, st_p.atoms_a.n),
+                 (st_k.atoms_p.elem, st_p.atoms_p.elem),
+                 (st_k.atoms_p.n, st_p.atoms_p.n), (ss_k.upd, ss_p.upd),
+                 (ss_k.n_stat, ss_p.n_stat),
+                 (ss_k.prop_counts, ss_p.prop_counts),
+                 (ss_k.acc_counts, ss_p.acc_counts),
+                 (ss_k.sweep_counts, ss_p.sweep_counts)):
+        assert torch.equal(x.cpu(), y.cpu())
+    for x, y in ((st_k.atoms_a.mass, st_p.atoms_a.mass),
+                 (st_k.atoms_p.mass, st_p.atoms_p.mass), (st_k.M_a, st_p.M_a),
+                 (st_k.M_p, st_p.M_p), (ss_k.a_sum, ss_p.a_sum),
+                 (ss_k.a_sumsq, ss_p.a_sumsq), (ss_k.p_sum, ss_p.p_sum),
+                 (ss_k.p_sumsq, ss_p.p_sumsq)):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("phase", [0, 1])
+def test_span_kernel_matches_plain(cuda_device, monkeypatch, phase):
+    """Seven iterations in chunks of three: three launches."""
+    from cogaps_tpu_torch.engine import PhiloxRandom
+    eng, st, ss, seeds = span_case(cuda_device)
+    monkeypatch.setattr(span_cuda, "CHUNK", 3)
+    it0 = 20 if phase == 0 else 0
+    args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, phase,
+            eng.data, it0, 7, st, ss)
+    before = span_cuda.run_span.launches
+    out_k = span_cuda.run_span(*args, PhiloxRandom(seeds, cuda_device))
+    assert span_cuda.run_span.launches == before + 3
+    out_p = span.run_span_plain(*args, PhiloxRandom(seeds, cuda_device))
+    torch.cuda.synchronize()
+    assert_span_same(out_k, out_p)
+    assert (out_k[1].upd > ss.upd).all()
+    assert (out_k[1].n_stat == (7 if phase == 1 else 0)).all()
+
+
+def test_span_rebuild_matches_plain_tables(cuda_device):
+    eng, st, _, _ = span_case(cuda_device, G=70, S=9, k=4)
+    got = span_cuda.rebuild_tables(eng.data, st.M_a, st.M_p)
+    want = span.rebuild_tables_plain(eng.data, st.M_a, st.M_p)
+    for name, x, y in zip(got._fields, got, want):
+        assert torch.equal(x, y), name
+
+
+def test_span_wrapper_checks_inputs(cuda_device):
+    import dataclasses
+    from cogaps_tpu_torch.engine import PhiloxRandom
+    eng, st, ss, seeds = span_case(cuda_device, n_warm=2)
+    args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, 0)
+    rand = PhiloxRandom(seeds, cuda_device)
+    with pytest.raises(ValueError, match="is on"):
+        span_cuda.run_span(*args, dataclasses.replace(eng.data,
+                                                      D=eng.data.D.cpu()),
+                           0, 1, st, ss, rand)
+    with pytest.raises(TypeError, match="dtype"):
+        span_cuda.run_span(*args, eng.data, 0, 1, st, dataclasses.replace(
+            ss, upd=ss.upd.to(torch.int32)), rand)
+    with pytest.raises(ValueError, match="shape"):
+        span_cuda.run_span(*args, eng.data, 0, 1, dataclasses.replace(
+            st, M_p=st.M_p[:, :-1].contiguous()), ss, rand)
+    with pytest.raises(TypeError, match="PhiloxRandom"):
+        span_cuda.run_span(*args, eng.data, 0, 1, st, ss, object())
+
+
+def test_fused_gist_throughput_converges(cuda_device):
+    """run_throughput (16 chains of GIST, the fused span) passes the
+    meanChiSq gate of bench.py:87-95 (< 2x the golden GIST value)."""
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import run_throughput
+    z = np.load(f"{DATA}/gist.npz")
+    before = span_cuda.run_span.launches
+    r = run_throughput(np.asarray(z["D"]), cogaps_tpu_torch.CogapsParams(
+        n_patterns=7, n_iterations=2000, seed=42, output_frequency=0),
+        n_chains=16, device=cuda_device)
+    golden = float(np.asarray(z["golden_meanChiSq"]).reshape(-1)[0])
+    assert r["mean_chi_sq"] < 2.0 * golden, r
+    assert span_cuda.run_span.launches - before >= 2 * 2000 // 50
 
 
 # ----------------------------------------------------------------------

@@ -20,6 +20,8 @@ def test_busy_ns_is_the_union(intervals, expected):
 
 @pytest.mark.parametrize("name,expected", [
     ("sweep_kernel(Params)", "sweep_kernel"),
+    ("(anonymous namespace)::span_kernel((anonymous namespace)::SpanArgs, "
+     "cogaps::SweepArgs, cogaps::SweepArgs)", "span_kernel"),
     ("(anonymous namespace)::sweep_kernel((anonymous namespace)::Params)",
      "sweep_kernel"),
     ("void gemmSN_NN_kernel<float, 128, 2, 4, 8, 5, 4, false>", "matmuls"),
