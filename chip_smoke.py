@@ -2,20 +2,21 @@
 """Smoke check of cogaps_tpu_torch on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-kernels from cogaps_tpu_torch/csrc/ (sweep.cu, atlas.cu and span.cu, one
-nvcc each, started together), holds each against its plain PyTorch
-version on the card, drives the port's dense main path through
-``CoGAPS()`` and the multi-chain throughput harness on GIST (the fused
-span, and the per-call route on the same data for comparison), runs a
-5,000 x 2,000 k=10 dataset, drives the sparse model through
-``CoGAPS(sparse_optimization=True)``, the sparse multi-chain engine and
-the atlas engine, and fails on the first phase that fails. Without a
-CUDA device, or without the package beside it, it exits non-zero and
-prints no result.
+kernels from cogaps_tpu_torch/csrc/ (sweep.cu, atlas.cu, span.cu,
+probe_mosaic.cu and probe_dma.cu, one nvcc each, started together),
+holds each against its plain PyTorch version on the card, drives the
+port's dense main path through ``CoGAPS()`` and the multi-chain
+throughput harness on GIST (the fused span, and the per-call route on
+the same data for comparison), runs a 5,000 x 2,000 k=10 dataset, drives
+the sparse model through ``CoGAPS(sparse_optimization=True)``, the sparse
+multi-chain engine and the atlas engine, runs the probe suite (the H100
+counterparts of tools/probe_*.py), and fails on the first phase that
+fails. Without a CUDA device, or without the package beside it, it exits
+non-zero and prints no result.
 
 Phases:
   1 device  — name and power limit (nvidia-smi);
-  2 build   — nvcc builds of the three kernel sources, with ptxas's
+  2 build   — nvcc builds of the five kernel sources, with ptxas's
               reports;
   3 kernels — kernel vs plain version on CUDA tensors, in exact mode (the
               same uniform slab) and in fast mode (in-kernel Philox);
@@ -64,7 +65,13 @@ Phases:
               COO matrix with 2% nonzeros, k=50, 100 + 100 iterations:
               finite, falling chi^2, M equal to the atom masses per
               element within 2e-4, two K4 launches per iteration;
-              updates/s, peak memory, set-up time.
+              updates/s, peak memory, set-up time;
+  10 probes — cogaps_tpu_torch.probes' suite (python -m
+              cogaps_tpu_torch.probes): each of the eleven probe
+              functions F1-F11 at the probes' shapes and the port's, its
+              kernel held to its plain version (exact, or within the
+              function's stated tolerance) and timed beside its plain
+              version, its library call and its bound.
 
 The last line is {"ok": true, "device": {...}}; the one before it is the
 card's name and power limit; before that, one JSON line describing each
@@ -309,24 +316,11 @@ def sweep_work(processed, n_atoms, row_bytes, prop_flops, fixed_bytes=0):
     return n_bytes, float(p.sum()) * prop_flops
 
 
-def bound_ms(n_bytes, flops):
-    """The larger of the bytes over the memory rate and the operations
-    over the peak rate, in ms, and which of the two it is."""
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def sweep_bound_ms(processed, n_atoms, row_bytes, prop_flops,
                    fixed_bytes=0):
+    from cogaps_tpu_torch.probes import bound_ms
     return bound_ms(*sweep_work(processed, n_atoms, row_bytes, prop_flops,
                                 fixed_bytes))
-
-
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-# float32 outside the tensor cores; also the float64 tensor-core rate of
-# the data sheet, so it bounds the span kernel's float64 rebuild too
-H100_F32_PER_S = 67e12
 
 
 def tables_case(name, D, rows_are_genes, k, B, C, nch, budget, seed, device):
@@ -569,6 +563,7 @@ def rebuild_bound_ms(G, S, k, nch):
     once, every table (Y, SQ, Z of each sampler) written once; the float64
     operations of span_cuda.rebuild_ops."""
     from cogaps_tpu_torch.ops.span_cuda import rebuild_ops
+    from cogaps_tpu_torch.probes import bound_ms
     n_bytes = 4 * nch * (2 * G * S + (G + S) * k + (G + S) * k * (2 + k))
     return bound_ms(n_bytes, nch * rebuild_ops(G, S, k))
 
@@ -582,6 +577,7 @@ def span_bound_ms(G, S, k, nch, n_it, before, after, sampling):
     iteration. The tables the kernel rebuilds and rereads in between are
     its scratch, neither input nor output of the span."""
     from cogaps_tpu_torch.ops.span_cuda import rebuild_ops
+    from cogaps_tpu_torch.probes import bound_ms
     n_bytes = 4 * nch * (2 * G * S + 2 * (G + S) * k)
     flops = n_it * nch * rebuild_ops(G, S, k)
     done = after[1].prop_counts - before[1].prop_counts
@@ -817,16 +813,19 @@ def build_all():
     """nvcc for every source at once; returns {name: (seconds, report)}."""
     from concurrent.futures import ThreadPoolExecutor
     from cogaps_tpu_torch.ops import atlas_cuda, span_cuda, sweep_cuda
+    from cogaps_tpu_torch.probes import dma, mosaic
 
     def timed(fn):
         t0 = time.perf_counter()
         _, report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         futs = {"sweep": pool.submit(timed, sweep_cuda.build),
                 "atlas": pool.submit(timed, atlas_cuda.build),
-                "span": pool.submit(timed, span_cuda.build)}
+                "span": pool.submit(timed, span_cuda.build),
+                "probe_mosaic": pool.submit(timed, mosaic.build),
+                "probe_dma": pool.submit(timed, dma.build)}
         return {name: f.result() for name, f in futs.items()}
 
 
@@ -893,7 +892,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     builds = build_all()
-    log(f"[2 build] the three kernel sources built and loaded in "
+    log(f"[2 build] the five kernel sources built and loaded in "
         f"{time.perf_counter() - t0:.1f} s (" + ", ".join(
             f"{name} {sec:.1f} s" for name, (sec, _) in builds.items()) + ")")
     for name, (_, report) in builds.items():
@@ -1120,6 +1119,21 @@ def main() -> int:
     if atlas_launches < 2 * 200:
         raise AssertionError(f"only {atlas_launches} K4 launches")
 
+    # 10. the probe suite
+    from cogaps_tpu_torch.probes import __main__ as probe_suite
+    for wrappers in probe_suite.WRAPPERS_OF.values():
+        for w in wrappers:
+            w.launches = 0
+    t0 = time.perf_counter()
+    log("[10 probes] kernel vs plain version and times of F1-F11; card: "
+        f"{card}")
+    probe_records = probe_suite.run_suite(device, log=log)
+    probe_launches = {f: sum(w.launches for w in wrappers)
+                      for f, wrappers in probe_suite.WRAPPERS_OF.items()}
+    log(f"  {len(probe_records)} cases, every kernel equal to its plain "
+        f"version or within its tolerance; launches {probe_launches}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
     def entry(name, source, replaces, launches, err, row):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -1141,7 +1155,7 @@ def main() -> int:
         entry("span", "cogaps_tpu_torch/csrc/span.cu",
               "cogaps_tpu/ops/pallas_iter.py:161", span_launches, span_err,
               span_times),
-    ]}
+    ] + probe_suite.kernel_entries(probe_records, probe_launches)}
     if min(e["launches"] for e in kernel_line["kernels"]) <= 0:
         raise AssertionError("a kernel of the path was never launched")
     log(f"K3 rebuild alone (ms, plain ms, bound ms, bound_by): probe shape "

@@ -532,3 +532,153 @@ def test_gist_golden_pattern_recovery_on_card(cuda_device):
     assert res.mean_chi_sq < 1.4 * golden_mcs
     cors = best_perm_corr(res.Pmean, np.asarray(z["golden_Pmean"]))
     assert np.median(cors) > 0.8 and (cors > 0.5).all(), cors
+
+
+# ----------------------------------------------------------------------
+# the probe kernels (csrc/probe_mosaic.cu F1-F8, csrc/probe_dma.cu F9-F11)
+# against their plain versions: F1 and F2 within 1e-5 of the sum of the
+# absolute terms, F7's sum within 1e-6 relative, every other result equal
+# ----------------------------------------------------------------------
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).random(shape) * scale).astype(
+        np.float32)
+
+
+def _ints(lo, hi, shape, seed):
+    return np.random.default_rng(seed).integers(lo, hi, shape).astype(
+        np.float32)
+
+
+def _slot_perm(nch, B, C, seed):
+    rs = np.random.default_rng(seed)
+    return np.stack([rs.permutation(C)[:B] for _ in range(nch)]).astype(
+        np.float32)
+
+
+def _probe_cases():
+    from cogaps_tpu_torch.probes import dma, mosaic
+    from cogaps_tpu_torch.probes.__main__ import within_rel, within_terms
+    m, d = mosaic, dma
+    bdot_tol, prefix_tol = (within_terms(m.bdot_plain),
+                            within_terms(m.prefix_plain))
+    odd_rows = np.float32([[-1.0, 0.0, 2.5, 49.0, 50.0, 3.0, 3.0, 0.0]])
+    table = np.arange(4096 * 12, dtype=np.float32).reshape(4096, 12)
+    return {
+        "bdot-3x50x5x40": ((_rand((3, 50, 5), 1), _rand((3, 50, 40), 2)),
+                           m.bdot, m.bdot_plain, bdot_tol),
+        "bdot-1x16x9x33": ((_rand((1, 16, 9), 31), _rand((1, 16, 33), 32)),
+                           m.bdot, m.bdot_plain, bdot_tol),
+        "bdot-2x3000x11x70": ((_rand((2, 3000, 11), 3),
+                               _rand((2, 3000, 70), 4)),
+                              m.bdot, m.bdot_plain, bdot_tol),
+        "prefix-3x100": ((_rand((3, 100), 5, 10.0),), m.prefix,
+                         m.prefix_plain, prefix_tol),
+        "prefix-2x1024": ((_rand((2, 1024), 6),), m.prefix, m.prefix_plain,
+                          prefix_tol),
+        "first_wins-3x200": ((_ints(0, 20, (3, 200), 7),), m.first_wins,
+                             m.first_wins_plain, None),
+        "first_wins-1x1024": ((_ints(0, 300, (1, 1024), 8),), m.first_wins,
+                              m.first_wins_plain, None),
+        "claim_row-3x100": ((_ints(0, 50, (3, 100), 9), 50, "row"),
+                            m.claim_min, m.claim_min_plain, None),
+        "claim_row-odd": ((odd_rows, 50, "row"), m.claim_min,
+                          m.claim_min_plain, None),
+        "claim_lane-3x100": ((_ints(-5, 60, (3, 100), 10), 50, "lane"),
+                             m.claim_min, m.claim_min_plain, None),
+        "claim_lane-odd": ((odd_rows, 50, "lane"), m.claim_min,
+                           m.claim_min_plain, None),
+        "elem-5x33": ((_rand((5, 33), 11, 3.0),), m.elem_chain,
+                      m.elem_chain_plain, None),
+        "elem-1000": ((_rand((1000,), 12),), m.elem_chain,
+                      m.elem_chain_plain, None),
+        "while_count-2x64": ((np.full((2, 64), 2.5, np.float32), "count"),
+                             m.while_sum, m.while_sum_plain, None),
+        "while_until-2x16": ((_ints(0, 9, (2, 16), 13), "until"),
+                             m.while_sum, m.while_sum_plain, None),
+        "reduce_sum-2x30x50": ((_rand((2, 30, 50), 14, 5.0), "sum"),
+                               m.reduce3d, m.reduce3d_plain,
+                               within_rel(1e-6)),
+        "reduce_min-3x7x300": ((_rand((3, 7, 300), 15), "min"), m.reduce3d,
+                               m.reduce3d_plain, None),
+        "uniform-3x100": ((np.int32([5]), 3, 100), m.uniform,
+                          m.uniform_plain, None),
+        "uniform-2x4096": ((np.int32([-1]), 2, 4096), m.uniform,
+                           m.uniform_plain, None),
+        "gather_rows-K12": ((table, _ints(0, 4096, (40,), 16)),
+                            d.gather_rows, d.gather_rows_plain, None),
+        "gather_rows-K50": ((_rand((300, 50), 17), _ints(0, 300, (77,), 18)),
+                            d.gather_rows, d.gather_rows_plain, None),
+        "gather_block": ((table, np.int32([4000]), 8), d.gather_block,
+                         d.gather_block_plain, None),
+        "gather_passes-K8": ((np.repeat(np.arange(1000, dtype=np.float32),
+                                        8).reshape(1000, 8),
+                              _ints(0, 1000, (30,), 19), 5),
+                             d.gather_passes, d.gather_passes_plain, None),
+        "gather_passes-K128": ((_ints(0, 4096, (4096, 128), 20),
+                                _ints(0, 4096, (64,), 21), 3),
+                               d.gather_passes, d.gather_passes_plain, None),
+        "gather_batched-K16": ((_rand((2, 40, 16), 22),
+                                _ints(0, 40, (2, 30), 23)),
+                               d.gather_batched, d.gather_batched_plain,
+                               None),
+        "gather_batched-flat": ((_rand((3, 100, 1), 24),
+                                 _ints(0, 100, (3, 64), 25)),
+                                d.gather_batched, d.gather_batched_plain,
+                                None),
+        "scatter-2x30": ((_rand((2, 30), 26), _slot_perm(2, 30, 100, 27),
+                          100), d.scatter_slots, d.scatter_slots_plain,
+                         None),
+        "scatter-3x100": ((_rand((3, 100), 28), _slot_perm(3, 100, 128, 29),
+                           128), d.scatter_slots, d.scatter_slots_plain,
+                          None),
+        "strided-p2a": ((np.arange(256, dtype=np.float32)[None], 7, 1.0,
+                         0.0), d.strided_sum, d.strided_sum_plain, None),
+        "strided-13x2.5": ((_rand((1, 100), 30), 13, 2.5, -1.0),
+                           d.strided_sum, d.strided_sum_plain, None),
+    }
+
+
+PROBE_IDS = ["bdot-3x50x5x40", "bdot-1x16x9x33", "bdot-2x3000x11x70",
+             "prefix-3x100",
+             "prefix-2x1024", "first_wins-3x200", "first_wins-1x1024",
+             "claim_row-3x100", "claim_row-odd", "claim_lane-3x100",
+             "claim_lane-odd", "elem-5x33", "elem-1000",
+             "while_count-2x64", "while_until-2x16", "reduce_sum-2x30x50",
+             "reduce_min-3x7x300", "uniform-3x100", "uniform-2x4096",
+             "gather_rows-K12", "gather_rows-K50", "gather_block",
+             "gather_passes-K8", "gather_passes-K128", "gather_batched-K16",
+             "gather_batched-flat", "scatter-2x30", "scatter-3x100",
+             "strided-p2a", "strided-13x2.5"]
+
+
+@pytest.mark.parametrize("case", PROBE_IDS)
+def test_probe_kernel_matches_plain(cuda_device, case):
+    args, kernel, plain, tol = _probe_cases()[case]
+    args = tuple(torch.as_tensor(a, device=cuda_device)
+                 if isinstance(a, np.ndarray) else a for a in args)
+    before = kernel.launches
+    out_k = kernel(*args)
+    assert kernel.launches == before + 1
+    out_p = plain(*args)
+    torch.cuda.synchronize()
+    out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+    out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+    for k, p in zip(out_k, out_p):
+        assert k.shape == p.shape and k.dtype == p.dtype
+        if tol is None:
+            assert torch.equal(k, p), (k, p)
+        else:
+            assert tol(args, k, p), float((k.double() - p.double()).abs()
+                                          .max())
+
+
+def test_probe_wrappers_raise_on_card(cuda_device):
+    from cogaps_tpu_torch.probes import dma, mosaic
+    a = torch.ones((2, 10, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="is on"):
+        mosaic.bdot(a, torch.ones((2, 10, 4)))
+    with pytest.raises(ValueError, match="at most 1024"):
+        mosaic.prefix(torch.ones((2, 2048), device=cuda_device))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dma.gather_passes(torch.ones((10, 6), device=cuda_device),
+                          torch.zeros(3, device=cuda_device), 2)
