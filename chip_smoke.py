@@ -30,7 +30,11 @@ Phases:
               2% nonzeros, k=50, B=512, C=2^19, A and P samplers): equal
               done, sweeps, counts, n and elem; mass and M within atol
               5e-3, rtol 1e-4 (sums over a row's nonzeros in another
-              order, tests/test_atlas_engine.py:218-227);
+              order, tests/test_atlas_engine.py:218-227); ms a call and
+              a sweep, the split of a sweep between its serial parts
+              (a)+(c) and its grid-wide row sums (b) (block 0's
+              %globaltimer), and F9's gather of one sweep's partner rows
+              (probes/dma.gather_rows) as yardstick;
               K3, the fused span, on GIST with 16 chains (phase 5's
               width) from a state after 50 per-call equilibration
               iterations: 5-iteration spans in equilibration and in
@@ -506,6 +510,29 @@ def locate_atlas_divergence(case, source):
             return
 
 
+def sweep_gather_ms(case, uni):
+    """The partner rows of one K4 sweep (its kept rows' nonzeros, by the
+    kernel's work schedule, on the uniform block `uni`) and the median ms
+    of F9's gather_rows of them (probes/dma.py)."""
+    import torch
+    from cogaps_tpu_torch.ops import atlas_cuda
+    from cogaps_tpu_torch.ops import sweep as sweep_ops
+    from cogaps_tpu_torch.probes import dma
+    from cogaps_tpu_torch.probes.__main__ import device_ms as probe_ms
+    q = sweep_ops.propose(uni, case["atoms"].chain(0),
+                          int(case["budgets"][0]), case["consts"])
+    pair = q.is_move | q.is_exch
+    items, _, _ = atlas_cuda.work_items_plain(
+        case["csr"].indptr.cpu(), torch.where(q.keep, q.r1, -1)[None].cpu(),
+        torch.where(pair, q.r2, -1)[None].cpu())
+    n = items[:, 4] - items[:, 3]
+    pos = torch.repeat_interleave(items[:, 3], n) + torch.arange(
+        int(n.sum())) - torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    rows = case["csr"].idx[pos.to(case["csr"].idx.device)].float()
+    table = case["other"][0]
+    return rows.numel(), probe_ms(lambda: dma.gather_rows(table, rows), 20)
+
+
 def phase_atlas_kernel(device, side_a, side_p, reps=5):
     """K4 vs its plain version at the atlas shape, A and P samplers."""
     import torch
@@ -517,6 +544,8 @@ def phase_atlas_kernel(device, side_a, side_p, reps=5):
         atlas_case("atlas P sampler (50000 rows, partner 30000, k=50)",
                    side_p, side_a.n_rows, k, B, C, 4000, 7, device),
     ]
+    log(f"  K4 grid: {atlas_cuda.grid_blocks(device)} resident blocks of "
+        f"1024 threads, work items of {atlas_cuda.CHUNK} nonzeros")
     results, failed, max_err = [], [], 0.0
     for case in cases:
         source = uniform_source(1, B, device, sweeps=256)
@@ -536,8 +565,10 @@ def phase_atlas_kernel(device, side_a, side_p, reps=5):
                     locate_atlas_divergence(case, source)
                 failed.append((case["name"], what))
         out_k = atlas_cuda.run_updates_atlas_multi(*args, key)
+        atlas_cuda.reset_part_times(device)
         k_ms = time_calls(lambda: atlas_cuda.run_updates_atlas_multi(
             *args, key), reps)
+        parts = atlas_cuda.part_times(device)
         p_ms = time_plain(lambda: atlas_cuda.run_updates_atlas_multi_plain(
             *args, key))
         csr, m = case["csr"], case["other"].shape[1]
@@ -545,9 +576,20 @@ def phase_atlas_kernel(device, side_a, side_p, reps=5):
         bound, by = sweep_bound_ms(
             out_k[4].processed, out_k[0].n, 4 * 2 * k + 8 * nnz_row,
             300 + nnz_row * (2 * k + 16), fixed_bytes=4 * (m * k + k * k))
-        log(f"  {case['name']}: kernel {k_ms:.4f} ms/call, plain "
+        n_sweeps = int(out_k[3][0])
+        per_sweep = {part: parts[f"{part}_ns"] * 1e-6 / parts["sweeps"]
+                     for part in ("a", "b", "c")}
+        g_rows, g_ms = sweep_gather_ms(case, source(0, 0, 1))
+        log(f"  {case['name']}: kernel {k_ms:.4f} ms/call ({n_sweeps} "
+            f"sweeps, {k_ms / n_sweeps:.4f} ms a sweep; block 0 over "
+            f"{parts['sweeps']} sweeps: (a)+(c) "
+            f"{per_sweep['a'] + per_sweep['c']:.4f} ms = (a) "
+            f"{per_sweep['a']:.4f} + (c) {per_sweep['c']:.4f}, (b) "
+            f"{per_sweep['b']:.4f} ms a sweep), plain "
             f"{p_ms:.1f} ms/call, bound {bound:.6f} ms ({by}) (budget "
-            f"{int(case['budgets'][0])}, {nnz_row:.1f} nonzeros per row)")
+            f"{int(case['budgets'][0])}, {nnz_row:.1f} nonzeros per row); "
+            f"F9 gather_rows of the {g_rows} partner rows of the first "
+            f"exact-mode sweep: {g_ms:.4f} ms")
         results.append((case["name"], k_ms, p_ms, bound, by))
     if failed:
         raise AssertionError(f"K4 and its plain version disagree: {failed}")

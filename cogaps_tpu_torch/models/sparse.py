@@ -33,7 +33,7 @@ turns TF32 off at import).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -90,6 +90,8 @@ class CsrMatrix:
     val: torch.Tensor  # (nnz,) float32
     _ells: dict = dataclasses.field(default_factory=dict, repr=False,
                                     compare=False)
+    _max_len: Optional[int] = dataclasses.field(default=None, repr=False,
+                                                compare=False)
 
     @property
     def n_chains(self) -> int:
@@ -108,6 +110,14 @@ class CsrMatrix:
         lo, hi = (int(x) for x in self.indptr[c, [0, -1]])
         return CsrMatrix(indptr=(self.indptr[c] - lo)[None],
                          idx=self.idx[lo:hi], val=self.val[lo:hi])
+
+    def max_row_len(self) -> int:
+        """The most nonzeros of any row of any chain (read from the device
+        once, then kept)."""
+        if self._max_len is None:
+            lengths = self.indptr[:, 1:] - self.indptr[:, :-1]
+            self._max_len = int(lengths.max()) if lengths.numel() else 0
+        return self._max_len
 
     def row_ids(self, c: int = 0) -> torch.Tensor:
         """The data row of each of chain c's nonzeros, (nnz_c,) int64."""

@@ -122,19 +122,39 @@ def _keep(active, r1, r2, uses2, a1, uses_a1, a2, uses_a2,
     return active & ok
 
 
-def sweep(uni: torch.Tensor, atoms: AtomTable, M: torch.Tensor, mstate,
-          temp: float, remaining: int, consts: SamplerConsts,
-          mass: MassParams, *, model):
-    """One batched proposal sweep of one chain. Returns
-    (atoms, M, mstate, n_processed, counts)."""
+class Proposals(NamedTuple):
+    """One sweep's B proposals after the conflict rule and the capacity
+    and budget truncation; the type flags are cleared unless kept."""
+
+    keep: torch.Tensor
+    is_birth: torch.Tensor
+    is_death: torch.Tensor
+    is_move: torch.Tensor
+    is_exch: torch.Tensor
+    a1c: torch.Tensor
+    a2c: torch.Tensor
+    e_birth: torch.Tensor
+    elem1: torch.Tensor
+    elem2: torch.Tensor
+    m1: torch.Tensor
+    m2: torch.Tensor
+    r1: torch.Tensor
+    c1: torch.Tensor
+    r2: torch.Tensor
+    c2: torch.Tensor
+
+
+def propose(uni: torch.Tensor, atoms: AtomTable, remaining: int,
+            consts: SamplerConsts) -> Proposals:
+    """The first half of a sweep (csrc/sweep_common.cuh::sweep_front):
+    types, picks, first-wins conflicts, capacity and budget truncation."""
     B, C, K, NB = consts.batch, consts.capacity, consts.k, consts.n_bins
-    EPS = gaps_rng.EPSILON
-    dev = M.device
+    dev = atoms.mass.device
     f32 = torch.float32
 
     idx = torch.arange(B, device=dev)
     n = atoms.n.to(torch.int64)
-    u1, u2, u_gibbs, u_exp, u_acc, ui0, ui1, ui2, ui3 = uni[:9]
+    u1, u2, _, _, _, ui0, ui1, ui2, ui3 = uni[:9]
 
     active = idx < min(remaining, B)
 
@@ -192,10 +212,27 @@ def sweep(uni: torch.Tensor, atoms: AtomTable, M: torch.Tensor, mstate,
     rank = torch.cumsum(keep, 0)
     keep &= rank <= remaining
 
-    is_birth &= keep
-    is_death &= keep
-    is_move &= keep
-    is_exch &= keep
+    return Proposals(keep=keep, is_birth=is_birth & keep,
+                     is_death=is_death & keep, is_move=is_move & keep,
+                     is_exch=is_exch & keep, a1c=a1c, a2c=a2c,
+                     e_birth=e_birth, elem1=elem1, elem2=elem2, m1=m1, m2=m2,
+                     r1=r1, c1=c1, r2=r2, c2=c2)
+
+
+def sweep(uni: torch.Tensor, atoms: AtomTable, M: torch.Tensor, mstate,
+          temp: float, remaining: int, consts: SamplerConsts,
+          mass: MassParams, *, model):
+    """One batched proposal sweep of one chain. Returns
+    (atoms, M, mstate, n_processed, counts)."""
+    B, C, K = consts.batch, consts.capacity, consts.k
+    EPS = gaps_rng.EPSILON
+    dev = M.device
+
+    idx = torch.arange(B, device=dev)
+    n = atoms.n.to(torch.int64)
+    u_gibbs, u_exp, u_acc = uni[2:5]
+    (keep, is_birth, is_death, is_move, is_exch, a1c, a2c, e_birth, elem1,
+     elem2, m1, m2, r1, c1, r2, c2) = propose(uni, atoms, remaining, consts)
 
     # ---- alpha parameters for all lanes (used where kept)
     ab = model.alpha(mstate, M, AddrBatch(r1=r1, c1=c1, r2=r2, c2=c2))

@@ -17,7 +17,10 @@ agree bit for bit in practice). The CSR sweep kernel (K4) is held to
 its plain version (ops/sweep.py with models/sparse.make_model) by the
 per-call contract of tests/test_atlas_engine.py:218-227: equal done,
 sweeps, counts, n and elem; mass and M within atol 5e-3, rtol 1e-4 (it
-sums over a row's nonzeros in another order). The fused-span kernel
+sums over a row's nonzeros in another order), also on a row of over
+20,000 nonzeros, at k = 1 and 64, B = 1 and 1024, and on three chains
+with budgets 0, 37 and 400; two of its fast-mode runs agree bit for bit,
+and a launch the card refuses raises. The fused-span kernel
 (K3, csrc/span.cu) is held to its plain version (ops/span.py) over whole
 iterations in both phases: equal atom tables and counters, mass, M and
 the running sums within 1e-5; its rebuild alone to the plain tables, bit
@@ -317,6 +320,99 @@ def test_atlas_kernel_keeps_mass_and_checks_inputs(cuda_device):
     with pytest.raises(ValueError, match="is on"):
         atlas_cuda.run_updates_atlas_multi(atoms, M, csr.to("cpu"), other,
                                            1.0, budgets, consts, mass, key)
+
+
+def run_atlas_pair(device, D, k, B, C, budgets, mode, seed=0, s_max=8):
+    """K4 and its plain version on the rows of D, one chain per budget;
+    returns (kernel out, plain out, csr, inputs)."""
+    nch = len(budgets)
+    atoms, M, other, mass, consts = sparse_states(device, D, k, B, C, nch,
+                                                  seed)
+    r, c = np.nonzero(D)
+    csr = sparse.stack_csr([(r, c, D[r, c])] * nch, D.shape[0]).to(device)
+    budgets = torch.tensor(budgets, dtype=torch.int32, device=device)
+    rand = (sweep_cuda.PhiloxKey(key0=torch.arange(3, 3 + nch,
+                                                   device=device),
+                                 key1=6) if mode == "fast" else
+            lambda ch, first, n: rng.philox_uniforms(90 + ch, 2, ch, first,
+                                                     n, B, device=device))
+    args = (atoms, M, csr, other, 0.9, budgets, consts, mass, rand)
+    before = atlas_cuda.run_updates_atlas_multi.launches
+    out_k = atlas_cuda.run_updates_atlas_multi(*args, s_max=s_max)
+    assert atlas_cuda.run_updates_atlas_multi.launches > before
+    out_p = atlas_cuda.run_updates_atlas_multi_plain(*args)
+    torch.cuda.synchronize()
+    return out_k, out_p, csr, args
+
+
+def skewed_data(G=40, S=24000, long_row=3, seed=4):
+    """Rows of ~1% nonzeros and one of ~90% (over 20,000)."""
+    rs = np.random.default_rng(seed)
+    D = rs.gamma(2.0, 1.0, (G, S)) * (rs.random((G, S)) < 0.01)
+    D[long_row] = rs.gamma(2.0, 1.0, S) * (rs.random(S) < 0.9)
+    return D.astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_atlas_kernel_skewed_rows(cuda_device, mode):
+    """A row of over 20,000 nonzeros (~170 work items) among short rows;
+    the rows of the P side, of 40 nonzeros at most, beside it."""
+    D = skewed_data()
+    assert int((D[3] != 0).sum()) >= 20000
+    out_k, out_p, _, _ = run_atlas_pair(cuda_device, D, 4, 64, 1024,
+                                        [300, 120], mode)
+    assert_atlas_same(out_k, out_p)
+    out_k, out_p, _, _ = run_atlas_pair(cuda_device, D.T.copy(), 4, 256,
+                                        4096, [500, 60], mode)
+    assert_atlas_same(out_k, out_p)
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("k,B", [(1, 64), (64, 128), (4, 1), (4, 1024)],
+                         ids=["k1", "k64", "B1", "B1024"])
+def test_atlas_kernel_edges(cuda_device, mode, k, B):
+    """Three chains with budgets 0, 37 and 400 at the kernel's limits of
+    k and B."""
+    D = sparse_data(300, 200, 5, 0.3)
+    out_k, out_p, _, _ = run_atlas_pair(cuda_device, D, k, B, 4096,
+                                        [0, 37, 400], mode)
+    assert_atlas_same(out_k, out_p)
+    assert out_k[2].tolist() == [0, 37, 400]
+    assert int(out_k[3][0]) == 0
+
+
+def test_atlas_kernel_is_deterministic(cuda_device):
+    """No float atomics: two fast-mode runs on the same inputs give the
+    same bits."""
+    D = skewed_data(seed=6)
+    out_1, _, _, args = run_atlas_pair(cuda_device, D, 8, 512, 4096,
+                                       [2000, 900], "fast")
+    out_2 = atlas_cuda.run_updates_atlas_multi(*args)
+    for x, y in ((out_1[1], out_2[1]), (out_1[0].mass, out_2[0].mass),
+                 (out_1[0].elem, out_2[0].elem), (out_1[0].n, out_2[0].n)):
+        assert torch.equal(x, y)
+
+
+def test_atlas_kernel_refused_launch_raises(cuda_device):
+    """More chains than the card keeps resident: the cooperative launch is
+    refused, the wrapper raises, and the next launch runs."""
+    nch = atlas_cuda.grid_blocks(cuda_device) + 1
+    D = sparse_data(12, 10, 7, 0.5)
+    atoms, M, other, mass, consts = sparse_states(cuda_device, D, 2, 8, 64,
+                                                  nch)
+    r, c = np.nonzero(D)
+    csr = sparse.stack_csr([(r, c, D[r, c])] * nch, 12).to(cuda_device)
+    key = sweep_cuda.PhiloxKey(key0=torch.arange(nch, device=cuda_device),
+                               key1=1)
+    budgets = torch.full((nch,), 20, dtype=torch.int32, device=cuda_device)
+    before = atlas_cuda.run_updates_atlas_multi.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        atlas_cuda.run_updates_atlas_multi(atoms, M, csr, other, 1.0, budgets,
+                                           consts, mass, key)
+    assert atlas_cuda.run_updates_atlas_multi.launches == before
+    out_k, out_p, _, _ = run_atlas_pair(cuda_device, D, 2, 8, 64, [20],
+                                        "fast")
+    assert_atlas_same(out_k, out_p)
 
 
 def test_sparse_engines_on_card(cuda_device):
