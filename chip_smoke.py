@@ -43,12 +43,18 @@ Phases:
               1e-5 (on a mismatch, one-iteration spans locate the first
               iteration that differs); its rebuild alone against numpy
               float64 tables rounded once, bit for bit, at
-              tools/probe_rebuild.py's shape (384 x 9, k=7) and at GIST;
-              times per span, per chunk and per iteration, and the
-              kernel's time with every budget 0 (no sweeps);
-  4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda):
-              meanChiSq below 2x the golden GIST value, and the kernel
-              launched at least twice per iteration of each phase;
+              tools/probe_rebuild.py's shape (384 x 9, k=7), at GIST
+              (1 and 16 chains) and at 20000 x 100, k=10, 16 chains, with
+              the cluster size and plans it ran and the float64
+              torch.bmm of its contractions as yardstick; times per
+              span, per chunk and per iteration, the kernel's time with
+              every budget 0 (no sweeps), and ptxas's registers and
+              spills of span_kernel and rebuild_kernel;
+  4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda,
+              debug_checks=True): meanChiSq below 2x the golden GIST
+              value, the kernel launched at least twice per iteration of
+              each phase, and utils/debug.check_state passed after each
+              phase;
   5 throughput — run_throughput on GIST, 16 chains, 2000 iterations (the
               fused span: K3 launched, the per-call sweep kernel not),
               then the per-call route on the same data and seeds
@@ -60,8 +66,9 @@ Phases:
   7 sparse  — the iteration time of each sparse mode (dense, ell, xla)
               from one state of a 2000 x 10000 k=10 matrix with 87%
               structural zeros, then CoGAPS(sparse_optimization=True,
-              k=10, 500 iterations): finite meanChiSq, chi^2 history
-              falling 5x, two kernel launches per iteration;
+              k=10, 500 iterations, debug_checks=True): finite meanChiSq,
+              chi^2 history falling 5x, two kernel launches per
+              iteration, the sparse state checked after each phase;
   8 sparse multichain — SparseMultichainEngine, 4 such chains, 200 + 200
               iterations: finite, falling chi^2 in every chain; updates/s
               and peak memory;
@@ -84,6 +91,7 @@ kernel of the path.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -599,15 +607,23 @@ def phase_atlas_kernel(device, side_a, side_p, reps=5):
 # ----------------------------------------------------------------------
 # phase 3: K3, the fused span
 # ----------------------------------------------------------------------
+def rebuild_flops(G, S, k):
+    """float64 operations of csrc/span.cu's two table rebuilds of one
+    chain: per data entry and sampler its residual (2k + 2), Y (2k) and Z
+    (2 a pair c <= c'; SQ is Z's diagonal); per partner and sampler the
+    pair products of partner values."""
+    kp = k * (k + 1) // 2
+    return 2 * G * S * (4 * k + 2 + 2 * kp) + (G + S) * kp
+
+
 def rebuild_bound_ms(G, S, k, nch):
     """The bound of the rebuild-only entry point: D and invS2 read once
     (D_t and invS2_t are layouts of the same inputs), both factors read
     once, every table (Y, SQ, Z of each sampler) written once; the float64
-    operations of span_cuda.rebuild_ops."""
-    from cogaps_tpu_torch.ops.span_cuda import rebuild_ops
+    operations of rebuild_flops."""
     from cogaps_tpu_torch.probes import bound_ms
     n_bytes = 4 * nch * (2 * G * S + (G + S) * k + (G + S) * k * (2 + k))
-    return bound_ms(n_bytes, nch * rebuild_ops(G, S, k))
+    return bound_ms(n_bytes, nch * rebuild_flops(G, S, k))
 
 
 def span_bound_ms(G, S, k, nch, n_it, before, after, sampling):
@@ -618,10 +634,9 @@ def span_bound_ms(G, S, k, nch, n_it, before, after, sampling):
     sweep_bound_ms counts them, and the rebuilds' float64 operations every
     iteration. The tables the kernel rebuilds and rereads in between are
     its scratch, neither input nor output of the span."""
-    from cogaps_tpu_torch.ops.span_cuda import rebuild_ops
     from cogaps_tpu_torch.probes import bound_ms
     n_bytes = 4 * nch * (2 * G * S + 2 * (G + S) * k)
-    flops = n_it * nch * rebuild_ops(G, S, k)
+    flops = n_it * nch * rebuild_flops(G, S, k)
     done = after[1].prop_counts - before[1].prop_counts
     for row, atoms in ((0, after[0].atoms_a), (1, after[0].atoms_p)):
         b, f = sweep_work(done[:, row], atoms.n, 4 * (5 * k + k * k),
@@ -702,47 +717,82 @@ def numpy_tables(D, inv, M_a, M_p):
     return [x if x.dtype == bool else x.astype(np.float32) for x in out]
 
 
-def rebuild_check(name, D, k, seed, device, reps=20):
-    """The span kernel's rebuild alone against numpy_tables on one chain
-    with random factors; returns (kernel device ms, plain ms, bound ms,
-    bound_by)."""
+def rebuild_library_ms(data, M_a, M_p, reps):
+    """The library yardstick of the rebuild: float64 torch.bmm of its
+    contractions, R.O and W.[O*O | O_c O_c'] of both samplers, on a
+    residual R formed beforehand (the port never calls them)."""
+    import torch
+    k = M_a.shape[-1]
+    iu = torch.triu_indices(k, k)
+    ops = []
+    for X, W, M, O in ((data.D, data.invS2, M_a, M_p),
+                       (data.D_t, data.invS2_t, M_p, M_a)):
+        X, W, M, O = (x.double() for x in (X, W, M, O))
+        R = (X - M @ O.transpose(1, 2)) * W
+        OO = torch.cat([O * O, O[:, :, iu[0]] * O[:, :, iu[1]]], dim=2)
+        ops.append((R, O, W, OO))
+
+    def library():
+        for R, O, W, OO in ops:
+            torch.bmm(R, O)
+            torch.bmm(W, OO)
+
+    return time_calls(library, reps)
+
+
+def rebuild_check(name, Ds, k, seed, device, reps=20):
+    """The span kernel's rebuild alone on len(Ds) chains with random
+    factors, against numpy_tables chain by chain, bit for bit; returns
+    {cl, ms (device), plain, library, bound, by}."""
     import torch
     from cogaps_tpu_torch.engine import _device_data
     from cogaps_tpu_torch.ops import span, span_cuda
     rng = np.random.default_rng(seed)
-    G, S = D.shape
+    nch = len(Ds)
+    G, S = Ds[0].shape
+    D = np.stack(Ds)
     inv = (1.0 / np.maximum(0.1 * D, 0.1) ** 2).astype(np.float32)
-    M_a = rng.gamma(2.0, 1.0, (G, k)).astype(np.float32)
-    M_p = rng.gamma(2.0, 1.0, (S, k)).astype(np.float32)
-    one = np.float32([1.0])
-    data = _device_data(D[None], inv[None], one, one, one, one, device)
-    Ma_t = torch.as_tensor(M_a[None], device=device)
-    Mp_t = torch.as_tensor(M_p[None], device=device)
-    got = span_cuda.rebuild_tables(data, Ma_t, Mp_t)
-    want = numpy_tables(D, inv, M_a, M_p)
-    worst, unequal = 0.0, []
-    for field, x, y in zip(got._fields, got, want):
-        x = x[0].cpu().numpy()
-        if not np.array_equal(x, y):
-            unequal.append(field)
-            if x.dtype != bool:
-                worst = max(worst, float(np.abs(x.astype(np.float64) - y).max()
-                                         / max(np.abs(y).max(), 1e-30)))
+    M_a = rng.gamma(2.0, 1.0, (nch, G, k)).astype(np.float32)
+    M_p = rng.gamma(2.0, 1.0, (nch, S, k)).astype(np.float32)
+    one = np.ones(nch, np.float32)
+    data = _device_data(D, inv, one, one, one, one, device)
+    Ma_t = torch.as_tensor(M_a, device=device)
+    Mp_t = torch.as_tensor(M_p, device=device)
+    shape = span_cuda.launch_shape(1, device, nch, G, S, k,
+                                   span_cuda.block_threads(1024, 1, k))
+    got = [x.cpu().numpy() for x in span_cuda.rebuild_tables(data, Ma_t,
+                                                             Mp_t)]
+    unequal = {}
+    for c in range(nch):
+        want = numpy_tables(D[c], inv[c], M_a[c], M_p[c])
+        for field, x, y in zip(span.SpanTables._fields, got, want):
+            bad = x[c] != y
+            if bad.any():
+                rel = (np.abs(x[c].astype(np.float64) - y).max()
+                       / max(np.abs(y).max(), 1e-30) if y.dtype != bool
+                       else 1.0)
+                unequal.setdefault(field, []).append(
+                    (c, int(bad.sum()), float(rel)))
     ms = device_ms(lambda: span_cuda.rebuild_tables(data, Ma_t, Mp_t),
                    "rebuild_kernel", reps)
     plain = time_plain(lambda: span.rebuild_tables_plain(data, Ma_t, Mp_t))
-    bound, by = rebuild_bound_ms(G, S, k, 1)
+    library = rebuild_library_ms(data, Ma_t, Mp_t, reps)
+    bound, by = rebuild_bound_ms(G, S, k, nch)
     log(f"  rebuild alone, {name}: "
         + ("bit-equal to numpy float64 rounded once" if not unequal else
-           f"UNEQUAL {unequal}, max relative error {worst:.3g}")
-        + f"; {ms:.4f} ms on the device, plain {plain:.4f} ms, bound "
-        f"{bound:.6f} ms ({by})")
+           f"UNEQUAL (chain, entries, max relative error) {unequal}")
+        + f"; cluster of {shape.cl} CTAs a chain, plans A {tuple(shape.plan_a)}"
+        f" P {tuple(shape.plan_p)}, {shape.smem} B shared memory; "
+        f"{ms:.4f} ms on the device, plain {plain:.4f} ms, float64 bmm "
+        f"{library:.4f} ms, bound {bound:.6f} ms ({by}), share "
+        f"{bound / ms:.4f}")
     if unequal:
-        raise AssertionError(f"span rebuild differs from numpy: {unequal}")
-    return ms, plain, bound, by
+        raise AssertionError(f"span rebuild differs from numpy: {name}")
+    return {"cl": shape.cl, "ms": ms, "plain": plain, "library": library,
+            "bound": bound, "by": by}
 
 
-def phase_span(device, reps=5, n_chains=16, seed=21):
+def phase_span(device, report, reps=5, n_chains=16, seed=21):
     """K3 against its plain version on GIST (n_chains chains, as phase 5
     runs it; 5-iteration spans from a state after 50 per-call
     equilibration iterations), its rebuild alone against numpy, and its
@@ -823,6 +873,9 @@ def phase_span(device, reps=5, n_chains=16, seed=21):
         NoSweeps(seeds, device)), "span_kernel", reps) / span_cuda.CHUNK
     tables_ms = device_ms(lambda: span_cuda.rebuild_tables(
         eng.data, state.M_a, state.M_p), "rebuild_kernel", reps)
+    span_cl = span_cuda.launch_shape(
+        0, device, n_chains, G, S, k, span_cuda.block_threads(
+            eng.consts_a.batch, eng.consts_p.batch, k)).cl
     log(f"  K3 GIST x{n_chains}: {span_ms:.4f} ms per 5-iteration sampling "
         f"span ({span_ms / 5:.4f} ms per iteration), plain "
         f"{plain_ms[SAMPLING]:.1f} ms (equilibration {plain_ms[0]:.1f} ms),"
@@ -835,20 +888,45 @@ def phase_span(device, reps=5, n_chains=16, seed=21):
         f"per sampling iteration; without sweeps (all budgets 0: rebuilds, "
         f"statistics, counters) {no_sweeps_ms:.4f} ms, a share "
         f"{no_sweeps_ms * span_cuda.CHUNK / kernel_ms:.4f}; rebuild_kernel "
-        f"alone on the same state {tables_ms:.4f} ms")
-    probe = rebuild_check("tools/probe_rebuild.py shape (384 x 9, k=7)",
-                          np.random.default_rng(0).gamma(
-                              2.0, 2.0, (384, 9)).astype(np.float32),
-                          7, 1, device)
-    gist = rebuild_check("GIST (1363 x 9, k=7)", D, 7, 2, device)
+        f"alone on the same state {tables_ms:.4f} ms; span_kernel runs "
+        f"clusters of {span_cl} CTAs a chain; ptxas (registers, bytes of "
+        f"spill stores): span_kernel {ptxas_of(report, 'span_kernel')}, "
+        f"rebuild_kernel {ptxas_of(report, 'rebuild_kernel')}")
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    rebuilds = {
+        "probe": rebuild_check(
+            "tools/probe_rebuild.py shape (384 x 9, k=7)",
+            [np.random.default_rng(0).gamma(2.0, 2.0, (384, 9)).astype(
+                np.float32)], 7, 1, device),
+        "gist": rebuild_check("GIST (1363 x 9, k=7)", [D], 7, 2, device),
+        "gist_x16": rebuild_check(f"GIST x{n_chains}", [D] * n_chains, 7, 3,
+                                  device),
+        "wide_x16": rebuild_check(
+            f"20000 x 100, k=10, x{n_chains}",
+            synthetic_dense(20000, 100, 10, n_chains, 45), 10, 4, device,
+            reps=5),
+    }
     return ((f"GIST x{n_chains}, 5 iterations", span_ms, plain_ms[SAMPLING],
-             bound, by), max_err, {"rebuild_probe": probe,
-                                   "rebuild_gist": gist,
+             bound, by), max_err, {"rebuilds": rebuilds,
                                    "chunk_ms": chunk_ms,
                                    "kernel_ms_per_iter":
                                        kernel_ms / span_cuda.CHUNK,
                                    "no_sweeps_ms_per_iter": no_sweeps_ms,
                                    "rebuild_ms_per_iter": tables_ms})
+
+
+def ptxas_of(report, kernel):
+    """(registers, bytes of spill stores) that ptxas reported for the
+    entry function whose name holds `kernel`."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            after = "\n".join(lines[i + 1:i + 3])
+            spill = re.search(r"(\d+) bytes spill stores", after)
+            regs = re.search(r"Used (\d+) registers", after)
+            return (int(regs.group(1)) if regs else None,
+                    int(spill.group(1)) if spill else None)
+    return None, None
 
 
 def build_all():
@@ -962,30 +1040,42 @@ def main() -> int:
     del coo
     atlas_times, atlas_err = phase_atlas_kernel(device, atlas.side_a,
                                                 atlas.side_p)
-    span_times, span_err, span_extra = phase_span(device)
+    span_times, span_err, span_extra = phase_span(device, builds["span"][1])
     log(f"[3 kernels] K1, K2, K3 == plain versions, K4 within its per-call "
         f"contract, at the main-path shapes ({time.perf_counter() - t0:.1f}"
         f" s)")
 
-    # 4. CoGAPS() on GIST: the main path
+    # 4. CoGAPS() on GIST: the main path, with its debug checks
+    from cogaps_tpu_torch import api
+    checked = []
+
+    def counted_check(state, k, check=api.check_state):
+        check(state, k)
+        checked.append(k)
+
+    api.check_state = counted_check
     golden = gist_golden_mcs()
     n_it = 2000
     t0 = time.perf_counter()
     sweep_cuda.run_updates_multi.launches = 0
     res = cogaps_tpu_torch.CoGAPS(GIST_CSV, n_patterns=7,
                                   n_iterations=n_it, seed=42,
-                                  messages=False, device="cuda")
+                                  messages=False, debug_checks=True,
+                                  device="cuda")
     launches = sweep_cuda.run_updates_multi.launches
     elapsed = time.perf_counter() - t0
     mcs = res.mean_chi_sq
     log(f"[4 CoGAPS] GIST k=7 {n_it} iterations: meanChiSq {mcs:.1f} "
         f"(gate < {2 * golden:.1f}), totalUpdates "
         f"{res.diagnostics['totalUpdates']}, {elapsed:.2f} s, kernel "
-        f"launches {launches}")
+        f"launches {launches}; debug_checks: check_state passed after "
+        f"{len(checked)} phases")
     if not np.isfinite(mcs) or mcs >= 2.0 * golden:
         raise AssertionError(f"CoGAPS did not converge: {mcs}")
     if launches < 2 * 2 * n_it:
         raise AssertionError(f"only {launches} kernel launches")
+    if len(checked) != 2:
+        raise AssertionError(f"check_state ran {len(checked)} times")
 
     # 5. throughput path: the fused span, then the per-call route
     import functools
@@ -1066,10 +1156,12 @@ def main() -> int:
     sweep_cuda.run_updates_multi.launches = 0
     atlas_cuda.run_updates_atlas_multi.launches = 0
     t0 = time.perf_counter()
+    checked.clear()
     res = cogaps_tpu_torch.CoGAPS(D_sparse, n_patterns=10,
                                   n_iterations=n_sp, seed=5,
                                   sparse_optimization=True, messages=False,
-                                  output_frequency=100, device="cuda")
+                                  output_frequency=100, debug_checks=True,
+                                  device="cuda")
     sparse_launches = {"sweep": sweep_cuda.run_updates_multi.launches,
                        "atlas": atlas_cuda.run_updates_atlas_multi.launches}
     elapsed = time.perf_counter() - t0
@@ -1079,12 +1171,15 @@ def main() -> int:
     log(f"  CoGAPS(sparse_optimization=True) k=10 {n_sp} iterations, mode "
         f"{mode}: meanChiSq {res.mean_chi_sq:.1f}, {ups:.1f} updates/s "
         f"({res.diagnostics['totalUpdates']} updates), {elapsed:.2f} s, "
-        f"launches {sparse_launches}; chi^2 history "
+        f"launches {sparse_launches}; debug_checks: check_state passed "
+        f"after {len(checked)} phases; chi^2 history "
         f"{np.round(h, 1).tolist()}")
     if not np.isfinite(res.mean_chi_sq) or not h[-1] < 0.2 * h[0]:
         raise AssertionError("sparse CoGAPS did not converge")
     if sum(sparse_launches.values()) < 2 * 2 * n_sp:
         raise AssertionError(f"only {sparse_launches} kernel launches")
+    if len(checked) != 2:
+        raise AssertionError(f"check_state ran {len(checked)} times")
 
     # 8. sparse multichain
     from cogaps_tpu_torch.sparse_engine import (SparseMultichainEngine,
@@ -1200,8 +1295,7 @@ def main() -> int:
     ] + probe_suite.kernel_entries(probe_records, probe_launches)}
     if min(e["launches"] for e in kernel_line["kernels"]) <= 0:
         raise AssertionError("a kernel of the path was never launched")
-    log(f"K3 rebuild alone (ms, plain ms, bound ms, bound_by): probe shape "
-        f"{span_extra['rebuild_probe']}, GIST {span_extra['rebuild_gist']}")
+    log(f"K3 rebuild alone (P*r): {json.dumps(span_extra['rebuilds'])}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(kernel_line))
     print(nvidia_smi())

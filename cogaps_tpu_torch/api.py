@@ -30,6 +30,7 @@ from .io.coo import CooMatrix
 from .models import dense, sparse
 from .params import CogapsParams
 from .result import CogapsResult, finalize_statistics, mean_chi_sq
+from .utils.debug import check_state
 from .utils.logging import log_message, log_worker
 
 
@@ -187,6 +188,8 @@ def _run_single(D: np.ndarray, params: CogapsParams, uncertainty,
     for phase in (EQUILIBRATION, SAMPLING):
         state, stats = engine.run_phase(state, stats, rand, phase,
                                         progress_cb=progress_cb)
+        if params.debug_checks:
+            check_state(state, config.n_patterns)
 
     st = {f.name: getattr(stats, f.name)[0].cpu().numpy()
           for f in dataclasses.fields(stats)}

@@ -26,7 +26,7 @@ __global__ void __launch_bounds__(cogaps::kMaxB)
                  const float* Z) {
   const size_t nb = (size_t)blockIdx.x * p.NB;
   cogaps::DenseModel model{p.K, Y + nb, SQ + nb, Z + nb * p.K};
-  cogaps::sweep_chain(p, model);
+  cogaps::sweep_chain(p, model, blockIdx.x);
 }
 
 }  // namespace

@@ -585,12 +585,11 @@ __device__ __forceinline__ void sweep_back(const SweepArgs& p,
   __syncthreads();
 }
 
-// One block's whole update(nSteps) for chain blockIdx.x: every sweep
-// until the budget is spent.
+// One block's whole update(nSteps) for `chain`: every sweep until the
+// budget is spent.
 template <class Model>
-__device__ void sweep_chain(const SweepArgs& p, Model& model) {
+__device__ void sweep_chain(const SweepArgs& p, Model& model, int chain) {
   __shared__ SweepShared sh;
-  const int chain = blockIdx.x;
   const Chain ch = chain_of(p, chain);
   chain_begin(p, ch, sh, chain);
   int s = 0;

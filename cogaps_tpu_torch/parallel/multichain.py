@@ -23,15 +23,19 @@ from ..models import dense
 from ..ops import span_cuda
 from ..params import EngineConfig
 
-# the fused span's domain: its table rebuild runs in one block per chain,
-# for data with few samples, where launches dominate an iteration
+# the fused span's domain: the JAX package's semantic condition
 MAX_SPAN_SAMPLES = 128
-# and its size: the rebuild runs on one SM a chain, so the span's
-# iteration grows with span_cuda.rebuild_ops while the per-call route's
-# stays near its host floor. On an H100 (profile_iter, 16 chains) the span
-# is 3-5x faster at GIST (3.3 M operations) and slower from 2000x32 k=7
-# (17.3 M) on; the two meet near 10 M.
-MAX_SPAN_REBUILD_OPS = 10_000_000
+# and its size, in span_cuda.rebuild_ops a chain an iteration: the span's
+# iteration grows with its float64 table rebuilds (a thread-block cluster
+# a chain), the per-call route's with its float32 matmuls from a host
+# floor. profile_iter, two runs on NVIDIA H100 80GB HBM3 cards at 700.00
+# W, 16 chains, wall ms an iteration fused : per-call: 2000x32 k=7 (17.3
+# M) 0.6304 : 1.1816 and 0.6641 : 3.0654; 4000x64 k=7 (69.1 M) 0.9390 :
+# 1.2002 and 0.9570 : 1.6913; 6000x100 k=10 (284 M) 1.9506 : 3.1173;
+# 10000x100 k=10 (474 M) 2.9241 : 2.8071 and 3.0245 : 3.3227; 20000x100
+# k=10 (948 M) 5.5095 : 4.8534 and 5.5512 : 4.8791. The span wins up to
+# 284 M, the two trade places near 474 M, per-call wins beyond.
+MAX_SPAN_REBUILD_OPS = 300_000_000
 
 
 def stack_device_data(Ds, Ss, cfg: EngineConfig, device) -> DeviceData:
@@ -70,9 +74,10 @@ class MultichainEngine(ChainEngine):
         """Whether run_phase takes the fused span: the semantic conditions
         of cogaps_tpu/parallel/multichain.MultichainEngine._fused_ok
         (both factors sampled, no histories, snapshots or PUMP counts,
-        n_samples <= 128), and a table rebuild small enough for one block
-        a chain (MAX_SPAN_REBUILD_OPS). Its TPU conditions (backend, mesh,
-        <= 8 chains for the v5e's VMEM) have no counterpart here."""
+        n_samples <= 128), and a table rebuild below the size where the
+        per-call route overtakes it (MAX_SPAN_REBUILD_OPS). Its TPU
+        conditions (backend, mesh, <= 8 chains for the v5e's VMEM) have no
+        counterpart here."""
         cfg = self.config
         return (cfg.which_matrix_fixed == "N" and self.hist.n_hist == 0
                 and cfg.n_snapshots == 0 and not cfg.take_pump_samples

@@ -160,6 +160,10 @@ def main() -> None:
          100, 30, ROUTES[::2]),
         ("4000x64 k=7, 16 chains", synthetic_dense(4000, 64, 7, 16, 44), 7,
          60, 20, ROUTES[::2]),
+        ("6000x100 k=10, 16 chains", synthetic_dense(6000, 100, 10, 16, 47),
+         10, 40, 10, ROUTES[::2]),
+        ("10000x100 k=10, 16 chains", synthetic_dense(10000, 100, 10, 16, 46),
+         10, 40, 10, ROUTES[::2]),
         ("20000x100 k=10, 16 chains", synthetic_dense(20000, 100, 10, 16, 45),
          10, 40, 10, ROUTES[::2]),
     ]

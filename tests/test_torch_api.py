@@ -195,3 +195,98 @@ def test_clean_import_loads_no_jax():
     # TF32 is off for float32 matrix products (the Y tables cancel)
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+# ----------------------------------------------------------------------
+# debug_checks: utils/debug.check_state after every phase
+# ----------------------------------------------------------------------
+def _ran_state(D, sparse_model):
+    """A dense or sparse engine's state after a short equilibration."""
+    from cogaps_tpu_torch.engine import EQUILIBRATION, GapsEngine, PhiloxRandom
+    from cogaps_tpu_torch.sparse_engine import SparseGapsEngine
+    cfg = params.CogapsParams(n_patterns=3, n_iterations=20).engine_config(
+        *D.shape)
+    eng = (SparseGapsEngine(D, cfg, "cpu") if sparse_model
+           else GapsEngine(D, None, cfg, "cpu"))
+    st, _ = eng.run_phase(eng.init_state(), eng.init_stats(),
+                          PhiloxRandom([3], "cpu"), EQUILIBRATION)
+    assert int(st.atoms_a.n[0]) > 2 and int(st.atoms_p.n[0]) > 2
+    # clones the test may corrupt (the engine's own are inference tensors)
+    return type(st)(*(type(x)(*(y.clone() for y in dataclasses.astuple(x)))
+                      if dataclasses.is_dataclass(x) else x.clone()
+                      for x in (st.atoms_a, st.atoms_p, st.M_a, st.M_p)))
+
+
+@pytest.mark.parametrize("sparse_model", [False, True],
+                         ids=["dense", "sparse"])
+def test_debug_checks_pass_on_a_clean_run(modsim_golden, sparse_model):
+    from cogaps_tpu_torch.utils.debug import check_state
+    res = cogaps_tpu_torch.CoGAPS(modsim_golden["D"], n_patterns=3,
+                                  n_iterations=40, seed=2, messages=False,
+                                  debug_checks=True,
+                                  sparse_optimization=sparse_model,
+                                  device="cpu")
+    assert np.isfinite(res.mean_chi_sq)
+    check_state(_ran_state(modsim_golden["D"], sparse_model), 3)
+
+
+def _corrupt(st, how):
+    a = st.atoms_a
+    n = int(a.n[0])
+    if how == "negative M":
+        st.M_a[0, 0, 0] = -1.0
+    elif how == "not compact":  # a live atom moved past a hole
+        a.elem[0, n] = a.elem[0, 0]
+        a.mass[0, n] = a.mass[0, 0]
+        a.elem[0, 0], a.mass[0, 0] = -1, 0.0
+    elif how == "live count":
+        a.n[0] = n + 1
+    elif how == "mass":
+        a.mass[0, 1] = 0.0
+    elif how == "drift":
+        e = int(a.elem[0, 0])
+        st.M_a[0].view(-1)[e] += 0.5
+
+
+@pytest.mark.parametrize("how,message", [
+    ("negative M", "A: negative factor entries"),
+    ("not compact", "A: atom table not compact"),
+    ("live count", "A: live count"),
+    ("mass", "A: non-positive live masses"),
+    ("drift", "A: atom-mass drift 0.5"),
+])
+def test_check_state_raises_as_jax_does(modsim_golden, how, message):
+    """A corrupted state raises AssertionError with the JAX package's
+    message (cogaps_tpu/utils/debug.check_state on chain 0)."""
+    from types import SimpleNamespace
+    from cogaps_tpu.utils import debug as jdebug
+    from cogaps_tpu_torch.utils.debug import check_state
+    st = _ran_state(modsim_golden["D"], False)
+    _corrupt(st, how)
+    with pytest.raises(AssertionError, match=message) as port:
+        check_state(st, 3)
+
+    def one(atoms):
+        return SimpleNamespace(elem=atoms.elem[0].numpy(),
+                               mass=atoms.mass[0].numpy(),
+                               n=atoms.n[0].numpy())
+
+    jstate = SimpleNamespace(atoms_a=one(st.atoms_a), atoms_p=one(st.atoms_p),
+                             M_a=st.M_a[0].numpy(), M_p=st.M_p[0].numpy())
+    with pytest.raises(AssertionError) as jax_err:
+        jdebug.check_state(jstate, 3)
+    assert str(port.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("debug_checks", [True, False])
+def test_debug_checks_run_once_per_phase(modsim_golden, monkeypatch,
+                                         debug_checks):
+    from cogaps_tpu_torch import api
+    calls = []
+    monkeypatch.setattr(api, "check_state",
+                        lambda state, k: calls.append((state.M_a.shape, k)))
+    cogaps_tpu_torch.CoGAPS(modsim_golden["D"], n_patterns=3, n_iterations=6,
+                            messages=False, debug_checks=debug_checks,
+                            device="cpu")
+    D = modsim_golden["D"]
+    assert calls == ([((1, D.shape[0], 3), 3)] * 2 if debug_checks else [])

@@ -22,9 +22,12 @@ sums over a row's nonzeros in another order), also on a row of over
 with budgets 0, 37 and 400; two of its fast-mode runs agree bit for bit,
 and a launch the card refuses raises. The fused-span kernel
 (K3, csrc/span.cu) is held to its plain version (ops/span.py) over whole
-iterations in both phases: equal atom tables and counters, mass, M and
+iterations in both phases, at the cluster size its rule picks and at each
+of 8, 4, 2 and 1 CTAs a chain: equal atom tables and counters, mass, M and
 the running sums within 1e-5; its rebuild alone to the plain tables, bit
-for bit."""
+for bit, at GIST x16, 2000 x 128 k=10, k = 1 and 12, and at 1 to 200
+chains; two runs give the same bits, and a cluster launch the card
+refuses raises."""
 
 import os
 
@@ -477,7 +480,7 @@ def span_case(device, G=30, S=8, k=3, nch=3, n_warm=20):
     A = rs.gamma(2.0, 1.0, (G, k))
     Ds = [(A @ rs.gamma(2.0, 1.0, (S, k)).T).astype(np.float32)
           for _ in range(nch)]
-    # 256 threads: the P tables' sums are split over warps (csrc/span.cu)
+    # 256 threads: the P tables' sums split over lanes (csrc/span.cu)
     cfg = CogapsParams(n_patterns=k, n_iterations=40, output_frequency=0,
                        batch_size_a=256).engine_config(G, S)
     eng = MultichainEngine(stack_device_data(Ds, None, cfg, device), cfg,
@@ -508,12 +511,16 @@ def assert_span_same(out_k, out_p):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("cl", [None, 8, 4, 2, 1])
 @pytest.mark.parametrize("phase", [0, 1])
-def test_span_kernel_matches_plain(cuda_device, monkeypatch, phase):
-    """Seven iterations in chunks of three: three launches."""
+def test_span_kernel_matches_plain(cuda_device, monkeypatch, phase, cl):
+    """Seven iterations in chunks of three: three launches; at the cluster
+    size the rule picks (None), and at each size forced."""
     from cogaps_tpu_torch.engine import PhiloxRandom
     eng, st, ss, seeds = span_case(cuda_device)
     monkeypatch.setattr(span_cuda, "CHUNK", 3)
+    if cl is not None:
+        monkeypatch.setattr(span_cuda, "cluster_size", lambda *a: cl)
     it0 = 20 if phase == 0 else 0
     args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, phase,
             eng.data, it0, 7, st, ss)
@@ -533,6 +540,105 @@ def test_span_rebuild_matches_plain_tables(cuda_device):
     want = span.rebuild_tables_plain(eng.data, st.M_a, st.M_p)
     for name, x, y in zip(got._fields, got, want):
         assert torch.equal(x, y), name
+
+
+def rebuild_case(device, G, S, k, nch, seed=5):
+    """nch chains of gamma data (GIST's own for 1363 x 9) with random
+    factors, as device data."""
+    from cogaps_tpu_torch.engine import _device_data
+    rs = np.random.default_rng(seed)
+    if (G, S) == (1363, 9):
+        D = np.stack([np.load(f"{DATA}/gist.npz")["D"].astype(np.float32)]
+                     * nch)
+    else:
+        D = rs.gamma(2.0, 2.0, (nch, G, S)).astype(np.float32)
+    inv = (1.0 / np.maximum(0.1 * D, 0.1) ** 2).astype(np.float32)
+    one = np.ones(nch, np.float32)
+    data = _device_data(D, inv, one, one, one, one, device)
+    M_a = rs.gamma(2.0, 1.0, (nch, G, k)).astype(np.float32)
+    M_p = rs.gamma(2.0, 1.0, (nch, S, k)).astype(np.float32)
+    M_p[0, :, 0] = 0.0  # a dead column
+    return (data, torch.as_tensor(M_a, device=device),
+            torch.as_tensor(M_p, device=device))
+
+
+def assert_rebuild_equal(data, M_a, M_p):
+    before = span_cuda.rebuild_tables.launches
+    got = span_cuda.rebuild_tables(data, M_a, M_p)
+    assert span_cuda.rebuild_tables.launches == before + 1
+    want = span.rebuild_tables_plain(data, M_a, M_p)
+    for name, x, y in zip(got._fields, got, want):
+        assert torch.equal(x, y), (name, int((x != y).sum()))
+
+
+@pytest.mark.parametrize("G,S,k,nch", [
+    (1363, 9, 7, 16), (2000, 128, 10, 2), (50, 9, 1, 3), (9, 50, 1, 3),
+    (300, 40, 12, 4)], ids=["gist-x16", "2000x128-k10", "k1", "k1-wide",
+                            "k12"])
+def test_span_rebuild_shapes(cuda_device, G, S, k, nch):
+    """The rebuild alone bit-equal to the plain tables: at GIST x16, where
+    the P side (partners: 2000 genes) spans the cluster's CTAs, at k=1 on
+    either side of the split, and with many column groups."""
+    assert_rebuild_equal(*rebuild_case(cuda_device, G, S, k, nch))
+
+
+@pytest.mark.parametrize("nch", [1, 16, 32, 64, 200])
+def test_span_rebuild_cluster_sizes(cuda_device, nch):
+    """Chain counts that take clusters of 8 down to 1 (span_cuda.
+    cluster_size on the card): the tables stay bit-equal."""
+    shape = span_cuda.launch_shape(1, cuda_device, nch, 1363, 9, 7, 1024)
+    assert shape.cl in (1, 2, 4, 8)
+    if nch == 1:
+        assert shape.cl == 8
+    if nch == 200:
+        assert shape.cl == 1
+    assert_rebuild_equal(*rebuild_case(cuda_device, 1363, 9, 7, nch))
+
+
+@pytest.mark.parametrize("cl", [8, 4, 2, 1])
+def test_span_rebuild_each_forced_cluster_size(cuda_device, monkeypatch, cl):
+    monkeypatch.setattr(span_cuda, "cluster_size", lambda *a: cl)
+    assert_rebuild_equal(*rebuild_case(cuda_device, 2000, 128, 10, 2))
+    assert_rebuild_equal(*rebuild_case(cuda_device, 1363, 9, 7, 3))
+
+
+def test_span_kernel_is_deterministic(cuda_device):
+    """No float atomics: two spans from one state give the same bits."""
+    from cogaps_tpu_torch.engine import PhiloxRandom
+    eng, st, ss, seeds = span_case(cuda_device)
+    args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, 1, eng.data, 0,
+            6, st, ss)
+    (st1, ss1), (st2, ss2) = (
+        span_cuda.run_span(*args, PhiloxRandom(seeds, cuda_device))
+        for _ in range(2))
+    for x, y in ((st1.M_a, st2.M_a), (st1.M_p, st2.M_p),
+                 (st1.atoms_a.mass, st2.atoms_a.mass),
+                 (st1.atoms_p.elem, st2.atoms_p.elem), (ss1.upd, ss2.upd),
+                 (ss1.a_sumsq, ss2.a_sumsq), (ss1.p_sum, ss2.p_sum)):
+        assert torch.equal(x, y)
+    data, M_a, M_p = rebuild_case(cuda_device, 2000, 128, 10, 2)
+    t1, t2 = (span_cuda.rebuild_tables(data, M_a, M_p) for _ in range(2))
+    for x, y in zip(t1, t2):
+        assert torch.equal(x, y)
+
+
+def test_span_refused_cluster_launch_raises(cuda_device, monkeypatch):
+    """Clusters of 16 CTAs (beyond the portable 8, not enabled): the card
+    refuses the launch, the wrappers raise, and nothing falls back."""
+    from cogaps_tpu_torch.engine import PhiloxRandom
+    eng, st, ss, seeds = span_case(cuda_device, n_warm=2)
+    monkeypatch.setattr(span_cuda, "cluster_size", lambda *a: 16)
+    before = (span_cuda.run_span.launches, span_cuda.rebuild_tables.launches)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        span_cuda.run_span(eng.config, eng.consts_a, eng.consts_p, eng.hist,
+                           0, eng.data, 2, 1, st, ss,
+                           PhiloxRandom(seeds, cuda_device))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        span_cuda.rebuild_tables(eng.data, st.M_a, st.M_p)
+    assert (span_cuda.run_span.launches,
+            span_cuda.rebuild_tables.launches) == before
+    monkeypatch.undo()  # and the next launch runs
+    assert_rebuild_equal(*rebuild_case(cuda_device, 70, 9, 4, 2))
 
 
 def test_span_wrapper_checks_inputs(cuda_device):

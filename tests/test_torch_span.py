@@ -46,8 +46,10 @@ torch.set_num_threads(1)
 # ----------------------------------------------------------------------
 # (a) tables
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("G,S,k", [(40, 9, 3), (130, 7, 4)])
-def test_tables_match_jax_rebuilds(G, S, k):
+def tables_case(G, S, k):
+    """Two chains' data and factors (a dead column on each side), and the
+    JAX package's tables of them: _rebuild_A/_rebuild_P/_colnz_from_slab,
+    and models/dense.make_phase's Z for the A side."""
     rs = np.random.default_rng(G + S)
     Ds = [rs.gamma(2.0, 2.0, (G, S)).astype(np.float32) for _ in range(2)]
     cfg = CogapsParams(n_patterns=k, n_iterations=10,
@@ -57,8 +59,6 @@ def test_tables_match_jax_rebuilds(G, S, k):
     M_p = rs.gamma(2.0, 1.0, (2, S, k)).astype(np.float32)
     M_p[1, :, 1] = 0.0  # a dead column: col_nz false on the A side
     M_a[0, :, 2] = 0.0  # and on the P side
-    port = span_cuda.rebuild_tables(data, torch.from_numpy(M_a),
-                                    torch.from_numpy(M_p))
 
     D, inv = data.D.numpy(), data.invS2.numpy()
     sd = pallas_iter.prepare_span_data(jnp.asarray(D), jnp.asarray(inv))
@@ -77,17 +77,143 @@ def test_tables_match_jax_rebuilds(G, S, k):
                           for c in range(2)]),
         "Y_p": Y2p[:, :S], "SQ_p": SQ2p[:, :S],
         "Z_p": Z2p[:, :S].reshape(2, S * k, k),
+        "col_nz_a": jnp.max(M2p[:, :S, :], axis=1) > 0.0,
+        "col_nz_p": pallas_iter._colnz_from_slab(M2a, RH, k)[:, :, 0] > 0,
     }
+    return (data, torch.from_numpy(M_a), torch.from_numpy(M_p),
+            {name: np.asarray(x) for name, x in jax_tables.items()})
+
+
+def assert_tables_match_jax(port, jax_tables):
     for name, want in jax_tables.items():
-        got = getattr(port, name).numpy().astype(np.float64)
-        want = np.asarray(want, np.float64)
+        got = getattr(port, name).numpy()
         assert got.shape == want.shape, name
+        if want.dtype == bool:
+            np.testing.assert_array_equal(got, want, name)
+            continue
+        got, want = got.astype(np.float64), want.astype(np.float64)
         assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max(), name
-    colnz_a = np.asarray(jnp.max(M2p[:, :S, :], axis=1) > 0.0)
-    colnz_p = np.asarray(pallas_iter._colnz_from_slab(M2a, RH, k))[:, :, 0]
-    np.testing.assert_array_equal(port.col_nz_a.numpy(), colnz_a)
-    np.testing.assert_array_equal(port.col_nz_p.numpy(), colnz_p > 0)
-    assert not colnz_a[1, 1] and not colnz_p[0, 2]
+
+
+@pytest.mark.parametrize("G,S,k", [(40, 9, 3), (130, 7, 4)])
+def test_tables_match_jax_rebuilds(G, S, k):
+    data, M_a, M_p, jax_tables = tables_case(G, S, k)
+    port = span_cuda.rebuild_tables(data, M_a, M_p)
+    assert_tables_match_jax(port, jax_tables)
+    assert not jax_tables["col_nz_a"][1, 1]
+    assert not jax_tables["col_nz_p"][0, 2]
+
+
+# ----------------------------------------------------------------------
+# (a') the kernel's split of the rebuild over a thread-block cluster
+# ----------------------------------------------------------------------
+H100_ACTIVE = {8: 16, 4: 33, 2: 66, 1: 132}  # clusters of 1024-thread CTAs
+
+
+@pytest.mark.parametrize("nch,active,want", [
+    (1, H100_ACTIVE, 8), (16, H100_ACTIVE, 8), (32, H100_ACTIVE, 4),
+    (64, H100_ACTIVE, 2), (200, H100_ACTIVE, 1),
+    # fewer clusters resident than chains: the next size down
+    (16, {8: 14, 4: 33, 2: 66, 1: 132}, 4),
+    (16, {8: 15, 4: 15, 2: 66, 1: 132}, 2),
+    (64, {8: 16, 4: 33, 2: 63, 1: 132}, 1),
+    (1, {8: 0, 4: 0, 2: 0, 1: 0}, 1),
+    # small CTAs: many resident a cluster size, still one CTA an SM
+    (16, {8: 64, 4: 128, 2: 256, 1: 528}, 8),
+    (20, {8: 64, 4: 128, 2: 256, 1: 528}, 4),
+])
+def test_cluster_size_rule(nch, active, want):
+    asked = []
+
+    def max_active(cl):
+        asked.append(cl)
+        return active[cl]
+
+    cl = span_cuda.cluster_size(nch, 132, max_active)
+    assert cl == want
+    assert cl in (1, 2, 4, 8) and (cl == 1 or nch * cl <= 132)
+    assert all(c > cl for c in asked[:-1]) and 1 not in asked
+
+
+def covered(NR, m, k, threads, cl):
+    """How often the kernel's loops (csrc/span.cu::rebuild, as planned)
+    reach each (row, partner, column group): ranks, row tiles, partner
+    tiles, and each thread's item (row pair, group, lane)."""
+    plan = span_cuda.rebuild_plan(NR, m, k, threads, cl)
+    gy, gz = span_cuda.column_groups(k)
+    ng, L, half = gy + gz, plan.lanes, plan.tile_rows // 2
+    assert 32 % L == 0 and plan.tile_rows % 2 == 0
+    assert half * ng * L <= threads  # every item has a thread
+    assert plan.tile_rows <= span_cuda.MAX_TILE_ROWS
+    assert plan.tile_j <= span_cuda.MAX_TILE_J
+    hits = np.zeros((NR, m, ng), np.int64)
+    items = [(t // L % half, t // L // half, t % L) for t in range(threads)]
+    for rank in range(cl):
+        lo = min(rank * plan.per_rank, NR if plan.split_rows else m)
+        hi = min(lo + plan.per_rank, NR if plan.split_rows else m)
+        (r_lo, r_hi), (j_lo, j_hi) = (((lo, hi), (0, m)) if plan.split_rows
+                                      else ((0, NR), (lo, hi)))
+        for rt0 in range(r_lo, r_hi, plan.tile_rows):
+            nr = min(plan.tile_rows, r_hi - rt0)
+            for jt0 in range(j_lo, j_hi, plan.tile_j):
+                nj = min(plan.tile_j, j_hi - jt0)
+                for rp, g, jl in items:
+                    if g >= ng:
+                        continue
+                    for row in (rp, rp + half):
+                        if row < nr:
+                            hits[rt0 + row, jt0 + jl:jt0 + nj:L, g] += 1
+    return plan, hits
+
+
+@pytest.mark.parametrize("cl", [1, 2, 4, 8])
+@pytest.mark.parametrize("NR,m,k,threads", [
+    (1363, 9, 7, 1024), (9, 1363, 7, 1024), (30, 8, 3, 32), (8, 30, 3, 32),
+    (5, 3, 1, 32), (3, 700, 2, 64), (600, 5, 3, 1024), (130, 7, 4, 256),
+    (12, 20, 2, 32), (20, 12, 2, 32), (2, 41, 16, 160)])
+def test_rebuild_plan_covers_each_entry_once(NR, m, k, threads, cl):
+    plan, hits = covered(NR, m, k, threads, cl)
+    assert (hits == 1).all()
+    assert plan.split_rows == (cl == 1 or NR >= m)
+    gy, gz = span_cuda.column_groups(k)
+    # within the card's 227 KB a CTA (the sweep's own shared memory aside)
+    assert span_cuda.smem_bytes([plan], k) <= 200 * 1024
+
+
+def test_rebuild_plan_at_the_main_path_shapes():
+    """GIST and 20000x100 k=10 at clusters of 8 and 4: rows split on the A
+    side, each sum in partner order; partners (genes) split on the P side,
+    its nine rows' sums split over lanes too."""
+    for cl, per in ((8, 171), (4, 341)):
+        a = span_cuda.rebuild_plan(1363, 9, 7, 1024, cl)
+        p = span_cuda.rebuild_plan(9, 1363, 7, 1024, cl)
+        assert a.split_rows and a.per_rank == per and a.lanes == 1
+        assert a.tile_j == 9  # every partner in one tile
+        assert not p.split_rows and p.per_rank == per and p.lanes == 16
+    wide_a = span_cuda.rebuild_plan(20000, 100, 10, 1024, 8)
+    wide_p = span_cuda.rebuild_plan(100, 20000, 10, 1024, 8)
+    assert wide_a.split_rows and wide_a.lanes == 1
+    assert not wide_p.split_rows and wide_p.per_rank == 2500
+    assert wide_p.tile_j < wide_p.per_rank  # more partners than a tile
+    assert span_cuda.block_threads(1024, 32, 7) == 1024
+    assert span_cuda.block_threads(32, 32, 16) == 64  # 4 + 34 groups
+
+
+@pytest.mark.parametrize("cl", [1, 2, 8])
+@pytest.mark.parametrize("G,S,k", [(40, 9, 3), (130, 7, 4), (2100, 5, 3)])
+def test_split_tables_match_plain_and_jax(G, S, k, cl):
+    """The kernel's order of sums (rank partials added in order) gives the
+    plain tables bit for bit, and JAX's within float32 rounding; (2100, 5,
+    3) has more partners than a P-side tile holds."""
+    data, M_a, M_p, jax_tables = tables_case(G, S, k)
+    split = span_cuda.rebuild_tables_split(data, M_a, M_p, cl)
+    plain = span.rebuild_tables_plain(data, M_a, M_p)
+    for name, x, y in zip(split._fields, split, plain):
+        assert torch.equal(x, y), name
+    assert_tables_match_jax(split, jax_tables)
+    if G == 2100:
+        p = span_cuda.rebuild_plan(S, G, k, 1024, cl)
+        assert (p.per_rank if not p.split_rows else G) > p.tile_j
 
 
 # ----------------------------------------------------------------------
@@ -265,6 +391,27 @@ def test_engine_gate_bounds_the_rebuild_work(monkeypatch, slack, fused):
     assert ops == 2 * 12 * 20 * (7 * 2 + 2 + 3 * 3)
     monkeypatch.setattr(multichain, "MAX_SPAN_REBUILD_OPS", ops + slack)
     assert eng._fused_ok() is fused
+
+
+@pytest.mark.parametrize("G,S,k,fused", [
+    (2000, 32, 7, True),      # 17.3 M rebuild operations
+    (4000, 64, 7, True),      # 69.1 M
+    (6000, 100, 10, True),    # 284 M
+    (10000, 100, 10, False),  # 474 M
+    (20000, 100, 10, False),  # 948 M
+])
+def test_engine_gate_at_the_measured_shapes(G, S, k, fused):
+    """profile_iter's shapes of wide data with few samples, 16 chains: the
+    span route below the measured crossover, per-call beyond it; 2000x32
+    lies between the first design's 10 M gate and this one."""
+    cfg = CogapsParams(n_patterns=k, n_iterations=2,
+                       output_frequency=0).engine_config(G, S)
+    data = multichain.stack_device_data([np.ones((G, S), np.float32)], None,
+                                        cfg, "cpu")
+    eng = multichain.MultichainEngine(data, cfg, "cpu")
+    assert eng._fused_ok() is fused
+    if G == 2000:
+        assert 10_000_000 < span_cuda.rebuild_ops(G, S, k)
 
 
 def test_engine_span_route_equals_plain_span(monkeypatch):
