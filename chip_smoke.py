@@ -22,10 +22,15 @@ Phases:
               same uniform slab) and in fast mode (in-kernel Philox);
               per-call times:
               K1, the dense sweep, at the main path's sampler shapes (GIST
-              A and P, a 5000-row sampler), NCH=4, and K2, the same kernel
-              fed the sparse model's tables (2000 x 10000, k=10, A and P
+              A and P and a 5000-row sampler from random atoms, and GIST A
+              and P from the state after 50 per-call iterations at the
+              budgets that run draws), NCH=4, and K2, the same kernel fed
+              the sparse model's tables (2000 x 10000, k=10, A and P
               samplers), NCH=4: equal done, counts and elem table, mass
-              and M within 1e-5, Y within 1e-3;
+              and M within 1e-5, Y within 1e-3; for each case the
+              shared-memory placement (ops/sweep_cuda.smem_plan), sweeps a
+              call and microseconds a sweep, with ptxas's registers and
+              spills of each width class of sweep_kernel;
               K4, the CSR sparse sweep, at the atlas shape (30000 x 50000,
               2% nonzeros, k=50, B=512, C=2^19, A and P samplers): equal
               done, sweeps, counts, n and elem; mass and M within atol
@@ -86,7 +91,9 @@ Phases:
 
 The last line is {"ok": true, "device": {...}}; the one before it is the
 card's name and power limit; before that, one JSON line describing each
-kernel of the path.
+kernel of the path (for K1 and K2, "ms" is the kernel's device time by
+torch.profiler: their calls are short enough that CUDA events around
+back-to-back calls time the wrapper's host work).
 """
 
 import json
@@ -202,8 +209,9 @@ def locate_divergence(case, source):
     that sweep that touch a differing row."""
     import torch
     from cogaps_tpu_torch.ops import sweep_cuda
-    args = (case["atoms"], case["M"], case["Y"], case["phase"], 1.0,
-            case["budgets"], case["consts"], case["mass"], source)
+    args = (case["atoms"], case["M"], case["Y"], case["phase"],
+            case.get("temp", 1.0), case["budgets"], case["consts"],
+            case["mass"], source)
     K = case["consts"].k
     for j in range(1, 10_000):
         k_out = sweep_cuda.run_updates_multi(*args, max_sweeps=j)
@@ -363,20 +371,69 @@ def tables_case(name, D, rows_are_genes, k, B, C, nch, budget, seed, device):
                 budgets=to(np.full(nch, budget, np.int32)), nch=nch, B=B)
 
 
+def gist_state_cases(device, nch=4, seed=31, n_it=50):
+    """GIST's A and P sampler cases from the state of nch chains after
+    n_it per-call equilibration iterations, at the budgets and the
+    temperature of iteration n_it (the sweeps a call of a real run)."""
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import throughput_engine
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, ChainEngine,
+                                         PhiloxRandom, annealing_temp)
+    from cogaps_tpu_torch.io import parsers
+    from cogaps_tpu_torch.models import dense
+    D, _, _ = parsers.read_matrix(GIST_CSV)
+    eng, _ = throughput_engine(D, cogaps_tpu_torch.CogapsParams(
+        n_patterns=7, n_iterations=2000, seed=seed, output_frequency=0),
+        nch, None, device)
+    rand = PhiloxRandom([seed + c for c in range(nch)], device)
+    st, _ = ChainEngine.run_phase(eng, eng.init_state(), eng.init_stats(),
+                                  rand, EQUILIBRATION, 0, n_it)
+    n_a, n_p = rand.budgets(EQUILIBRATION, n_it, st.atoms_a.n, st.atoms_p.n)
+    temp = annealing_temp(eng.config, EQUILIBRATION, n_it)
+    d = eng.data
+    cases = []
+    for side, atoms, M, tabs, consts, mass, budgets in (
+            ("A", st.atoms_a, st.M_a, (d.D, d.invS2, st.M_a, st.M_p),
+             eng.consts_a, d.mass_a, n_a),
+            ("P", st.atoms_p, st.M_p, (d.D_t, d.invS2_t, st.M_p, st.M_a),
+             eng.consts_p, d.mass_p, n_p)):
+        cache, phase = dense.tables(*tabs)
+        cases.append(dict(
+            name=(f"GIST {side} after {n_it} iterations ({consts.n_rows}x"
+                  f"{consts.m}, k=7, B={consts.batch}, C={consts.capacity},"
+                  f" atoms {atoms.n.tolist()})"),
+            atoms=atoms, M=M, Y=cache.Y, phase=phase, consts=consts,
+            mass=mass, budgets=budgets, nch=nch, B=consts.batch, temp=temp))
+    return cases
+
+
+def sweep_classes(report):
+    """ptxas's (registers, spill bytes) of each width class of the sweep
+    kernel, as a printable string."""
+    return ", ".join(
+        f"B<={t}: {ptxas_of(report, f'sweep_kernelILi{t}E')}"
+        for t in (32, 256, 1024))
+
+
 def run_sweep_cases(cases, device, reps=10):
     """K1/K2 cases: kernel vs plain in both modes, then per-call times in
-    fast mode. Returns (rows, max_err) with rows (name, kernel ms, plain
-    ms, bound ms, bound_by)."""
+    fast mode: CUDA events over back-to-back calls (the wrapper's host
+    work included where it outlasts the kernel) and the kernel's own
+    device time. Returns (rows, max_err) with rows (name, kernel device
+    ms, plain ms, bound ms, bound_by, sweeps a call, device us a sweep,
+    placement)."""
     import torch
     from cogaps_tpu_torch.ops import sweep_cuda
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     results, failed, max_err = [], [], 0.0
     for case in cases:
         nch, B, K = case["nch"], case["B"], case["consts"].k
         source = uniform_source(nch, B, device)
         key = sweep_cuda.PhiloxKey(
             key0=torch.arange(11, 11 + nch, device=device), key1=5)
-        args = (case["atoms"], case["M"], case["Y"], case["phase"], 1.0,
-                case["budgets"], case["consts"], case["mass"])
+        args = (case["atoms"], case["M"], case["Y"], case["phase"],
+                case.get("temp", 1.0), case["budgets"], case["consts"],
+                case["mass"])
         for what, rand in (("exact", source), ("fast", key)):
             out_k = sweep_cuda.run_updates_multi(*args, rand)
             out_p = sweep_cuda.run_updates_multi_plain(*args, rand)
@@ -391,22 +448,33 @@ def run_sweep_cases(cases, device, reps=10):
         out_k = sweep_cuda.run_updates_multi(*args, key)
         k_ms = time_calls(lambda: sweep_cuda.run_updates_multi(*args, key),
                           reps)
+        dev_ms = device_ms(lambda: sweep_cuda.run_updates_multi(*args, key),
+                           "sweep_kernel", reps)
         p_ms = time_plain(lambda: sweep_cuda.run_updates_multi_plain(
             *args, key))
         bound, by = sweep_bound_ms(
             out_k[5].processed, out_k[0].n, 4 * (5 * K + K * K), 300 + 2 * K)
-        log(f"  {case['name']}: kernel {k_ms:.4f} ms/call, plain "
-            f"{p_ms:.1f} ms/call, bound {bound:.6f} ms ({by}) (budget "
-            f"{int(case['budgets'][0])} x {nch} chains)")
-        results.append((case["name"], k_ms, p_ms, bound, by))
+        c = case["consts"]
+        plan = sweep_cuda.smem_plan(c.n_rows, K, c.capacity, B, nch, n_sm)
+        sweeps = out_k[4].tolist()
+        us = dev_ms * 1e3 / max(max(sweeps), 1)
+        log(f"  {case['name']}: kernel {k_ms:.4f} ms/call ({dev_ms:.4f} ms "
+            f"on the device), plain {p_ms:.1f} ms/call, bound {bound:.6f} ms"
+            f" ({by}) (budgets {case['budgets'].tolist()}); sweeps a call "
+            f"{sweeps}, {us:.3f} us a sweep on the device; placement: "
+            f"{plan.describe()}")
+        results.append((case["name"], dev_ms, p_ms, bound, by, sweeps, us,
+                        plan.describe()))
     if failed:
         raise AssertionError(f"kernel and plain version disagree: {failed}")
     return results, max_err
 
 
-def phase_kernels(device):
+def phase_kernels(device, report):
     from cogaps_tpu_torch.bench_harness import synthetic_dense
     from cogaps_tpu_torch.io import parsers
+    log(f"  sweep_kernel width classes, ptxas (registers, bytes of spill "
+        f"stores): {sweep_classes(report)}")
 
     D_gist, _, _ = parsers.read_matrix(GIST_CSV)
     [D_big] = synthetic_dense(5000, 2000, 10, 1, 0)
@@ -417,7 +485,7 @@ def phase_kernels(device):
                   False, 7, 32, 1024, 4, 2000, 2, device),
         make_case("5000-row sampler (5000x2000, k=10, B=1024, C=32768)",
                   D_big, True, 10, 1024, 32768, 4, 4000, 3, device),
-    ]
+    ] + gist_state_cases(device)
     del D_big
     return run_sweep_cases(cases, device)
 
@@ -1024,7 +1092,7 @@ def main() -> int:
     from cogaps_tpu_torch.bench_harness import synthetic_coo, synthetic_sparse
     from cogaps_tpu_torch.parallel.atlas_engine import AtlasEngine
     t0 = time.perf_counter()
-    kernel_times, max_err = phase_kernels(device)
+    kernel_times, max_err = phase_kernels(device, builds["sweep"][1])
     [D_sparse] = synthetic_sparse(2000, 10000, 10, 1, 11)
     tables_times, tables_err = phase_tables(device, D_sparse)
     t1 = time.perf_counter()

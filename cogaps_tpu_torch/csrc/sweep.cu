@@ -8,42 +8,170 @@
 // gives it the dense model (dense_model.cuh). Its plain version is
 // ops/sweep.py with models/dense.make_model.
 //
-// What bounds it on the H100: the latency of the dependent global loads
-// of each lane (table picks, then SQ/Y/Z/M at the picked rows) and the
-// ~20 block barriers of every sweep; the work per sweep is a few hundred
-// flops per lane. One block per chain leaves most of the 132 SMs idle at
-// 16 chains. The design keeps each sweep to one pass over the lanes with
-// no host round trip: the fast mode draws its uniforms in the kernel
-// (Philox4x32-10) and reads the budgets from device memory, so an update
-// call is one launch. The tables stay in global memory (L2).
+// What bounds it on the H100: latency. A sweep is a chain of dependent
+// reads (table picks, claims, then SQ/Y/Z/M at the picked rows) and block
+// barriers on one SM a chain; its work is a few hundred flops a lane. So
+// each block keeps its chain's state in shared memory as far as it pays:
+// ops/sweep_cuda.smem_plan places the row claims, the slot claims, then
+// the hole flags, atom table, Y, SQ and M together (what stays global
+// needs the L1 that shared memory takes), then Z, and passes the byte
+// offsets in SweepArgs.smem (-1: left in global memory). The block
+// copies its chain's arrays in, clears the claims there, runs every sweep
+// on the copies (shared-memory atomics for the claims), and writes mass,
+// elem, M and Y back at the end. The kernel is instantiated per width
+// class (B <= 32, <= 256, <= 1024), each with launch bounds of its own;
+// the one-warp class synchronises with __syncwarp and ballots only. The
+// fast mode draws its uniforms in the kernel (Philox4x32-10) and reads
+// the budgets from device memory, so an update call is one launch.
 
 #include "dense_model.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(cogaps::kMaxB)
-    sweep_kernel(const cogaps::SweepArgs p, float* Y, const float* SQ,
-                 const float* Z) {
-  const size_t nb = (size_t)blockIdx.x * p.NB;
-  cogaps::DenseModel model{p.K, Y + nb, SQ + nb, Z + nb * p.K};
-  cogaps::sweep_chain(p, model, blockIdx.x);
+using cogaps::SweepArgs;
+
+// a chain's array: its staged copy in shared memory, if the plan put it
+// there, else its slice of the global array
+template <class T>
+__device__ __forceinline__ T* placed(const SweepArgs& p, unsigned char* smem,
+                                     int a, T* global) {
+  return p.smem[a] < 0 ? global : reinterpret_cast<T*>(smem + p.smem[a]);
+}
+
+// Starts copying n 4-byte values from global src to shared dst (16-byte
+// aligned) by the whole block: asynchronous copies (cp.async) that keep
+// every thread's loads in flight at once, 16 bytes each where src is
+// aligned too. wait_staged() ends them.
+template <class T>
+__device__ __forceinline__ void stage_in(T* dst, const T* src, int n) {
+  static_assert(sizeof(T) == 4, "4-byte values");
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  int i0 = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       s + 16 * i),
+                   "l"(src + 4 * i)
+                   : "memory");
+    i0 = n / 4 * 4;
+  }
+  for (int i = i0 + threadIdx.x; i < n; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s + 4 * i),
+                 "l"(src + i)
+                 : "memory");
+}
+
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// n values from the staged copy src back to global dst by the whole block
+template <class T>
+__device__ __forceinline__ void write_back(T* __restrict__ dst,
+                                           const T* __restrict__ src, int n) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    sweep_kernel(const __grid_constant__ SweepArgs p, float* Y,
+                 const float* SQ, const float* Z) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kWarp = kThreads == 32;
+  const int chain = blockIdx.x;
+  const size_t nb = (size_t)chain * p.NB;
+  const cogaps::Chain g = cogaps::chain_of(p, chain);
+  cogaps::Chain ch = g;
+  ch.rmin = placed(p, smem, cogaps::kRmin, g.rmin);
+  ch.amin = placed(p, smem, cogaps::kAmin, g.amin);
+  ch.hole_flag = placed(p, smem, cogaps::kHole, g.hole_flag);
+  ch.mass = placed(p, smem, cogaps::kMass, g.mass);
+  ch.elem = placed(p, smem, cogaps::kElem, g.elem);
+  ch.M = placed(p, smem, cogaps::kM, g.M);
+  float* const Yg = Y + nb;
+  const float* const SQg = SQ + nb;
+  const float* const Zg = Z + nb * p.K;
+  const cogaps::DenseModel model{p.K, placed(p, smem, cogaps::kY, Yg),
+                                 placed(p, smem, cogaps::kSQ, SQg),
+                                 placed(p, smem, cogaps::kZ, Zg),
+                                 p.smem[cogaps::kZ] < 0};
+  // stage in (the claims are cleared where they lie by chain_begin, whose
+  // barrier also ends the staging)
+  if (ch.mass != g.mass) stage_in(ch.mass, g.mass, p.C);
+  if (ch.elem != g.elem) stage_in(ch.elem, g.elem, p.C);
+  if (ch.M != g.M) stage_in(ch.M, g.M, p.NB);
+  if (model.Y != Yg) stage_in(model.Y, Yg, p.NB);
+  if (model.SQ != SQg) stage_in(const_cast<float*>(model.SQ), SQg, p.NB);
+  if (model.Z != Zg)
+    stage_in(const_cast<float*>(model.Z), Zg, p.NB * p.K);
+  wait_staged();
+  cogaps::sweep_chain<kWarp>(p, ch, model, chain);
+  // write back what the sweeps change (chain_end's barrier follows the
+  // last sweep)
+  if (ch.mass != g.mass) write_back(g.mass, ch.mass, p.C);
+  if (ch.elem != g.elem) write_back(g.elem, ch.elem, p.C);
+  if (ch.M != g.M) write_back(g.M, ch.M, p.NB);
+  if (model.Y != Yg) write_back(Yg, model.Y, p.NB);
+}
+
+// One launch of the width class kThreads with `smem_bytes` of dynamic
+// shared memory; a launch the card refuses returns its error.
+template <int kThreads>
+int launch(const SweepArgs& p, int threads, int smem_bytes, float* Y,
+           const float* SQ, const float* Z, cudaStream_t stream) {
+  static int allowed = -1;  // the attribute last set, for this class
+  if (smem_bytes > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sweep_kernel<kThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // not left for the next launch's check
+      return (int)e;
+    }
+    allowed = smem_bytes;
+  }
+  sweep_kernel<kThreads><<<p.nch, threads, smem_bytes, stream>>>(p, Y, SQ, Z);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// `smem_off` holds cogaps::kNPlaced byte offsets (-1: global) in a block
+// of `smem_bytes`; `scratch_layout` the scratch stride and the int offsets
+// of the global row claims, slot claims and hole flags (-1: none).
 extern "C" int cogaps_sweep_launch(
     int nch, int B, int C, int NR, int K, int local_moves, float alpha_nb,
     float dom_len, float temp, const float* lam, const float* mgm,
     const int* budget, float* mass, int* elem, int* n, float* M, float* Y,
     const float* SQ, const float* Z, const int* colnz, int* scratch, int* out,
     const float* uni, int s_max, const long long* key0, uint32_t key1,
+    const int* smem_off, int smem_bytes, const int* scratch_layout,
     void* stream) {
-  if (B < 1 || B > cogaps::kMaxB || nch < 1)
+  if (B < 1 || B > cogaps::kMaxB || nch < 1 || smem_bytes < 0)
     return (int)cudaErrorInvalidValue;
-  const cogaps::SweepArgs p = cogaps::make_args(
+  cogaps::SweepArgs p = cogaps::make_args(
       nch, B, C, NR, K, local_moves, alpha_nb, dom_len, temp, lam, mgm,
       budget, mass, elem, n, M, colnz, scratch, out, uni, s_max, key0, key1);
+  for (int i = 0; i < cogaps::kNPlaced; ++i) p.smem[i] = smem_off[i];
+  p.scratch_stride = scratch_layout[0];
+  p.g_rmin = scratch_layout[1];
+  p.g_amin = scratch_layout[2];
+  p.g_hole = scratch_layout[3];
   const int threads = (B + 31) / 32 * 32;
-  sweep_kernel<<<nch, threads, 0, (cudaStream_t)stream>>>(p, Y, SQ, Z);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (threads <= 32) return launch<32>(p, threads, smem_bytes, Y, SQ, Z, s);
+  if (threads <= 256) return launch<256>(p, threads, smem_bytes, Y, SQ, Z, s);
+  return launch<1024>(p, threads, smem_bytes, Y, SQ, Z, s);
+}
+
+// Static shared memory of the width class that runs batch B (bytes), or
+// a negative CUDA error.
+extern "C" int cogaps_sweep_static_smem(int B) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(
+      &a, B <= 32    ? (const void*)sweep_kernel<32>
+          : B <= 256 ? (const void*)sweep_kernel<256>
+                     : (const void*)sweep_kernel<1024>);
+  return e == cudaSuccess ? (int)a.sharedSizeBytes : -(int)e;
 }

@@ -26,11 +26,20 @@
 //
 // Design: one thread block per chain, one thread per proposal lane
 // (B <= 1024); the block loops over sweeps itself. Conflicts are
-// atomicMin claims of the lane id in per-chain row and slot tables in
-// global memory; the lanes that claimed reset their entries after the
-// keep test. The five inclusive prefix sums of a sweep are block scans
-// (warp shuffles plus one shared array of warp totals); the counters are
-// warp ballots added to shared memory once a sweep.
+// atomicMin claims of the lane id in per-chain row and slot tables; the
+// lanes that claimed reset their entries after the keep test. A Chain's
+// arrays (claims, hole flags, atom table, M) lie wherever its pointers
+// say: csrc/sweep.cu points them at staged copies in shared memory,
+// atlas.cu and span.cu at the update call's global arrays. The four
+// inclusive prefix sums of a sweep are block scans (warp shuffles plus
+// one shared array of warp totals), the last two with two counts each in
+// the halves of an int; the counters are warp ballots added to shared
+// memory once a sweep.
+//
+// Every function that synchronises the block takes kWarp: true when the
+// block is a single warp (B <= 32). Its barriers are then __syncwarp and
+// its scans one warp scan: the same integers, so the same decisions, and
+// no __syncthreads.
 //
 // A sweep is sweep_front (draws, types, picks, claims, truncation: the
 // kept proposals), the alphaParameters, then sweep_back (draws, accepts,
@@ -52,6 +61,10 @@ constexpr int kBig = 0x7fffffff;
 constexpr double kEps = 1.0e-10;  // the reference's gaps::epsilon
 constexpr int kNOut = 10;  // done, sweeps, processed[4], accepted[4]
 
+// The chain-state arrays that csrc/sweep.cu may stage in shared memory,
+// in ops/sweep_cuda.PLACED's order.
+enum Placed { kRmin, kAmin, kHole, kMass, kElem, kY, kSQ, kM, kZ, kNPlaced };
+
 // What both kernels share: sampler constants, the per-chain state and
 // the random source. Arrays carry a leading chain dimension.
 struct SweepArgs {
@@ -65,7 +78,14 @@ struct SweepArgs {
   int* n;
   float* M;
   const int* colnz;
-  int* scratch;  // (nch, NR + 2C + 2) row claims, slot claims, hole flags
+  // (nch, scratch_stride) ints: a chain's row claims (NR + 1 ints at
+  // g_rmin), slot claims (C + 1 at g_amin) and hole flags (C bytes at
+  // int offset g_hole); an offset is -1 for a table kept elsewhere
+  int* scratch;
+  int scratch_stride, g_rmin, g_amin, g_hole;
+  // byte offset in dynamic shared memory of each Placed array of the
+  // block's chain, or -1 for one left in global memory (sweep.cu only)
+  int smem[kNPlaced];
   int* out;      // (nch, kNOut)
   const float* uni;  // exact mode: (nch, s_max * 16, B); fast mode: null
   const long long* key0;
@@ -185,8 +205,18 @@ __device__ float trunc_gamma2_y(float u, float b) {
   return y;
 }
 
+// The block's barrier: __syncwarp for a one-warp block.
+template <bool kWarp>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (kWarp)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
 // Inclusive prefix sum of v over the block; `total` gets the block sum.
 // Every thread of the block must call it.
+template <bool kWarp = false>
 __device__ int block_scan(int v, int* warp_sums, int& total) {
   const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
@@ -195,32 +225,38 @@ __device__ int block_scan(int v, int* warp_sums, int& total) {
     const int y = __shfl_up_sync(0xffffffffu, x, o);
     if (wl >= o) x += y;
   }
-  if (wl == 31) warp_sums[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int w = wl < nw ? warp_sums[wl] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (wl >= o) w += y;
+  if constexpr (kWarp) {
+    total = __shfl_sync(0xffffffffu, x, 31);
+    return x;
+  } else {
+    if (wl == 31) warp_sums[wid] = x;
+    __syncthreads();
+    if (wid == 0) {
+      int w = wl < nw ? warp_sums[wl] : 0;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (wl >= o) w += y;
+      }
+      if (wl < nw) warp_sums[wl] = w;
     }
-    if (wl < nw) warp_sums[wl] = w;
+    __syncthreads();
+    const int prefix = wid > 0 ? warp_sums[wid - 1] : 0;
+    total = warp_sums[nw - 1];
+    __syncthreads();  // warp_sums is reused by the next scan
+    return x + prefix;
   }
-  __syncthreads();
-  const int prefix = wid > 0 ? warp_sums[wid - 1] : 0;
-  total = warp_sums[nw - 1];
-  __syncthreads();  // warp_sums is reused by the next scan
-  return x + prefix;
 }
 
-// One chain's slices of the update call's arrays, and its constants.
+// One chain's arrays and constants: slices of the update call's arrays,
+// or (csrc/sweep.cu) staged copies of them in shared memory.
 struct Chain {
   float* mass;
   int* elem;
   float* M;
   const int* colnz;
-  int* rmin;       // (NR + 1) row claims
-  int* amin;       // (C + 1) slot claims
-  int* hole_flag;  // (C)
+  int* rmin;                 // (NR + 1) row claims
+  int* amin;                 // (C + 1) slot claims
+  unsigned char* hole_flag;  // (C)
   float lam, mgm;
   int budget;
   uint32_t key0;
@@ -232,9 +268,12 @@ __device__ inline Chain chain_of(const SweepArgs& p, int chain) {
   ch.elem = p.elem + (size_t)chain * p.C;
   ch.M = p.M + (size_t)chain * p.NB;
   ch.colnz = p.colnz + (size_t)chain * p.K;
-  ch.rmin = p.scratch + (size_t)chain * (p.NR + 2 * p.C + 2);
-  ch.amin = ch.rmin + p.NR + 1;
-  ch.hole_flag = ch.amin + p.C + 1;
+  int* s = p.scratch + (size_t)chain * p.scratch_stride;
+  ch.rmin = p.g_rmin < 0 ? nullptr : s + p.g_rmin;
+  ch.amin = p.g_amin < 0 ? nullptr : s + p.g_amin;
+  ch.hole_flag = p.g_hole < 0
+                     ? nullptr
+                     : reinterpret_cast<unsigned char*>(s + p.g_hole);
   ch.lam = p.lam[chain];
   ch.mgm = p.mgm[chain];
   ch.budget = p.budget[chain];
@@ -265,6 +304,7 @@ __device__ __forceinline__ void tally(bool flag, int* slot) {
 }
 
 // Claim tables cleared and counters zeroed before a chain's first sweep.
+template <bool kWarp = false>
 __device__ __forceinline__ void chain_begin(const SweepArgs& p,
                                             const Chain& ch, SweepShared& sh,
                                             int chain) {
@@ -277,14 +317,15 @@ __device__ __forceinline__ void chain_begin(const SweepArgs& p,
     sh.done = 0;
   }
   if (lane < 8) sh.cnt[lane] = 0;
-  __syncthreads();
+  block_sync<kWarp>();
 }
 
 // The chain's atom count and counters after its last sweep; s sweeps ran.
+template <bool kWarp = false>
 __device__ __forceinline__ void chain_end(const SweepArgs& p,
                                           const SweepShared& sh, int chain,
                                           int s) {
-  __syncthreads();
+  block_sync<kWarp>();
   if (threadIdx.x == 0) {
     p.n[chain] = sh.n;
     int* o = p.out + (size_t)chain * kNOut;
@@ -299,6 +340,7 @@ __device__ __forceinline__ void chain_end(const SweepArgs& p,
 // chain's budget is spent or (exact mode) its uniform slab is used up.
 // Otherwise q is this thread's proposal, its type flags cleared unless
 // it is kept, and sh.n_processed the number kept.
+template <bool kWarp = false>
 __device__ __forceinline__ bool sweep_front(const SweepArgs& p,
                                             const Chain& ch, SweepShared& sh,
                                             int chain, int s, Proposal& q,
@@ -385,7 +427,7 @@ __device__ __forceinline__ bool sweep_front(const SweepArgs& p,
   if (active && uses2) atomicMin(&rmin[q.r2], lane);
   if (active && uses_a1) atomicMin(&amin[q.a1c], lane);
   if (active && q.is_exch) atomicMin(&amin[q.a2c], lane);
-  __syncthreads();
+  block_sync<kWarp>();
   bool keep = active && rmin[q.r1] >= lane &&
               (!uses2 || rmin[q.r2] >= lane) &&
               (!uses_a1 || amin[q.a1c] >= lane) &&
@@ -394,14 +436,14 @@ __device__ __forceinline__ bool sweep_front(const SweepArgs& p,
   // capacity guard (conservative pre-rank), then budget truncation
   int total;
   const int pre_birth_rank =
-      block_scan(keep && q.is_birth, sh.warp_sums, total);
+      block_scan<kWarp>(keep && q.is_birth, sh.warp_sums, total);
   keep = keep && (!q.is_birth || (n + pre_birth_rank - 1 < C));
   // every lane has read its claims: release them
   if (active) rmin[q.r1] = kBig;
   if (active && uses2) rmin[q.r2] = kBig;
   if (active && uses_a1) amin[q.a1c] = kBig;
   if (active && q.is_exch) amin[q.a2c] = kBig;
-  const int rank = block_scan(keep, sh.warp_sums, total);
+  const int rank = block_scan<kWarp>(keep, sh.warp_sums, total);
   keep = keep && rank <= remaining;
   if (lane == 0) sh.n_processed = min(total, remaining);
 
@@ -420,7 +462,7 @@ __device__ __forceinline__ bool sweep_front(const SweepArgs& p,
 // sweep-start state: evaluate and apply the kept proposals, write the
 // atom table, compact it, count. Kept lanes touch disjoint rows, and
 // every alpha has been read before any write.
-template <class Model>
+template <bool kWarp = false, class Model>
 __device__ __forceinline__ void sweep_back(const SweepArgs& p,
                                            const Chain& ch, SweepShared& sh,
                                            const Proposal& q, const Draws& d,
@@ -442,48 +484,53 @@ __device__ __forceinline__ void sweep_back(const SweepArgs& p,
     const float m1 = q.m1, m2 = q.m2;
     const bool can1 = ch.colnz[q.c1] != 0;
     const float log_u = logf(fmaxf(d.acc, F(1e-37)));
-    if (q.is_birth) {  // h:131-149
-      const float b_s = ab.s1 * p.temp;
-      const float b_smu = ab.smu1 * p.temp;
-      bool g_ok;
-      const float g_mass =
-          gibbs_mass(d.gibbs, b_s, b_smu, F(0.0), ch.mgm, ch.lam, g_ok);
+    // The truncated-normal Gibbs draw of a birth (h:131-149), a death
+    // (h:154-188) or an exchange (h:228-257), in one call for the three
+    // kinds, so that a warp's lanes make it together instead of once per
+    // kind; a move (h:192-223) draws none.
+    float g_s, g_smu, g_a = F(0.0), g_b = ch.mgm, g_lam = ch.lam;
+    if (q.is_birth) {
+      g_s = ab.s1 * p.temp;
+      g_smu = ab.smu1 * p.temp;
+    } else if (q.is_death) {
+      g_s = ab.s1 * p.temp;
+      g_smu = (ab.smu1 + m1 * ab.s1) * p.temp;
+    } else {
+      g_s = ab.s_pair * p.temp;
+      g_smu = ab.smu_pair * p.temp;
+      g_a = -m1;
+      g_b = m2;
+      g_lam = F(0.0);
+    }
+    bool g_ok = false;
+    float g_mass = F(0.0);
+    if (!q.is_move)
+      g_mass = gibbs_mass(d.gibbs, g_s, g_smu, g_a, g_b, g_lam, g_ok);
+    if (q.is_birth) {
       const float e_mass = -logf(fmaxf(d.exp, F(1e-30))) / ch.lam;
       b_mass = can1 ? g_mass : e_mass;
       const bool b_has = can1 ? (g_ok && fabsf(ab.smu1) > ab.err1) : true;
       birth_acc = b_has && (b_mass > F(kEps));
-    } else if (q.is_death) {  // h:154-188
-      const float d_s = ab.s1 * p.temp;
-      const float d_smu = (ab.smu1 + m1 * ab.s1) * p.temp;
+    } else if (q.is_death) {
       const bool rel_d = fabsf(ab.smu1 + m1 * ab.s1) > ab.err1;
-      bool d_gok;
-      const float d_gm =
-          gibbs_mass(d.gibbs, d_s, d_smu, F(0.0), ch.mgm, ch.lam, d_gok);
-      rebirth = (can1 && d_gok && rel_d) ? d_gm : m1;
-      const float dll = rebirth * (d_smu - d_s * rebirth * F(0.5));
+      rebirth = (can1 && g_ok && rel_d) ? g_mass : m1;
+      const float dll = rebirth * (g_smu - g_s * rebirth * F(0.5));
       death_rebirth = log_u < dll;
       death_kill = !death_rebirth;
-    } else {  // move (h:192-223) or exchange (h:228-257)
-      const float p_s = ab.s_pair * p.temp;
-      const float p_smu = ab.smu_pair * p.temp;
-      if (q.is_move) {
-        const float dll = -m1 * (p_smu + p_s * m1 * F(0.5));
-        move_acc = !same_elem && (log_u < dll);
-      } else {
-        bool x_ok;
-        const float x_mass =
-            gibbs_mass(d.gibbs, p_s, p_smu, -m1, m2, F(0.0), x_ok);
-        const float new_sb =
-            trunc_gamma2_y(d.gibbs, (m1 + m2) * ch.lam) / ch.lam;
-        const float d_sb = m1 > m2 ? new_sb - m1 : m2 - new_sb;
-        nm1 = same_elem ? m1 + d_sb : m1 + x_mass;
-        nm2 = same_elem ? m2 - d_sb : m2 - x_mass;
-        const bool can2 = ch.colnz[q.c2] != 0;
-        const bool ex_ok =
-            same_elem ||
-            ((can1 || can2) && x_ok && fabsf(ab.smu_pair) > ab.err_pair);
-        ex_acc = ex_ok && (nm1 > F(kEps)) && (nm2 > F(kEps));
-      }
+    } else if (q.is_move) {
+      const float dll = -m1 * (g_smu + g_s * m1 * F(0.5));
+      move_acc = !same_elem && (log_u < dll);
+    } else {
+      const float new_sb =
+          trunc_gamma2_y(d.gibbs, (m1 + m2) * ch.lam) / ch.lam;
+      const float d_sb = m1 > m2 ? new_sb - m1 : m2 - new_sb;
+      nm1 = same_elem ? m1 + d_sb : m1 + g_mass;
+      nm2 = same_elem ? m2 - d_sb : m2 - g_mass;
+      const bool can2 = ch.colnz[q.c2] != 0;
+      const bool ex_ok =
+          same_elem ||
+          ((can1 || can2) && g_ok && fabsf(ab.smu_pair) > ab.err_pair);
+      ex_acc = ex_ok && (nm1 > F(kEps)) && (nm2 > F(kEps));
     }
 
     // matrix deltas, clamped like safelyChangeMatrix
@@ -520,9 +567,17 @@ __device__ __forceinline__ void sweep_back(const SweepArgs& p,
   }
 
   // ---- atom table: in-place writes, exchange partners and births
-  // target disjoint slots
-  int n_b;
-  const int birth_rank = block_scan(birth_acc, sh.warp_sums, n_b);
+  // target disjoint slots. One scan gives the births' ranks and count
+  // (low 16 bits) and the deaths' count (high bits: B <= 1024); the
+  // hole flags, set before it, are read by the compaction after its
+  // barriers.
+  if (death_kill) ch.hole_flag[q.a1c] = 1;
+  int n_bd;
+  const int birth_rank =
+      block_scan<kWarp>((birth_acc ? 1 : 0) | (death_kill ? 1 << 16 : 0),
+                        sh.warp_sums, n_bd) &
+      0xffff;
+  const int n_b = n_bd & 0xffff, n_d = n_bd >> 16;
   if (death_kill || death_rebirth || move_acc || ex_acc) {
     mass[q.a1c] = death_kill      ? F(0.0)
                   : death_rebirth ? rebirth
@@ -536,8 +591,6 @@ __device__ __forceinline__ void sweep_back(const SweepArgs& p,
     mass[slot] = b_mass;
     elem[slot] = q.e_birth;
   }
-  if (death_kill) ch.hole_flag[q.a1c] = 1;
-  const int n_d = __syncthreads_count(death_kill);
 
   // ---- swap-with-back compaction: the k-th hole below the new
   // boundary takes the k-th live atom of the tail [n_new, n + n_b)
@@ -545,12 +598,13 @@ __device__ __forceinline__ void sweep_back(const SweepArgs& p,
   const bool t_valid = lane < n_d;
   const int t_slot = (n_new + lane) & (C - 1);
   const bool t_filler = t_valid && ch.hole_flag[t_slot] == 0;
-  int unused;
-  const int f_rank = block_scan(t_filler, sh.warp_sums, unused);
   const bool hole = death_kill && q.a1c < n_new;
-  const int h_rank = block_scan(hole, sh.warp_sums, unused);
+  int unused;  // the fillers' ranks (low 16 bits) and the holes' in one scan
+  const int fh_rank = block_scan<kWarp>(
+      (t_filler ? 1 : 0) | (hole ? 1 << 16 : 0), sh.warp_sums, unused);
+  const int f_rank = fh_rank & 0xffff, h_rank = fh_rank >> 16;
   if (t_filler) sh.rank_to_src[f_rank] = t_slot;
-  __syncthreads();
+  block_sync<kWarp>();
   int fill_elem = -1;
   float fill_mass = F(0.0);
   if (hole) {  // read the tail after the births, before any hole write
@@ -558,12 +612,12 @@ __device__ __forceinline__ void sweep_back(const SweepArgs& p,
     fill_elem = elem[src];
     fill_mass = mass[src];
   }
-  __syncthreads();
+  block_sync<kWarp>();
   if (hole) {
     elem[q.a1c] = fill_elem;
     mass[q.a1c] = fill_mass;
   }
-  __syncthreads();
+  block_sync<kWarp>();
   if (t_valid) {  // clear the discarded tail last
     elem[t_slot] = -1;
     mass[t_slot] = F(0.0);
@@ -582,25 +636,31 @@ __device__ __forceinline__ void sweep_back(const SweepArgs& p,
     sh.n = n_new;
     sh.done = sh.done + sh.n_processed;
   }
-  __syncthreads();
+  block_sync<kWarp>();
 }
 
-// One block's whole update(nSteps) for `chain`: every sweep until the
-// budget is spent.
-template <class Model>
-__device__ void sweep_chain(const SweepArgs& p, Model& model, int chain) {
+// One block's whole update(nSteps) for `chain` on the arrays of `ch`:
+// every sweep until the budget is spent.
+template <bool kWarp = false, class Model>
+__device__ void sweep_chain(const SweepArgs& p, const Chain& ch,
+                            Model& model, int chain) {
   __shared__ SweepShared sh;
-  const Chain ch = chain_of(p, chain);
-  chain_begin(p, ch, sh, chain);
+  chain_begin<kWarp>(p, ch, sh, chain);
   int s = 0;
   for (;; ++s) {
     Proposal q;
     Draws d;
-    if (!sweep_front(p, ch, sh, chain, s, q, d)) break;
+    if (!sweep_front<kWarp>(p, ch, sh, chain, s, q, d)) break;
     const Alpha ab = model.alpha(q);
-    sweep_back(p, ch, sh, q, d, ab, model);
+    sweep_back<kWarp>(p, ch, sh, q, d, ab, model);
   }
-  chain_end(p, sh, chain, s);
+  chain_end<kWarp>(p, sh, chain, s);
+}
+
+// The same on the update call's global arrays.
+template <class Model>
+__device__ void sweep_chain(const SweepArgs& p, Model& model, int chain) {
+  sweep_chain(p, chain_of(p, chain), model, chain);
 }
 
 // Fills the SweepArgs fields every launch passes in the same order.
@@ -632,6 +692,11 @@ inline SweepArgs make_args(int nch, int B, int C, int NR, int K,
   p.M = M;
   p.colnz = colnz;
   p.scratch = scratch;
+  p.scratch_stride = NR + 2 * C + 2;
+  p.g_rmin = 0;
+  p.g_amin = NR + 1;
+  p.g_hole = NR + C + 2;
+  for (int i = 0; i < kNPlaced; ++i) p.smem[i] = -1;
   p.out = out;
   p.uni = uni;
   p.key0 = key0;

@@ -8,6 +8,13 @@ _kernel_b and its wrapper run_updates_pallas_multi. For tensors on the
 CPU it runs the plain version (ops/sweep.run_updates, chain by chain);
 for CUDA tensors it launches the kernel or raises.
 
+Each block keeps as much of its chain's state in shared memory as pays:
+``smem_plan`` places the groups of GROUPS in that order of priority (the
+row claims, the slot claims, then the hole flags, atom table, Y, SQ and
+M together, then Z), each where it still fits in the block's budget,
+and the kernel obeys the byte offsets it is given. Claim tables that lie
+in shared memory take no global scratch.
+
 Two random modes, as in the JAX kernel:
 
 * exact — ``rand`` is an ops.sweep.UniformSource. The wrapper hands the
@@ -46,6 +53,24 @@ MAX_BATCH = 1024
 _N_OUT = 10  # done, sweeps, processed[4], accepted[4]
 _PLAIN_CHUNK = 8  # sweeps of uniforms the plain version draws at once
 
+# The chain-state arrays a block may stage in shared memory
+# (sweep_common.cuh::Placed), and the groups a plan places whole, in
+# order of priority: row and slot claims (the atomics) each alone; then
+# hole flags (bytes), atom table, Y, SQ and M together, since what stays
+# global is read through L1, which shares the SM's 256 KB with shared
+# memory: a block that fills shared memory with part of that state
+# starves the L1 of the rest and ran slower than one that staged none of
+# it (PERF.md section 6: 0.354 ms against 0.185 at 20000 rows); then Z.
+PLACED = ("rmin", "amin", "hole", "mass", "elem", "Y", "SQ", "M", "Z")
+GROUPS = (("rmin",), ("amin",), ("hole", "mass", "elem", "Y", "SQ", "M"),
+          ("Z",))
+SMEM_BLOCK = 232_448  # shared memory one block may use on an H100 (227 KB)
+SMEM_SM = 233_472  # an SM's shared memory, 1 KB of it reserved a block
+# static shared memory of the kernel, sweep_common.cuh::SweepShared
+STATIC_SMEM = 4 * (32 + MAX_BATCH + 1 + 3 + 8)
+# one-warp blocks an SM holds at 255 registers a thread
+_WARP_BLOCKS_PER_SM = 8
+
 
 class PhiloxKey(NamedTuple):
     """Fast-mode key: chain c's blocks are philox((lane, row group,
@@ -55,15 +80,89 @@ class PhiloxKey(NamedTuple):
     key1: int  # (phase, iteration, sampler) word
 
 
+class SmemPlan(NamedTuple):
+    """Where a launch keeps each array of PLACED: its byte offset in the
+    block's dynamic shared memory, or None for global memory."""
+
+    slots: tuple  # the offsets in PLACED's order
+    nbytes: int  # dynamic shared memory a block takes
+
+    @property
+    def offsets(self) -> dict:
+        return dict(zip(PLACED, self.slots))
+
+    def describe(self) -> str:
+        inside = [n for n in PLACED if self.offsets[n] is not None]
+        outside = [n for n in PLACED if self.offsets[n] is None]
+        return (f"shared {'/'.join(inside) or '-'} ({self.nbytes} B), "
+                f"global {'/'.join(outside) or '-'}")
+
+
+def placed_bytes(NR: int, K: int, C: int) -> dict:
+    """Bytes of each array of PLACED for one chain."""
+    NB = NR * K
+    return {"rmin": 4 * (NR + 1), "amin": 4 * (C + 1), "hole": C,
+            "mass": 4 * C, "elem": 4 * C, "Y": 4 * NB, "SQ": 4 * NB,
+            "M": 4 * NB, "Z": 4 * NB * K}
+
+
+def pack(NR: int, K: int, C: int, names=PLACED,
+         budget: Optional[int] = None) -> SmemPlan:
+    """The arrays `names`, in PLACED's order, at 16-byte aligned offsets;
+    with a budget, the named arrays of each group of GROUPS, in order,
+    go in together where they still fit, and stay global together
+    otherwise."""
+    sizes = {n: -(-b // 16) * 16 for n, b in placed_bytes(NR, K, C).items()}
+    offsets, top = dict.fromkeys(PLACED), 0
+    for group in GROUPS:
+        members = [n for n in group if n in names]
+        if budget is None or top + sum(sizes[n] for n in members) <= budget:
+            for n in members:
+                offsets[n] = top
+                top += sizes[n]
+    return SmemPlan(tuple(offsets[n] for n in PLACED), top)
+
+
+@functools.lru_cache(maxsize=64)
+def smem_plan(NR: int, K: int, C: int, B: int, nch: int,
+              n_sm: int = 132) -> SmemPlan:
+    """The placement of one launch: GROUPS in order, each in shared
+    memory where it fits in what a block may take beside the kernel's
+    static shared memory. One-warp blocks (B <= 32) of more chains than
+    SMs share an SM, and split its shared memory, so that every chain
+    runs at once."""
+    share = min(-(-nch // n_sm), _WARP_BLOCKS_PER_SM) if B <= 32 else 1
+    budget = min(SMEM_BLOCK, SMEM_SM // share - 1024) - STATIC_SMEM
+    return pack(NR, K, C, budget=budget)
+
+
+def scratch_layout(NR: int, C: int, plan: SmemPlan) -> tuple:
+    """(ints a chain, offset of the row claims, of the slot claims, of
+    the hole flags) of the global scratch for the claim tables the plan
+    leaves in global memory; -1 for one in shared memory."""
+    top, offs = 0, []
+    for name, n in (("rmin", NR + 1), ("amin", C + 1), ("hole", -(-C // 4))):
+        if plan.offsets[name] is None:
+            offs.append(top)
+            top += n
+        else:
+            offs.append(-1)
+    return (top, *offs)
+
+
 def build() -> tuple:
     """Compile csrc/sweep.cu (once per source hash) and load it.
     Returns (ctypes library, compiler report)."""
     lib, report = cuda_build.load("sweep")
     fn = lib.cogaps_sweep_launch
+    ints = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = ([ctypes.c_int] * 6 + [ctypes.c_float] * 3
                    + [ctypes.c_void_p] * 14 + [ctypes.c_int]
-                   + [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_uint32, ints, ctypes.c_int,
+                      ints, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.cogaps_sweep_static_smem.argtypes = [ctypes.c_int]
+    lib.cogaps_sweep_static_smem.restype = ctypes.c_int
     return lib, report
 
 
@@ -154,7 +253,11 @@ def stack_counts(outs, device):
 
 
 def _run_kernel(atoms, M, Y, phase, temp, n_steps, consts, mass, rand,
-                s_max, max_sweeps):
+                s_max, max_sweeps, place=None):
+    """The kernel's update call. `place` (tests and measurements only)
+    forces a placement: a tuple of names of PLACED, put in shared memory
+    and the rest left global, fit or not (a block too large for the card
+    is refused and raises), or an SmemPlan."""
     NCH, NR, K = M.shape
     dev = M.device
     f32 = torch.float32
@@ -163,7 +266,12 @@ def _run_kernel(atoms, M, Y, phase, temp, n_steps, consts, mass, rand,
             ("Z", phase.Z, f32, (NCH, NR * K, K)),
             ("col_nz", phase.col_nz, torch.bool, (NCH, K))):
         cuda_build.check(name, t, dt, shape, dev)
-    st = KernelState.make(atoms, M, consts, mass, n_steps)
+    B, C = consts.batch, consts.capacity
+    plan, offsets, layout = _placement(
+        NR, K, C, B, NCH, torch.cuda.get_device_properties(dev)
+        .multi_processor_count, place)
+    st = KernelState.make(atoms, M, consts, mass, n_steps,
+                          scratch_ints=layout[0])
     Y_t = Y.clone()  # the kernel works in place on copies of the state
     colnz = phase.col_nz.to(torch.int32)
     lib, _ = build()
@@ -179,14 +287,31 @@ def _run_kernel(atoms, M, Y, phase, temp, n_steps, consts, mass, rand,
             phase.SQ.data_ptr(), phase.Z.data_ptr(), colnz.data_ptr(),
             st.scratch.data_ptr(), st.out.data_ptr(),
             uni.data_ptr() if uni is not None else None, s_lim,
-            key0.data_ptr() if key0 is not None else None, key1, stream)
+            key0.data_ptr() if key0 is not None else None, key1, offsets,
+            plan.nbytes, layout, stream)
         if err != 0:
-            raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}"
+                               f" ({plan.describe()})")
         run_updates_multi.launches += 1
 
     done, n_sweeps, counts = drive(launch, st, n_steps, consts.batch, rand,
                                    s_max, max_sweeps)
     return st.atoms(), st.M, Y_t, done, n_sweeps, counts
+
+
+@functools.lru_cache(maxsize=64)
+def _placement(NR, K, C, B, nch, n_sm, place):
+    """(plan, its offsets and its scratch layout as C int arrays) of a
+    launch; `place` forces a placement (see _run_kernel)."""
+    if place is None:
+        plan = smem_plan(NR, K, C, B, nch, n_sm)
+    elif isinstance(place, SmemPlan):
+        plan = place
+    else:
+        plan = pack(NR, K, C, names=place)
+    offsets = (ctypes.c_int * len(PLACED))(
+        *(-1 if off is None else off for off in plan.slots))
+    return plan, offsets, (ctypes.c_int * 4)(*scratch_layout(NR, C, plan))
 
 
 class KernelState(NamedTuple):
@@ -198,14 +323,19 @@ class KernelState(NamedTuple):
     elem: torch.Tensor
     n: torch.Tensor
     M: torch.Tensor
-    scratch: torch.Tensor  # (NCH * (NR + 2C + 2),) claims and hole flags
+    scratch: torch.Tensor  # (NCH * scratch_ints,) claims and hole flags
     out: torch.Tensor  # (NCH, _N_OUT) int32 counters
 
     @staticmethod
     def make(atoms: AtomTable, M: torch.Tensor, consts: SamplerConsts,
-             mass: MassParams, n_steps: torch.Tensor) -> "KernelState":
+             mass: MassParams, n_steps: torch.Tensor,
+             scratch_ints: Optional[int] = None) -> "KernelState":
+        """`scratch_ints`: ints of claim scratch a chain (default all the
+        claim tables and hole flags, NR + 2C + 2)."""
         NCH, NR, K = M.shape
         B, C = consts.batch, consts.capacity
+        if scratch_ints is None:
+            scratch_ints = NR + 2 * C + 2
         if not 1 <= B <= MAX_BATCH:
             raise ValueError(f"batch {B} outside [1, {MAX_BATCH}]")
         if C <= 0 or C & (C - 1):
@@ -226,7 +356,7 @@ class KernelState(NamedTuple):
         return KernelState(
             mass=atoms.mass.clone(), elem=atoms.elem.clone(),
             n=atoms.n.clone(), M=M.clone(),
-            scratch=torch.empty(NCH * (NR + 2 * C + 2), dtype=i32,
+            scratch=torch.empty(max(NCH * scratch_ints, 1), dtype=i32,
                                 device=dev),
             out=torch.empty((NCH, _N_OUT), dtype=i32, device=dev))
 

@@ -54,7 +54,7 @@ _MATMUL = re.compile(r"gemm|gemv|xmma|cutlass|splitk|cublas", re.IGNORECASE)
 
 
 def kernel_class(name: str) -> str:
-    if re.search(r"\bsweep_kernel\(", name):
+    if re.search(r"\bsweep_kernel(<\d+>)?\(", name):  # any width class
         return "sweep_kernel"
     if re.search(r"\bspan_kernel\(", name):
         return "span_kernel"

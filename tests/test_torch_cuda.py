@@ -13,7 +13,13 @@ same CUDA tensors by sweep_cuda.run_updates_multi_plain) decision for
 decision: equal done, sweeps, counts and elem tables; mass and M within
 1e-5 and Y within 1e-3 (the North-star tolerances; on the card both
 sides use the same float32 operations and CUDA math functions, and
-agree bit for bit in practice). The CSR sweep kernel (K4) is held to
+agree bit for bit in practice), under every placement of the chains'
+state in shared memory (none, the claims, the atom table, Y/SQ/M, all),
+at every width class (B = 1, 31, 32, 33, 256, 257, 1024), from C = 1024
+to 65536 and 1 to 200 chains, across several exact-mode slabs and with
+max_sweeps stepping; two fast runs give the same bits, a block too large
+for the card is refused and raises, and the one-warp class's machine
+code has no block barrier. The CSR sweep kernel (K4) is held to
 its plain version (ops/sweep.py with models/sparse.make_model) by the
 per-call contract of tests/test_atlas_engine.py:218-227: equal done,
 sweeps, counts, n and elem; mass and M within atol 5e-3, rtol 1e-4 (it
@@ -30,6 +36,7 @@ chains; two runs give the same bits, and a cluster launch the card
 refuses raises."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -258,6 +265,159 @@ def test_tables_kernel_matches_plain(cuda_device, mode, side):
                                                budgets, consts, mass, rand)
     torch.cuda.synchronize()
     assert_same(out_k, out_p)
+
+
+# ----------------------------------------------------------------------
+# K1/K2: each chain's state in shared memory, width classes
+# ----------------------------------------------------------------------
+CLAIMS = ("rmin", "amin", "hole")
+PLACEMENTS = {"none": (), "claims": CLAIMS,
+              "atoms": CLAIMS + ("mass", "elem"),
+              "tables": CLAIMS + ("mass", "elem", "Y", "SQ", "M"),
+              "all": sweep_cuda.PLACED}
+WIDTHS = [1, 31, 32, 33, 256, 257, 1024]  # each side of the classes' edges
+
+
+def sweep_rand(mode, device, nch, B, seed=3):
+    if mode == "fast":
+        return sweep_cuda.PhiloxKey(
+            key0=torch.arange(seed, seed + nch, device=device), key1=seed)
+    return lambda c, first, n: rng.philox_uniforms(seed + c, seed, c, first,
+                                                   n, B, device=device)
+
+
+def run_placed(args, place, s_max=8, max_sweeps=None):
+    """The kernel with the arrays `place` forced into shared memory."""
+    return sweep_cuda._run_kernel(*args, s_max, max_sweeps, place=place)
+
+
+@pytest.mark.parametrize("B", WIDTHS)
+@pytest.mark.parametrize("placement", list(PLACEMENTS))
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_kernel_every_placement_and_width(cuda_device, mode, placement, B):
+    """Every placement of the state, at every width class, decides as the
+    plain version does (budgets 0, 37 and a few sweeps' worth)."""
+    atoms, M, Y, phase, consts, mass = make_states(cuda_device, 200, 30, 5,
+                                                   B, 2048, nch=3)
+    budgets = torch.tensor([min(max(4 * B, 60), 2500), 37, 0],
+                           dtype=torch.int32, device=cuda_device)
+    args = (atoms, M, Y, phase, 0.7, budgets, consts, mass,
+            sweep_rand(mode, cuda_device, 3, B))
+    out_k = run_placed(args, PLACEMENTS[placement])
+    out_p = sweep_cuda.run_updates_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert_same(out_k, out_p)
+    assert torch.equal(out_k[3].cpu(), budgets.cpu())
+
+
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+@pytest.mark.parametrize("shape", [
+    (9, 300, 7, 32, 1024, 200),  # GIST P's width, 200 chains share SMs
+    (40, 30, 4, 100, 65536, 2),  # C = 65536
+    (300, 20, 10, 1024, 16384, 1),
+    (2000, 40, 10, 1024, 32768, 3),  # only the claims fit
+], ids=lambda s: "x".join(map(str, s)))
+def test_kernel_capacities_and_chains(cuda_device, mode, shape):
+    """The plan's own placement from C = 1024 to 65536 and 1 to 200
+    chains."""
+    NR, m, k, B, C, nch = shape
+    atoms, M, Y, phase, consts, mass = make_states(cuda_device, NR, m, k, B,
+                                                   C, nch=nch)
+    budgets = torch.tensor([(37 * c) % 90 + 5 * (c % 2) for c in range(nch)],
+                           dtype=torch.int32, device=cuda_device)
+    args = (atoms, M, Y, phase, 1.0, budgets, consts, mass,
+            sweep_rand(mode, cuda_device, nch, B))
+    out_k = sweep_cuda.run_updates_multi(*args)
+    out_p = sweep_cuda.run_updates_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert_same(out_k, out_p)
+
+
+@pytest.mark.parametrize("placement", ["none", "all"])
+@pytest.mark.parametrize("j", [1, 3, 7, None])
+def test_kernel_placed_across_slabs(cuda_device, placement, j):
+    """Exact mode in slabs of 2 sweeps a launch: the staged state goes
+    back to global memory and in again at each launch unchanged, and
+    max_sweeps stops kernel and plain version after the same sweep."""
+    atoms, M, Y, phase, consts, mass = make_states(cuda_device, 200, 30, 5,
+                                                   256, 2048, nch=2)
+    budgets = torch.tensor([1500, 60], dtype=torch.int32,
+                           device=cuda_device)
+    args = (atoms, M, Y, phase, 1.0, budgets, consts, mass,
+            sweep_rand("exact", cuda_device, 2, 256))
+    out_k = run_placed(args, PLACEMENTS[placement], s_max=2, max_sweeps=j)
+    out_p = sweep_cuda.run_updates_multi_plain(*args, max_sweeps=j)
+    assert_same(out_k, out_p)
+    if j is not None:
+        assert int(out_k[4][0]) == j
+    else:
+        assert int(out_k[4][0]) > 2 and torch.equal(out_k[3].cpu(),
+                                                   budgets.cpu())
+
+
+@pytest.mark.parametrize("shape", [(1363, 9, 7, 1024, 8192),
+                                   (9, 1363, 7, 32, 1024)])
+def test_kernel_is_deterministic(cuda_device, shape):
+    NR, m, k, B, C = shape
+    atoms, M, Y, phase, consts, mass = make_states(cuda_device, NR, m, k, B,
+                                                   C, nch=4)
+    budgets = torch.full((4,), 3000, dtype=torch.int32, device=cuda_device)
+    args = (atoms, M, Y, phase, 1.0, budgets, consts, mass,
+            sweep_rand("fast", cuda_device, 4, B))
+    def flat(out):
+        atoms_k, M_k, Y_k, done, ns, cnt = out
+        return (atoms_k.mass, atoms_k.elem, atoms_k.n, M_k, Y_k, done, ns,
+                cnt.processed, cnt.accepted)
+
+    one = flat(sweep_cuda.run_updates_multi(*args))
+    two = flat(sweep_cuda.run_updates_multi(*args))
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_kernel_refused_launch_raises(cuda_device):
+    """Everything forced into shared memory at GIST A (Z alone is 267 KB)
+    is more than a block may take: the launch is refused and raises, and
+    the next launch runs."""
+    atoms, M, Y, phase, consts, mass = make_states(cuda_device, 1363, 9, 7,
+                                                   1024, 8192, nch=1)
+    budgets = torch.full((1,), 500, dtype=torch.int32, device=cuda_device)
+    args = (atoms, M, Y, phase, 1.0, budgets, consts, mass,
+            sweep_rand("fast", cuda_device, 1, 1024))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        run_placed(args, sweep_cuda.PLACED)
+    out = sweep_cuda.run_updates_multi(*args)
+    torch.cuda.synchronize()
+    assert int(out[3][0]) == 500
+
+
+def test_kernel_static_smem_within_the_plan(cuda_device):
+    """smem_plan's budget leaves room for each class's static shared
+    memory (sweep_common.cuh::SweepShared)."""
+    lib, _ = sweep_cuda.build()
+    for B in WIDTHS:
+        used = lib.cogaps_sweep_static_smem(B)
+        assert 0 < used <= sweep_cuda.STATIC_SMEM, (B, used)
+
+
+def test_one_warp_class_issues_no_block_barrier(cuda_device):
+    """The B <= 32 instantiation's machine code has no block barrier
+    (BAR.*); the wider classes have them."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+    from cogaps_tpu_torch.ops import cuda_build
+    lib, _ = sweep_cuda.build()
+    tool = (shutil.which("cuobjdump")
+            or str(Path(cuda_build._nvcc()).parent / "cuobjdump"))
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+    bodies = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        bodies[name.strip()] = body
+    barriers = {t: [bool(re.search(r"\bBAR\.", b)) for n, b in bodies.items()
+                    if f"sweep_kernelILi{t}E" in n] for t in (32, 256, 1024)}
+    assert barriers == {32: [False], 256: [True], 1024: [True]}
 
 
 # ----------------------------------------------------------------------
