@@ -91,9 +91,10 @@ Phases:
 
 The last line is {"ok": true, "device": {...}}; the one before it is the
 card's name and power limit; before that, one JSON line describing each
-kernel of the path (for K1 and K2, "ms" is the kernel's device time by
-torch.profiler: their calls are short enough that CUDA events around
-back-to-back calls time the wrapper's host work).
+kernel of the path ("ms" by CUDA events around back-to-back calls; for
+K1 and K2 also "device_ms", the kernel's own device time by
+torch.profiler: their calls are short enough that the events time the
+wrapper's host work too).
 """
 
 import json
@@ -263,24 +264,62 @@ def time_calls(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, name, reps=5):
+def device_ms(fn, name, reps=5, sessions=3):
     """Mean device time in ms per call of fn() of the kernels whose name
     holds `name` (torch.profiler's CUDA events), after a warm-up call:
-    the kernel alone, without the host work around its launches."""
+    the kernel alone, without the host work around its launches. A
+    session of torch.profiler now and then records none of the card's
+    events: up to `sessions` are tried."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA and name in e.name())
+        if ns:
+            return ns * 1e-6 / reps
+    raise RuntimeError(f"torch.profiler recorded no {name} on the card in "
+                       f"{sessions} sessions")
+
+
+def stream_ms(fn, reps=20, tries=5):
+    """(device ms, host ms) a call of fn(), medians of `tries` batches of
+    reps calls: the device's time for the batch run back to back at its
+    own pace, gaps between kernels included, and the host's time to
+    enqueue it. Each batch is enqueued behind a spin kernel that
+    outlasts its enqueueing, so the host never starves the stream
+    (checked: the event after the spin has not completed when the last
+    call is enqueued)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    streams, hosts, cycles = [], [], 1 << 26
+    while len(streams) < tries:
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        ahead = not start.query()
+        stop.record()
         torch.cuda.synchronize()
-    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == DeviceType.CUDA and name in e.name())
-    if not ns:
-        raise RuntimeError(f"torch.profiler recorded no {name} on the card")
-    return ns * 1e-6 / reps
+        if ahead:
+            streams.append(start.elapsed_time(stop) / reps)
+            hosts.append(host)
+        elif cycles < 1 << 32:
+            cycles *= 4
+        else:
+            raise RuntimeError("the host never got ahead of the stream")
+    return float(np.median(streams)), float(np.median(hosts))
 
 
 def time_plain(fn):
@@ -418,13 +457,12 @@ def sweep_classes(report):
 def run_sweep_cases(cases, device, reps=10):
     """K1/K2 cases: kernel vs plain in both modes, then per-call times in
     fast mode: CUDA events over back-to-back calls (the wrapper's host
-    work included where it outlasts the kernel) and the kernel's own
-    device time. Returns (rows, max_err) with rows (name, kernel device
-    ms, plain ms, bound ms, bound_by, sweeps a call, device us a sweep,
-    placement)."""
+    work included where it outlasts the kernel), the kernel's own device
+    time, and the call's stream and host times (stream_ms). Returns
+    (rows, max_err) with rows (name, ms, plain ms, bound ms, bound_by,
+    sweeps a call, device us a sweep, placement, device ms)."""
     import torch
     from cogaps_tpu_torch.ops import sweep_cuda
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     results, failed, max_err = [], [], 0.0
     for case in cases:
         nch, B, K = case["nch"], case["B"], case["consts"].k
@@ -436,8 +474,11 @@ def run_sweep_cases(cases, device, reps=10):
                 case["mass"])
         for what, rand in (("exact", source), ("fast", key)):
             out_k = sweep_cuda.run_updates_multi(*args, rand)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             out_p = sweep_cuda.run_updates_multi_plain(*args, rand)
             torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3  # fast mode's is kept
             problems, err = compare(case, out_k, out_p, what)
             max_err = max(max_err, err)
             if problems:
@@ -450,35 +491,37 @@ def run_sweep_cases(cases, device, reps=10):
                           reps)
         dev_ms = device_ms(lambda: sweep_cuda.run_updates_multi(*args, key),
                            "sweep_kernel", reps)
-        p_ms = time_plain(lambda: sweep_cuda.run_updates_multi_plain(
-            *args, key))
+        s_ms, h_ms = stream_ms(lambda: sweep_cuda.run_updates_multi(*args,
+                                                                    key))
         bound, by = sweep_bound_ms(
             out_k[5].processed, out_k[0].n, 4 * (5 * K + K * K), 300 + 2 * K)
         c = case["consts"]
-        plan = sweep_cuda.smem_plan(c.n_rows, K, c.capacity, B, nch, n_sm)
+        plan = sweep_cuda.smem_plan(c.n_rows, K, c.capacity, B, nch)
         sweeps = out_k[4].tolist()
         us = dev_ms * 1e3 / max(max(sweeps), 1)
         log(f"  {case['name']}: kernel {k_ms:.4f} ms/call ({dev_ms:.4f} ms "
-            f"on the device), plain {p_ms:.1f} ms/call, bound {bound:.6f} ms"
+            f"on the device; the call's stream {s_ms:.4f} ms, its host "
+            f"{h_ms:.4f} ms), plain {p_ms:.1f} ms/call, bound {bound:.6f} ms"
             f" ({by}) (budgets {case['budgets'].tolist()}); sweeps a call "
             f"{sweeps}, {us:.3f} us a sweep on the device; placement: "
             f"{plan.describe()}")
-        results.append((case["name"], dev_ms, p_ms, bound, by, sweeps, us,
-                        plan.describe()))
+        results.append((case["name"], k_ms, p_ms, bound, by, sweeps, us,
+                        plan.describe(), dev_ms))
     if failed:
         raise AssertionError(f"kernel and plain version disagree: {failed}")
     return results, max_err
 
 
-def phase_kernels(device, report):
+def sweep_cases(device, D_sparse):
+    """Phase 3's K1 cases (GIST A and P and a 5000-row sampler from random
+    atoms, GIST A and P from a run's state) and K2 cases (the sweep
+    kernel on the tables of D_sparse, synthetic_sparse(2000, 10000, 10,
+    1, 11)): (K1's, K2's), 4 chains each."""
     from cogaps_tpu_torch.bench_harness import synthetic_dense
     from cogaps_tpu_torch.io import parsers
-    log(f"  sweep_kernel width classes, ptxas (registers, bytes of spill "
-        f"stores): {sweep_classes(report)}")
-
     D_gist, _, _ = parsers.read_matrix(GIST_CSV)
     [D_big] = synthetic_dense(5000, 2000, 10, 1, 0)
-    cases = [
+    k1 = [
         make_case("GIST A sampler (1363x9, k=7, B=1024, C=8192)", D_gist,
                   True, 7, 1024, 8192, 4, 4000, 1, device),
         make_case("GIST P sampler (9x1363, k=7, B=32, C=1024)", D_gist,
@@ -486,19 +529,13 @@ def phase_kernels(device, report):
         make_case("5000-row sampler (5000x2000, k=10, B=1024, C=32768)",
                   D_big, True, 10, 1024, 32768, 4, 4000, 3, device),
     ] + gist_state_cases(device)
-    del D_big
-    return run_sweep_cases(cases, device)
-
-
-def phase_tables(device, D_sparse):
-    """K2: the sweep kernel on the sparse model's tables."""
-    cases = [
+    k2 = [
         tables_case("tables A sampler (2000x10000, k=10, B=1024, C=16384)",
                     D_sparse, True, 10, 1024, 16384, 4, 4000, 4, device),
         tables_case("tables P sampler (10000x2000, k=10, B=1024, C=65536)",
                     D_sparse, False, 10, 1024, 65536, 4, 4000, 5, device),
     ]
-    return run_sweep_cases(cases, device)
+    return k1, k2
 
 
 TOL_ATLAS_ATOL, TOL_ATLAS_RTOL = 5e-3, 1e-4
@@ -1092,9 +1129,13 @@ def main() -> int:
     from cogaps_tpu_torch.bench_harness import synthetic_coo, synthetic_sparse
     from cogaps_tpu_torch.parallel.atlas_engine import AtlasEngine
     t0 = time.perf_counter()
-    kernel_times, max_err = phase_kernels(device, builds["sweep"][1])
+    log(f"  sweep_kernel width classes, ptxas (registers, bytes of spill "
+        f"stores): {sweep_classes(builds['sweep'][1])}")
     [D_sparse] = synthetic_sparse(2000, 10000, 10, 1, 11)
-    tables_times, tables_err = phase_tables(device, D_sparse)
+    k1_cases, k2_cases = sweep_cases(device, D_sparse)
+    kernel_times, max_err = run_sweep_cases(k1_cases, device)
+    tables_times, tables_err = run_sweep_cases(k2_cases, device)
+    del k1_cases, k2_cases
     t1 = time.perf_counter()
     coo = synthetic_coo(30000, 50000, 0.02, 17)
     t2 = time.perf_counter()
@@ -1339,21 +1380,21 @@ def main() -> int:
         f"version or within its tolerance; launches {probe_launches}; phase "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def entry(name, source, replaces, launches, err, row):
+    def entry(name, source, replaces, launches, err, row, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": row[1], "plain_ms": row[2],
                 "bound_ms": row[3], "bound_by": row[4], "library_ms": None,
-                "shape": row[0]}
+                "shape": row[0], **extra}
 
     table_launches = sparse_launches["sweep"] + multi_launches["sweep"]
     kernel_line = {"kernels": [
         entry("sweep", "cogaps_tpu_torch/csrc/sweep.cu",
               "cogaps_tpu/ops/pallas_sweep.py:815", launches, max_err,
-              kernel_times[0]),
+              kernel_times[0], device_ms=kernel_times[0][8]),
         entry("sweep_tables", "cogaps_tpu_torch/csrc/sweep.cu",
               "cogaps_tpu/ops/pallas_sweep.py:1074", table_launches,
-              tables_err, tables_times[0]),
+              tables_err, tables_times[0], device_ms=tables_times[0][8]),
         entry("atlas", "cogaps_tpu_torch/csrc/atlas.cu",
               "cogaps_tpu/ops/pallas_atlas.py:760", atlas_launches,
               atlas_err, atlas_times[0]),

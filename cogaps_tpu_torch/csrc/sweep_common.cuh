@@ -215,7 +215,7 @@ __device__ __forceinline__ void block_sync() {
 }
 
 // Inclusive prefix sum of v over the block; `total` gets the block sum.
-// Every thread of the block must call it.
+// Every thread of the block must call it, and it is a block barrier.
 template <bool kWarp = false>
 __device__ int block_scan(int v, int* warp_sums, int& total) {
   const int wl = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -227,6 +227,7 @@ __device__ int block_scan(int v, int* warp_sums, int& total) {
   }
   if constexpr (kWarp) {
     total = __shfl_sync(0xffffffffu, x, 31);
+    __syncwarp();  // the shuffles alone order no memory
     return x;
   } else {
     if (wl == 31) warp_sums[wid] = x;

@@ -65,11 +65,8 @@ PLACED = ("rmin", "amin", "hole", "mass", "elem", "Y", "SQ", "M", "Z")
 GROUPS = (("rmin",), ("amin",), ("hole", "mass", "elem", "Y", "SQ", "M"),
           ("Z",))
 SMEM_BLOCK = 232_448  # shared memory one block may use on an H100 (227 KB)
-SMEM_SM = 233_472  # an SM's shared memory, 1 KB of it reserved a block
 # static shared memory of the kernel, sweep_common.cuh::SweepShared
 STATIC_SMEM = 4 * (32 + MAX_BATCH + 1 + 3 + 8)
-# one-warp blocks an SM holds at 255 registers a thread
-_WARP_BLOCKS_PER_SM = 8
 
 
 class PhiloxKey(NamedTuple):
@@ -124,16 +121,13 @@ def pack(NR: int, K: int, C: int, names=PLACED,
 
 
 @functools.lru_cache(maxsize=64)
-def smem_plan(NR: int, K: int, C: int, B: int, nch: int,
-              n_sm: int = 132) -> SmemPlan:
-    """The placement of one launch: GROUPS in order, each in shared
-    memory where it fits in what a block may take beside the kernel's
-    static shared memory. One-warp blocks (B <= 32) of more chains than
-    SMs share an SM, and split its shared memory, so that every chain
-    runs at once."""
-    share = min(-(-nch // n_sm), _WARP_BLOCKS_PER_SM) if B <= 32 else 1
-    budget = min(SMEM_BLOCK, SMEM_SM // share - 1024) - STATIC_SMEM
-    return pack(NR, K, C, budget=budget)
+def smem_plan(NR: int, K: int, C: int, B: int, nch: int) -> SmemPlan:
+    """The placement of one launch of nch chains of batch B: GROUPS in
+    order, each in shared memory where it fits in what a block may take
+    beside the kernel's static shared memory. Every width class and chain
+    count gets that same budget; chains past one an SM run in later
+    waves."""
+    return pack(NR, K, C, budget=SMEM_BLOCK - STATIC_SMEM)
 
 
 def scratch_layout(NR: int, C: int, plan: SmemPlan) -> tuple:
@@ -267,9 +261,7 @@ def _run_kernel(atoms, M, Y, phase, temp, n_steps, consts, mass, rand,
             ("col_nz", phase.col_nz, torch.bool, (NCH, K))):
         cuda_build.check(name, t, dt, shape, dev)
     B, C = consts.batch, consts.capacity
-    plan, offsets, layout = _placement(
-        NR, K, C, B, NCH, torch.cuda.get_device_properties(dev)
-        .multi_processor_count, place)
+    plan, offsets, layout = _placement(NR, K, C, B, NCH, place)
     st = KernelState.make(atoms, M, consts, mass, n_steps,
                           scratch_ints=layout[0])
     Y_t = Y.clone()  # the kernel works in place on copies of the state
@@ -300,11 +292,11 @@ def _run_kernel(atoms, M, Y, phase, temp, n_steps, consts, mass, rand,
 
 
 @functools.lru_cache(maxsize=64)
-def _placement(NR, K, C, B, nch, n_sm, place):
+def _placement(NR, K, C, B, nch, place):
     """(plan, its offsets and its scratch layout as C int arrays) of a
     launch; `place` forces a placement (see _run_kernel)."""
     if place is None:
-        plan = smem_plan(NR, K, C, B, nch, n_sm)
+        plan = smem_plan(NR, K, C, B, nch)
     elif isinstance(place, SmemPlan):
         plan = place
     else:

@@ -1,19 +1,25 @@
 """Per-call times of the sweep kernels on one CUDA card, for comparing two
 checkouts of the package in one run.
 
-    python3 cogaps_tpu_torch/kernel_times.py [--root DIR] [--out FILE]
+    python3 kernel_times.py [--root DIR] [--placements] [--out FILE]
 
 times the cogaps_tpu_torch package found in DIR (default: the checkout
-holding this file), built from DIR's sources, at chip_smoke.py's phase-3
-shapes, with the cases built by this checkout's chip_smoke.py:
+holding this file), built from DIR's sources, on the cases of
+chip_smoke.py's phase 3 (chip_smoke.sweep_cases, from this checkout):
 
 - K1 (csrc/sweep.cu) at GIST A and P and a 5000-row sampler from random
   atoms, and at GIST A and P from the state after 50 per-call
-  iterations at that run's budgets, 4 chains; K2 (the same kernel on the
-  sparse model's tables) at 2000 x 10000 k=10, A and P, 4 chains: ms a
-  call in fast mode by CUDA events over 20 back-to-back calls (the
-  wrapper's host work included where it outlasts the kernel), the
-  kernel's device ms a call (torch.profiler), and sweeps a call;
+  iterations at that run's budgets; K2 (the same kernel on the sparse
+  model's tables) at 2000 x 10000 k=10, A and P; 4 chains, fast mode.
+  Per case, ms a call by five readings: "events_ms", CUDA events
+  around back-to-back calls (as chip_smoke's kernels line: the host's
+  pace where it is slower than the device's); "stream_ms", the same
+  calls run back to back by the device at its own pace
+  (chip_smoke.stream_ms, median of five batches: every kernel of the
+  call and the gaps between them) and "host_ms", the host's time to
+  enqueue a call; "device_ms", sweep_kernel's own device time
+  (torch.profiler), and "call_device_ms", every device operation of
+  the call; and the sweeps a call;
 - K3 (csrc/span.cu): span_kernel's device time a sampling iteration of a
   50-iteration span at GIST x16 (torch.profiler), from the state after
   50 per-call iterations;
@@ -22,12 +28,11 @@ shapes, with the cases built by this checkout's chip_smoke.py:
 With --placements (this checkout's package only), it times K1/K2 instead
 under other placements of the chains' state than smem_plan's
 (ops/sweep_cuda.PLACED's arrays packed under other budgets or with some
-left out), at the phase-3 shapes and at the A samplers of 10000 x 100
-and 20000 x 100 k=10 with 16 chains: the measurement behind the plan's
-rule.
+left out), on the same cases and on the A samplers of 10000 x 100 and
+20000 x 100 k=10 with 16 chains: sweep_kernel's device ms and the
+stream's ms a call of each.
 
-It uses only entry points that every checkout since K3's cluster kernel
-has. To compare a change with its parent on one card, unpack the parent
+To compare a change with its parent on one card, unpack the parent
 (`git archive`) into a git-ignored directory and run this script on
 both in turns (parent, change, change, parent) in one command. Prints
 one JSON object and writes it to FILE.
@@ -35,52 +40,20 @@ one JSON object and writes it to FILE.
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
 import sys
+import time
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if sys.path and os.path.abspath(sys.path[0] or ".") == os.path.dirname(
-        os.path.abspath(__file__)):
-    del sys.path[0]  # run as a file: the package's own modules are no path
-
-import argparse  # noqa: E402
-import importlib.util  # noqa: E402
-import json  # noqa: E402
-import time  # noqa: E402
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def load_smoke():
-    """This checkout's chip_smoke.py, as a module (its case builders)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke_cases", os.path.join(HERE, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def sweep_times(cs, device, reps=20):
-    """{case name: (ms a call, device ms a call, sweeps a call of each
-    chain)} of K1/K2."""
+def sweep_times(cs, cases, device, reps=20):
+    """{case name: readings} of K1/K2 in fast mode (see the module's
+    docstring)."""
     import torch
-    from cogaps_tpu_torch.bench_harness import synthetic_dense, synthetic_sparse
-    from cogaps_tpu_torch.io import parsers
     from cogaps_tpu_torch.ops import sweep_cuda
-    D_gist, _, _ = parsers.read_matrix(cs.GIST_CSV)
-    [D_big] = synthetic_dense(5000, 2000, 10, 1, 0)
-    [D_sparse] = synthetic_sparse(2000, 10000, 10, 1, 11)
-    cases = [
-        cs.make_case("GIST A", D_gist, True, 7, 1024, 8192, 4, 4000, 1,
-                     device),
-        cs.make_case("GIST P", D_gist, False, 7, 32, 1024, 4, 2000, 2,
-                     device),
-        cs.make_case("5000-row", D_big, True, 10, 1024, 32768, 4, 4000, 3,
-                     device),
-    ] + cs.gist_state_cases(device) + [
-        cs.tables_case("K2 tables A", D_sparse, True, 10, 1024, 16384, 4,
-                       4000, 4, device),
-        cs.tables_case("K2 tables P", D_sparse, False, 10, 1024, 65536, 4,
-                       4000, 5, device),
-    ]
     out = {}
     for case in cases:
         key = sweep_cuda.PhiloxKey(
@@ -88,52 +61,42 @@ def sweep_times(cs, device, reps=20):
         args = (case["atoms"], case["M"], case["Y"], case["phase"],
                 case.get("temp", 1.0), case["budgets"], case["consts"],
                 case["mass"], key)
-        sweeps = sweep_cuda.run_updates_multi(*args)[4].tolist()
-        ms = cs.time_calls(lambda: sweep_cuda.run_updates_multi(*args), reps)
-        dev_ms = cs.device_ms(lambda: sweep_cuda.run_updates_multi(*args),
-                              "sweep_kernel", reps)
-        out[case["name"]] = (ms, dev_ms, sweeps)
+
+        def call():
+            return sweep_cuda.run_updates_multi(*args)
+
+        stream, host = cs.stream_ms(call, reps)
+        out[case["name"]] = {
+            "events_ms": cs.time_calls(call, reps), "stream_ms": stream,
+            "host_ms": host,
+            "device_ms": cs.device_ms(call, "sweep_kernel", reps),
+            "call_device_ms": cs.device_ms(call, "", reps),
+            "sweeps": call()[4].tolist()}
     return out
 
 
-def placement_times(cs, device, reps=10):
-    """{case: {variant: (device ms a call, placement)}} of K1/K2 under
-    placements other than smem_plan's."""
+def placement_times(cs, cases, device, reps=10):
+    """{case: {variant: (sweep_kernel's device ms, the stream's ms, sweeps,
+    placement)}} of K1/K2 under placements other than smem_plan's."""
     import torch
-    from cogaps_tpu_torch.bench_harness import synthetic_dense, synthetic_sparse
-    from cogaps_tpu_torch.io import parsers
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
     from cogaps_tpu_torch.ops import sweep_cuda as sc
-    D_gist, _, _ = parsers.read_matrix(cs.GIST_CSV)
-    [D_big] = synthetic_dense(5000, 2000, 10, 1, 0)
-    [D_sparse] = synthetic_sparse(2000, 10000, 10, 1, 11)
     [D_10k] = synthetic_dense(10000, 100, 10, 1, 1)
     [D_20k] = synthetic_dense(20000, 100, 10, 1, 2)
-    cases = [
-        cs.make_case("GIST A", D_gist, True, 7, 1024, 8192, 4, 4000, 1,
-                     device),
-        cs.make_case("GIST P", D_gist, False, 7, 32, 1024, 4, 2000, 2,
-                     device),
-        cs.make_case("5000-row", D_big, True, 10, 1024, 32768, 4, 4000, 3,
-                     device),
+    cases = cases + [
         cs.make_case("10000-row x16", D_10k, True, 10, 1024, 65536, 16,
                      4000, 6, device),
         cs.make_case("20000-row x16", D_20k, True, 10, 1024, 131072, 16,
                      4000, 7, device),
-    ] + cs.gist_state_cases(device) + [
-        cs.tables_case("K2 tables A", D_sparse, True, 10, 1024, 16384, 4,
-                       4000, 4, device),
-        cs.tables_case("K2 tables P", D_sparse, False, 10, 1024, 65536, 4,
-                       4000, 5, device),
     ]
     claims = ("rmin", "amin")
     out = {}
     for case in cases:
         c = case["consts"]
         NR, K, C, B, nch = c.n_rows, c.k, c.capacity, c.batch, case["nch"]
-        full = sc.smem_plan(NR, K, C, B, nch)
         budget = sc.SMEM_BLOCK - sc.STATIC_SMEM
         variants = {
-            "plan": full,
+            "plan": sc.smem_plan(NR, K, C, B, nch),
             "none": sc.pack(NR, K, C, names=()),
             "claims": sc.pack(NR, K, C, names=claims, budget=budget),
             "claims+hole": sc.pack(NR, K, C, names=claims + ("hole",),
@@ -153,7 +116,8 @@ def placement_times(cs, device, reps=10):
             def call():
                 return sc._run_kernel(*args, place=plan)
             sweeps = call()[4].tolist()
-            row[name] = (cs.device_ms(call, "sweep_kernel", reps), sweeps,
+            row[name] = (cs.device_ms(call, "sweep_kernel", reps),
+                         cs.stream_ms(call, reps)[0], sweeps,
                          plan.describe())
         out[case["name"]] = row
         print(json.dumps({case["name"]: row}), flush=True)
@@ -221,6 +185,7 @@ def main() -> int:
     ap.add_argument("--placements", action="store_true",
                     help="time K1/K2 under other placements instead")
     args = ap.parse_args()
+    import chip_smoke as cs  # this checkout's, before DIR goes on the path
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     import torch
@@ -232,7 +197,7 @@ def main() -> int:
             os.path.abspath(cogaps_tpu_torch.__file__))) != root:
         raise RuntimeError(f"imported {cogaps_tpu_torch.__file__}, not the "
                            f"package in {root}")
-    cs = load_smoke()
+    from cogaps_tpu_torch.bench_harness import synthetic_sparse
     device = torch.device("cuda")
     t0 = time.perf_counter()
     builds = cs.build_all()
@@ -241,22 +206,21 @@ def main() -> int:
               "sweep_ptxas": cs.sweep_classes(builds["sweep"][1]),
               "span_ptxas": cs.ptxas_of(builds["span"][1], "span_kernel"),
               "atlas_ptxas": cs.ptxas_of(builds["atlas"][1], "atlas_kernel")}
+    [D_sparse] = synthetic_sparse(2000, 10000, 10, 1, 11)
+    k1, k2 = cs.sweep_cases(device, D_sparse)
     if args.placements:
-        record["placements"] = placement_times(cs, device)
-        return finish(record, t0, args.out)
-    record["sweep"] = sweep_times(cs, device)
-    record["span_kernel_ms_per_iter"] = span_time(cs, device)
-    record["atlas"] = atlas_times(cs, device)
-    return finish(record, t0, args.out)
-
-
-def finish(record, t0, out) -> int:
+        record["placements"] = placement_times(cs, k1 + k2, device)
+    else:
+        record["sweep"] = sweep_times(cs, k1 + k2, device)
+        record["span_kernel_ms_per_iter"] = span_time(cs, device)
+        record["atlas"] = atlas_times(cs, device)
     record["seconds"] = time.perf_counter() - t0
     line = json.dumps(record)
     print(line, flush=True)
-    if out:
-        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
-        with open(out, "w") as f:
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
             f.write(line + "\n")
     return 0
 

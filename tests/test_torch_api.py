@@ -165,7 +165,8 @@ def _forbidden(module: str) -> bool:
 
 def test_sources_import_no_jax():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
-             if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]
+             if f.endswith(".py")] + [os.path.join(ROOT, n) for n in (
+                                        "chip_smoke.py", "kernel_times.py")]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(open(path).read(), path)

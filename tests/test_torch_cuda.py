@@ -312,7 +312,7 @@ def test_kernel_every_placement_and_width(cuda_device, mode, placement, B):
 
 @pytest.mark.parametrize("mode", ["exact", "fast"])
 @pytest.mark.parametrize("shape", [
-    (9, 300, 7, 32, 1024, 200),  # GIST P's width, 200 chains share SMs
+    (9, 300, 7, 32, 1024, 200),  # GIST P's width, 200 chains, several an SM
     (40, 30, 4, 100, 65536, 2),  # C = 65536
     (300, 20, 10, 1024, 16384, 1),
     (2000, 40, 10, 1024, 32768, 3),  # only the claims fit

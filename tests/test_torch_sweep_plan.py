@@ -17,9 +17,8 @@ import pytest
 
 from cogaps_tpu_torch.ops import sweep_cuda
 from cogaps_tpu_torch.ops.sweep_cuda import (GROUPS, PLACED, SMEM_BLOCK,
-                                             SMEM_SM, STATIC_SMEM, pack,
-                                             placed_bytes, scratch_layout,
-                                             smem_plan)
+                                             STATIC_SMEM, pack, placed_bytes,
+                                             scratch_layout, smem_plan)
 
 CSRC = Path(sweep_cuda.__file__).resolve().parent.parent / "csrc"
 
@@ -40,9 +39,7 @@ def aligned(n):
     return -(-n // 16) * 16
 
 
-def budget_of(B, nch, n_sm=132):
-    share = min(-(-nch // n_sm), 8) if B <= 32 else 1
-    return min(SMEM_BLOCK, SMEM_SM // share - 1024) - STATIC_SMEM
+BUDGET = SMEM_BLOCK - STATIC_SMEM
 
 
 def check_plan(plan, NR, K, C, budget):
@@ -74,13 +71,13 @@ def check_plan(plan, NR, K, C, budget):
 @pytest.mark.parametrize("case", list(PHASE3))
 def test_plan_at_phase3_shapes(case):
     NR, K, C, B, nch = PHASE3[case]
-    check_plan(smem_plan(NR, K, C, B, nch), NR, K, C, budget_of(B, nch))
+    check_plan(smem_plan(NR, K, C, B, nch), NR, K, C, BUDGET)
 
 
 @pytest.mark.parametrize("shape", EDGES, ids=lambda s: "x".join(map(str, s)))
 def test_plan_at_edge_widths(shape):
     NR, K, C, B, nch = shape
-    check_plan(smem_plan(NR, K, C, B, nch), NR, K, C, budget_of(B, nch))
+    check_plan(smem_plan(NR, K, C, B, nch), NR, K, C, BUDGET)
 
 
 def test_gist_p_wholly_and_gist_a_all_but_z_resident():
@@ -109,15 +106,15 @@ def test_shape_too_big_leaves_everything_global():
     assert stride == g_hole + (1 << 20) // 4
 
 
-def test_one_warp_blocks_of_many_chains_share_an_sm():
-    """Past one chain an SM, one-warp blocks split the SM's shared memory;
-    wider blocks keep the whole budget."""
-    NR, K, C = 300, 7, 8192
-    assert smem_plan(NR, K, C, 32, 132).nbytes > budget_of(32, 264)
-    assert smem_plan(NR, K, C, 32, 264).nbytes <= budget_of(32, 264)
-    assert budget_of(32, 264) < budget_of(32, 132)
-    assert (smem_plan(NR, K, C, 1024, 264).nbytes
-            == smem_plan(NR, K, C, 1024, 1).nbytes)
+@pytest.mark.parametrize("NR, K, C", [(300, 7, 8192), (1363, 7, 8192),
+                                       (9, 64, 1024)])
+def test_every_width_class_and_chain_count_gets_the_block_budget(NR, K, C):
+    """The plan depends on the shape of a chain's state only: one-warp
+    blocks of more chains than SMs take the same placement as one chain
+    of 1024 lanes."""
+    plans = {smem_plan(NR, K, C, B, nch) for B in (1, 32, 33, 1024)
+             for nch in (1, 132, 264, 1000)}
+    assert plans == {pack(NR, K, C, budget=BUDGET)}
 
 
 @pytest.mark.parametrize("names", [(), ("rmin", "amin", "hole"),
