@@ -14,10 +14,21 @@
 //
 //   F9 gather_rows     out[j, :] = tbl[idx[j], :] with float32 indices, or
 //                      rows offset[0] + j with the offset read from device
-//                      memory (p1). A warp a row, 16-byte loads where the
-//                      rows allow them (8- or 4-byte ones otherwise).
-//                      Bound by bytes; at the probes' B every row is a
-//                      separate HBM access, so latency sets the time.
+//                      memory (p1). Bound by bytes: the rows written once
+//                      (the table, 10 MB at K4's shape, stays in the 50 MB
+//                      L2). A flat, streaming copy: the (B, K) output is
+//                      walked in 16-byte pieces, each a float4 store with
+//                      __stcs (evict-first, so the output does not push the
+//                      table out of L2); a piece may straddle two rows when
+//                      K % 4 != 0. Blocks take tiles of 1 or 2 pieces a
+//                      thread in a grid-stride loop (probes/dma.gather_plan:
+//                      up to 8 blocks an SM); a thread issues the table
+//                      loads of its pieces (16-, 8- or 4-byte ones as K
+//                      allows) before its stores, each piece's row index
+//                      read through L1 beside them and its row found by a
+//                      multiply and shifts (fast_div): a division
+//                      instruction ahead of the index load cost the small
+//                      gathers at the launch floor.
 //   F9 gather_passes   R dependent passes: each gathers rows tbl[idx] into
 //                      buf and sets idx = floor(idx * 0.5 + buf[:, 0]) % NB
 //                      for the next; out = idx + buf[0, 0]. A warp a lane
@@ -41,39 +52,137 @@
 // latency, not the bytes bound, set their times.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
-// one warp copies a row of K floats in pieces of V (K a multiple of the
-// piece, both rows aligned to it)
-template <typename V>
-__device__ __forceinline__ void copy_row(const float* src, float* dst, int K,
-                                         int lane) {
-  constexpr int w = sizeof(V) / sizeof(float);
-  const V* s = reinterpret_cast<const V*>(src);
-  V* d = reinterpret_cast<V*>(dst);
-  for (int q = lane; q < K / w; q += 32) d[q] = s[q];
+inline bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
-template <typename V>
-__global__ void gather_rows_kernel(int NB, int K, int B,
-                                   const float* __restrict__ tbl,
-                                   const float* __restrict__ idx,
-                                   const int* __restrict__ offset,
-                                   float* __restrict__ out) {
-  const int j = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (j >= B) return;
-  const long long src = idx ? (long long)idx[j] : (long long)offset[0] + j;
-  float* dst = out + (size_t)j * K;
-  if (src < 0 || src >= NB) {  // no such row: NaN, not a fault
-    for (int q = lane; q < K; q += 32) dst[q] = nan_f();
+// probes/dma.py mirrors this (GATHER_THREADS)
+constexpr int kGatherThreads = 256;
+
+// Division of n < 2^32 by a d fixed for the launch, without a division
+// instruction on the way to the index load (Granlund and Montgomery's
+// round-up method, "Division by invariant integers using
+// multiplication", 1994, fig. 4.1): m = floor(2^32 (2^l - d) / d) + 1,
+// l = ceil(log2 d)
+struct FastDiv {
+  unsigned m;
+  int sh1, sh2;
+};
+
+FastDiv make_div(unsigned d) {  // d >= 1
+  int l = 0;
+  while ((1ull << l) < d) ++l;
+  const unsigned long long m = (((1ull << l) - d) << 32) / d + 1;
+  return {(unsigned)m, l < 1 ? l : 1, l > 1 ? l - 1 : 0};
+}
+
+__device__ __forceinline__ unsigned fast_div(unsigned n, FastDiv d) {
+  const unsigned t = __umulhi(d.m, n);
+  return (t + ((n - t) >> d.sh1)) >> d.sh2;
+}
+
+// V floats of out from element f (counted from the start of row j0) on:
+// tbl's row idx[j0 + f / K] (or offset + j0 + f / K), NaN where that names
+// no row; the index is read through L1, where the other pieces of its row
+// find it
+template <int V>
+__device__ __forceinline__ void load_at(int NB, int K, FastDiv by_k, int j0,
+                                        int f, const float* __restrict__ tbl,
+                                        const float* __restrict__ idx,
+                                        long long base, float* v) {
+  const int r = (int)fast_div((unsigned)f, by_k), col = f - r * K;
+  const long long s = idx ? (long long)__ldg(idx + j0 + r) : base + j0 + r;
+  if (s < 0 || s >= NB) {  // no such row: NaN, not a fault
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = nan_f();
     return;
   }
-  copy_row<V>(tbl + (size_t)src * K, dst, K, lane);
+  const float* p = tbl + (size_t)s * K + col;
+  if constexpr (V == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (V == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+// V: the floats of one table load, 4 (K % 4 == 0), 2 (K % 2 == 0) or 1,
+// with the table aligned to it; out is 16-byte aligned. A tile is
+// kItems * kGatherThreads pieces of 16 bytes, piece it * kGatherThreads +
+// x of it thread x's; a thread issues the loads of all its pieces before
+// its stores.
+template <int V, int kItems>
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_rows_kernel(int NB, int K, FastDiv by_k, int B,
+                       const float* __restrict__ tbl,
+                       const float* __restrict__ idx,
+                       const int* __restrict__ offset,
+                       float* __restrict__ out) {
+  constexpr long long kTileFloats = 4LL * kItems * kGatherThreads;
+  const long long n = (long long)B * K;  // floats of out
+  const long long tiles = (n + kTileFloats - 1) / kTileFloats;
+  const long long base = offset ? (long long)offset[0] : 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long e0 = tile * kTileFloats;
+    int j0, rem;  // e0's row and column, in 32 bits where they fit
+    if (n <= INT_MAX) {
+      j0 = (int)fast_div((unsigned)e0, by_k);
+      rem = (int)e0 - j0 * K;
+    } else {
+      j0 = (int)(e0 / K);
+      rem = (int)(e0 - (long long)j0 * K);
+    }
+    const int len = (int)min(n - e0, kTileFloats);
+    float v[kItems][4];
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int l = 4 * (it * kGatherThreads + threadIdx.x);
+#pragma unroll
+      for (int k = 0; k < 4; k += V)
+        if (l + k < len)
+          load_at<V>(NB, K, by_k, j0, rem + l + k, tbl, idx, base,
+                     &v[it][k]);
+    }
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int l = 4 * (it * kGatherThreads + threadIdx.x);
+      float* o = out + e0 + l;
+      if (l + 4 <= len) {
+        __stcs(reinterpret_cast<float4*>(o),
+               make_float4(v[it][0], v[it][1], v[it][2], v[it][3]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (l + k < len) __stcs(o + k, v[it][k]);
+      }
+    }
+  }
+}
+
+template <int kItems>
+void gather_launch(int grid, cudaStream_t s, int NB, int K, int B,
+                   const float* tbl, const float* idx, const int* offset,
+                   float* out) {
+  const FastDiv by_k = make_div((unsigned)K);
+  if (K % 4 == 0 && aligned(tbl, 16))
+    gather_rows_kernel<4, kItems><<<grid, kGatherThreads, 0, s>>>(
+        NB, K, by_k, B, tbl, idx, offset, out);
+  else if (K % 2 == 0 && aligned(tbl, 8))
+    gather_rows_kernel<2, kItems><<<grid, kGatherThreads, 0, s>>>(
+        NB, K, by_k, B, tbl, idx, offset, out);
+  else
+    gather_rows_kernel<1, kItems><<<grid, kGatherThreads, 0, s>>>(
+        NB, K, by_k, B, tbl, idx, offset, out);
 }
 
 __global__ void gather_passes_kernel(int NB, int K, int B, int R,
@@ -142,30 +251,26 @@ __global__ void strided_sum_kernel(int n, int stride, float scale, float shift,
   out[0] = acc;
 }
 
-inline bool aligned(const void* p, int bytes) {
-  return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
-}
-
 constexpr int kBad = (int)cudaErrorInvalidValue;
 
 }  // namespace
 
-extern "C" int probe_gather_rows(int NB, int K, int B, const float* tbl,
-                                 const float* idx, const int* offset,
-                                 float* out, void* stream) {
-  if (NB < 1 || K < 1 || B < 1 || (idx == nullptr) == (offset == nullptr))
+// items and grid: the pieces a thread takes per tile (1 or 2) and the
+// blocks, as probes/dma.gather_plan gives them
+extern "C" int probe_gather_rows(int NB, int K, int B, int items, int grid,
+                                 const float* tbl, const float* idx,
+                                 const int* offset, float* out,
+                                 void* stream) {
+  if (NB < 1 || K < 1 || B < 1 || grid < 1 || !aligned(out, 16) ||
+      (idx == nullptr) == (offset == nullptr))
     return kBad;
-  const int blocks = (B + 7) / 8;  // 8 warps a block, a warp a row
   cudaStream_t s = (cudaStream_t)stream;
-  if (K % 4 == 0 && aligned(tbl, 16) && aligned(out, 16))
-    gather_rows_kernel<float4><<<blocks, 256, 0, s>>>(NB, K, B, tbl, idx,
-                                                      offset, out);
-  else if (K % 2 == 0 && aligned(tbl, 8) && aligned(out, 8))
-    gather_rows_kernel<float2><<<blocks, 256, 0, s>>>(NB, K, B, tbl, idx,
-                                                      offset, out);
+  if (items == 1)
+    gather_launch<1>(grid, s, NB, K, B, tbl, idx, offset, out);
+  else if (items == 2)
+    gather_launch<2>(grid, s, NB, K, B, tbl, idx, offset, out);
   else
-    gather_rows_kernel<float><<<blocks, 256, 0, s>>>(NB, K, B, tbl, idx,
-                                                     offset, out);
+    return kBad;
   return (int)cudaGetLastError();
 }
 

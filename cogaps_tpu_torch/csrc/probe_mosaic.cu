@@ -14,18 +14,39 @@
 // identity-matmul transposes and the (B, B) / (NR, B) one-hot tensors
 // the TPU needed for a compare or a min.
 //
-//   F1 bdot        out[c,i,b] = sum_t a[c,t,i] b[c,t,b] in float32. Block
-//                  (32 columns b, 8 rows i, chain c); its warps split t
-//                  into contiguous pieces of at least 16 (up to 32 warps:
-//                  a warp's loads wait on memory, so long t needs many;
-//                  short t pays more for the partial sums than it saves),
-//                  a lane keeps 8 sums, and the warps' partial sums meet in
-//                  shared memory in warp order (PERF.md gives the times of
-//                  8 and 32 warps at every t beside these). The a row is
-//                  one broadcast load per warp, b one 128-byte load. Bound
-//                  by bytes at every probe and port shape but k = 128
-//                  (4(T k + T B + k B) a chain against 2 T k B operations,
-//                  so ~ k/2 operations a byte at B >> k).
+//   F1 bdot        out[c,i,b] = sum_t a[c,t,i] b[c,t,b] in float32, every
+//                  product an FMA (fmaf: full float32 on the FMA units; TF32
+//                  would keep ~3 digits). Two regimes, chosen with every
+//                  tile size, T split and grid by probes/mosaic.bdot_plan:
+//                  * bytes (K <= 16): 4(T K + T B + K B) bytes a chain
+//                    against 2 T K B operations, at most 8 operations a
+//                    byte, so reading a and b once, at the memory's rate,
+//                    bounds it. A block of 256 covers all K rows and a
+//                    strip of 8 column units (a unit 4 columns where B % 4
+//                    == 0, read 16 bytes a thread, else 1); its 32 t rows
+//                    keep K sums a column, each thread eight b rows in
+//                    flight, a warp four 128-byte rows at a time, and
+//                    read a's T chunk, one contiguous range, from shared
+//                    memory (cp.async, double-buffered). T is split so
+//                    that NCH x strips x splits fills the SMs, up to two
+//                    blocks each; the t rows' sums meet by shuffles and
+//                    in shared memory in a fixed order.
+//                  * operations (K > 16): ~K/2 operations a byte, above
+//                    the card's 20. A register-tiled product: a (64 or 32)
+//                    square tile of (K, B) a block, a 4 x 4 tile a thread,
+//                    32-t chunks of a and b (contiguous rows) staged by
+//                    cp.async, two or four chunks in flight, each t's
+//                    fragments two 16-byte shared loads for 16 FMAs, loaded
+//                    while the previous t's products run. The
+//                    32-square tiles that fill the SMs where NCH x 64-tiles
+//                    is under a wave split each chunk's t among four
+//                    thread groups, and T splits fill the rest.
+//                  Where T is split, each split's (K, B) partial goes to
+//                  scratch and bdot_reduce_kernel adds the splits in
+//                  order: no float atomics, so calls repeat bit for bit.
+//                  That second pass is launched as a programmatic
+//                  dependent of the first (cudaLaunchKernelEx), so its
+//                  launch overlaps the first pass instead of following it.
 //   F2 prefix      inclusive prefix sum along lanes: one block a chain,
 //                  warp shuffles and one shared array of warp totals, as
 //                  sweep_common.cuh::block_scan (in float32). Bytes.
@@ -56,50 +77,381 @@
 //                  probe's mapping. ~103 integer operations a value, so
 //                  operations bound it.
 //
-// Every kernel is small: its launch, not its bound, sets its time at the
-// probes' shapes. Compiled with -fmad=false like the other sources, so F5
-// and F8 are bit-equal to their plain versions.
+// Every kernel but F1's is small: its launch, not its bound, sets its time
+// at the probes' shapes. Compiled with -fmad=false like the other sources,
+// so F5 and F8 are bit-equal to their plain versions; F1 asks for its FMAs
+// by name.
 
 #include "sweep_common.cuh"
 
 namespace {
 
-constexpr int kBdotWarps = 32;  // at most, splitting t
-constexpr int kBdotSpan = 16;   // t a warp takes at least
-constexpr int kBdotRows = 8;   // rows i of a block
+// ---- F1: cp.async, 4 or 16 bytes; a copy that is not `ok` writes zeros
+// (src must still be a valid address)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
 
-__global__ void __launch_bounds__(32 * kBdotWarps)
-    bdot_kernel(int T, int K, int B, const float* __restrict__ a,
-                const float* __restrict__ b, float* __restrict__ out) {
-  const int c = blockIdx.z, i0 = blockIdx.y * kBdotRows;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int col = blockIdx.x * 32 + lane;
-  const float* ac = a + (size_t)c * T * K + i0;
-  const float* bc = b + (size_t)c * T * B;
-  const int t0 = (int)((long long)T * w / nw);
-  const int t1 = (int)((long long)T * (w + 1) / nw);
-  float acc[kBdotRows];
-#pragma unroll
-  for (int r = 0; r < kBdotRows; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-  for (int t = t0; t < t1; ++t) {
-    const float bv = col < B ? bc[(size_t)t * B + col] : 0.0f;
-    const float* ar = ac + (size_t)t * K;
-#pragma unroll
-    for (int r = 0; r < kBdotRows; ++r)
-      if (i0 + r < K) acc[r] = acc[r] + ar[r] * bv;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int V>
+struct Vec;
+template <>
+struct Vec<1> {
+  using type = float;
+  static __device__ __forceinline__ float zero() { return 0.0f; }
+  static __device__ __forceinline__ float get(float v, int) { return v; }
+};
+template <>
+struct Vec<4> {
+  using type = float4;
+  static __device__ __forceinline__ float4 zero() {
+    return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
-  __shared__ float part[kBdotWarps][kBdotRows][32];
+  static __device__ __forceinline__ float get(float4 v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  }
+};
+
+// probes/mosaic.py mirrors these (SKINNY_K, SKINNY_THREADS, SKINNY_TX,
+// SKINNY_CHUNK) and bdot_tile_kernel's shapes (TILES)
+constexpr int kSkinnyK = 16;         // the bytes regime's largest K
+constexpr int kSkinnyThreads = 256;  // a block
+constexpr int kSkinnyTX = 8;         // its column units; 32 t rows
+constexpr int kSkinnyChunk = 256;    // t of a staged at a time
+constexpr int kBatch = 8;            // loads a thread keeps in flight
+
+// Programmatic dependent launch: a grid launched after this one with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start as soon as
+// every block of this one has passed here, and waits for this one's
+// results at grid_dependency_wait. The launch overlaps this kernel.
+__device__ __forceinline__ void dependents_may_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// This block's chain c and T split p of gridDim.z = nch * splits, and the
+// split's t range [t_lo, t_lo + n) with t_lo = T p / splits (the plan's).
+// Nothing is divided with one split, and in 32 bits where T splits fits:
+// the first loads wait on this, and at the launch floor a division on
+// the way to them shows in the time.
+struct Split {
+  int nch, c, p, n;
+  long long t_lo;
+};
+
+__device__ __forceinline__ Split split_of(int T, int splits) {
+  if (splits == 1) return {(int)gridDim.z, (int)blockIdx.z, 0, T, 0};
+  const int c = blockIdx.z / splits, p = blockIdx.z - c * splits;
+  const int nch = gridDim.z / splits;
+  if ((long long)T * splits <= 0x7fffffffLL) {
+    const int lo = T * p / splits;
+    return {nch, c, p, T * (p + 1) / splits - lo, lo};
+  }
+  const long long lo = (long long)T * p / splits;
+  return {nch, c, p, (int)((long long)T * (p + 1) / splits - lo), lo};
+}
+
+// every group but the n newest has landed
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// The bytes regime. Block (strip, 0, chain * splits + split) of
+// kSkinnyThreads: thread tid is column unit u = strip * kSkinnyTX + tid %
+// kSkinnyTX (V columns) and t row ty = tid / kSkinnyTX, summing the t of
+// its split with t % 32 == ty in each chunk; a warp reads four t
+// rows of 128 bytes of b at a time. dst is out (one split) or the
+// (splits, NCH, K, B) scratch.
+template <int K, int V>
+__global__ void __launch_bounds__(kSkinnyThreads, 2)
+    bdot_skinny_kernel(int T, int B, int splits, const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ dst) {
+  using VT = typename Vec<V>::type;
+  constexpr int kTY = kSkinnyThreads / kSkinnyTX, kCols = kSkinnyTX * V;
+  constexpr int kWarps = kSkinnyThreads / 32;
+  __shared__ __align__(16) float a_s[2][kSkinnyChunk * K];
+  __shared__ float red[kWarps][K][kCols];
+  if (splits > 1) dependents_may_launch();  // the second pass may start
+  const int tid = threadIdx.x, tx = tid % kSkinnyTX, ty = tid / kSkinnyTX;
+  const Split sp = split_of(T, splits);
+  const int nch = sp.nch, c = sp.c, p = sp.p;
+  const int u = blockIdx.x * kSkinnyTX + tx;
+  const bool active = u < B / V;
+  const long long t_lo = sp.t_lo;
+  const int n = sp.n;
+  const float* ac = a + ((size_t)c * T + t_lo) * K;
+  const int row_v = B / V;  // b's row in VT
+  const VT* bc = reinterpret_cast<const VT*>(b + ((size_t)c * T + t_lo) * B) +
+                 (active ? u : 0);
+  float acc[K][V];
 #pragma unroll
-  for (int r = 0; r < kBdotRows; ++r) part[w][r][lane] = acc[r];
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[i][v] = 0.0f;
+
+  const int n_chunks = (n + kSkinnyChunk - 1) / kSkinnyChunk;
+  auto stage = [&](int ch) {
+    const int t0 = ch * kSkinnyChunk;
+    const int m = min(kSkinnyChunk, n - t0) * K;
+    const float* src = ac + (size_t)t0 * K;
+    float* d = a_s[ch & 1];
+    for (int q = tid; q < m; q += kSkinnyThreads)
+      cp_async4(d + q, src + q, true);
+  };
+  if (n_chunks > 0) stage(0);
+  cp_async_commit();
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    if (ch + 1 < n_chunks) stage(ch + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // chunk ch is in a_s[ch & 1] for every thread
+    const float* as = a_s[ch & 1];
+    const int t0 = ch * kSkinnyChunk;
+    const int m = min(kSkinnyChunk, n - t0);
+    for (int tt = ty; tt < m; tt += kBatch * kTY) {
+      VT bv[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int t2 = tt + q * kTY;
+        bv[q] = active && t2 < m ? __ldg(bc + (size_t)(t0 + t2) * row_v)
+                                 : Vec<V>::zero();
+      }
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int t2 = tt + q * kTY;
+        if (t2 < m) {
+          const float* ar = as + t2 * K;
+#pragma unroll
+          for (int i = 0; i < K; ++i) {
+            const float av = ar[i];
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              acc[i][v] = fmaf(av, Vec<V>::get(bv[q], v), acc[i][v]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // a_s[ch & 1] is staged again at ch + 2
+  }
+
+  // each column's kTY sums in a fixed order: the warp's four t rows by
+  // shuffles, then the warps' sums in warp order
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float x = acc[i][v];
+      x = x + __shfl_xor_sync(0xffffffffu, x, kSkinnyTX);
+      x = x + __shfl_xor_sync(0xffffffffu, x, 2 * kSkinnyTX);
+      acc[i][v] = x;
+    }
+  const int w = tid / 32;
+  if (tid % 32 < kSkinnyTX)
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+#pragma unroll
+      for (int v = 0; v < V; ++v) red[w][i][tx * V + v] = acc[i][v];
   __syncthreads();
-  for (int q = threadIdx.x; q < kBdotRows * 32; q += blockDim.x) {
-    const int r = q >> 5;  // q's lane is this thread's
+  float* out = dst + ((size_t)p * nch + c) * K * B;
+  const int j0 = blockIdx.x * kCols;
+  for (int q = tid; q < K * kCols; q += kSkinnyThreads) {
+    const int i = q / kCols, col = q % kCols;
     float s = 0.0f;
-    for (int v = 0; v < nw; ++v) s = s + part[v][r][lane];
-    if (i0 + r < K && col < B) out[((size_t)c * K + i0 + r) * B + col] = s;
+#pragma unroll
+    for (int x = 0; x < kWarps; ++x) s = s + red[x][i][col];
+    if (j0 + col < B) out[(size_t)i * B + j0 + col] = s;
   }
+}
+
+// The operations regime. Block (column tile, row tile, chain * splits +
+// split) covers BM x BM of (K, B) with KG groups of (BM / 4)^2 threads,
+// each thread a 4 x 4 tile: rows i0 + 4 ty + r, columns j0 + 4 tx + v,
+// over the t of each chunk with t % KG == its group (KG > 1
+// gives a small tile the warps to hide its shared loads' latency; the
+// groups' sums meet in shared memory in group order). kStages chunks of
+// TT t are in flight at once (cp.async), so a chunk's wait overlaps the
+// products of the ones before it. kVec: K and B multiples of 4 and a, b
+// 16-byte aligned, so each staged piece is a whole float4.
+template <int BM, int KG, int TT, int kStages, bool kVec>
+__global__ void __launch_bounds__(BM * BM / 16 * KG)
+    bdot_tile_kernel(int T, int K, int B, int splits,
+                     const float* __restrict__ a, const float* __restrict__ b,
+                     float* __restrict__ dst) {
+  constexpr int BN = BM, TM = 4, TN = 4;
+  constexpr int kCols = BN / TN, kGroup = BM / TM * kCols;
+  constexpr int kThreads = kGroup * KG;
+  constexpr int kStaged = kStages * TT * (BM + BN);  // floats
+  static_assert(KG == 1 || KG * BM * BN <= kStaged, "sums fit the stages");
+  __shared__ __align__(16) float smem[kStaged];
+  float(*As)[TT][BM] = reinterpret_cast<float(*)[TT][BM]>(smem);
+  float(*Bs)[TT][BN] =
+      reinterpret_cast<float(*)[TT][BN]>(smem + kStages * TT * BM);
+  if (splits > 1) dependents_may_launch();  // the second pass may start
+  const int tid = threadIdx.x, g = tid / kGroup;
+  const int tx = tid % kGroup % kCols, ty = tid % kGroup / kCols;
+  const int j0 = blockIdx.x * BN, i0 = blockIdx.y * BM;
+  const Split sp = split_of(T, splits);
+  const int nch = sp.nch, c = sp.c, p = sp.p;
+  const long long t_lo = sp.t_lo;
+  const int n = sp.n;
+  const float* ac = a + ((size_t)c * T + t_lo) * K;
+  const float* bc = b + ((size_t)c * T + t_lo) * B;
+  float acc[TM][TN];
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int v = 0; v < TN; ++v) acc[r][v] = 0.0f;
+
+  const int n_chunks = (n + TT - 1) / TT;
+  constexpr int kW = kVec ? 4 : 1;  // floats a copy
+  // rows t0 .. t0 + TT of src's columns x0 .. x0 + W into dst, zeros
+  // past n, past `lim` columns
+  auto copy = [&](float* dst, const float* src, int ld, int x0, int lim,
+                  int t0, int W) {
+    for (int q = tid; q < TT * W / kW; q += kThreads) {
+      const int tt = q / (W / kW), x = q % (W / kW) * kW;
+      const bool ok = t0 + tt < n && x0 + x < lim;
+      const float* sp = ok ? src + (size_t)(t0 + tt) * ld + x0 + x : src;
+      if (kVec)
+        cp_async16(dst + tt * W + x, sp, ok);
+      else
+        cp_async4(dst + tt * W + x, sp, ok);
+    }
+  };
+  auto stage = [&](int ch) {  // one commit group, empty past the end
+    if (ch < n_chunks) {
+      const int buf = ch % kStages;
+      copy(&As[buf][0][0], ac, K, i0, K, ch * TT, BM);
+      copy(&Bs[buf][0][0], bc, B, j0, B, ch * TT, BN);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int ch = 0; ch < kStages - 1; ++ch) stage(ch);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<kStages - 2>();
+    // chunk ch is staged for every thread, and every thread is done with
+    // chunk ch - 1, whose buffer the next stage takes
+    __syncthreads();
+    stage(ch + kStages - 1);
+    const int buf = ch % kStages;
+    // the group's t: tt = g + k KG; the fragments of the next t are
+    // loaded while this one's products run
+    float ar[2][TM], br[2][TN];
+    auto fragments = [&](int tt, int f) {
+#pragma unroll
+      for (int q = 0; q < TM; q += 4)
+        *reinterpret_cast<float4*>(&ar[f][q]) =
+            *reinterpret_cast<const float4*>(&As[buf][tt][TM * ty + q]);
+#pragma unroll
+      for (int q = 0; q < TN; q += 4)
+        *reinterpret_cast<float4*>(&br[f][q]) =
+            *reinterpret_cast<const float4*>(&Bs[buf][tt][TN * tx + q]);
+    };
+    fragments(g, 0);
+#pragma unroll
+    for (int k = 0; k < TT / KG; ++k) {
+      if (k + 1 < TT / KG) fragments(g + (k + 1) * KG, (k + 1) & 1);
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int v = 0; v < TN; ++v)
+          acc[r][v] = fmaf(ar[k & 1][r], br[k & 1][v], acc[r][v]);
+    }
+  }
+
+  float* out = dst + ((size_t)p * nch + c) * K * B;
+  if constexpr (KG > 1) {
+    float(*red)[BM * BN] = reinterpret_cast<float(*)[BM * BN]>(smem);
+    cp_async_wait<0>();
+    __syncthreads();  // every thread is done with the stages
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int v = 0; v < TN; ++v)
+        red[g][(TM * ty + r) * BN + TN * tx + v] = acc[r][v];
+    __syncthreads();
+    for (int q = tid; q < BM * BN; q += kThreads) {
+      const int i = i0 + q / BN, j = j0 + q % BN;
+      float s = 0.0f;
+#pragma unroll
+      for (int x = 0; x < KG; ++x) s = s + red[x][q];
+      if (i < K && j < B) out[(size_t)i * B + j] = s;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int i = i0 + TM * ty + r;
+      if (i < K) {
+#pragma unroll
+        for (int q = 0; q < TN; q += 4) {
+          const int j = j0 + TN * tx + q;
+          float* o = out + (size_t)i * B + j;
+          if (kVec) {
+            if (j < B)
+              *reinterpret_cast<float4*>(o) = make_float4(
+                  acc[r][q], acc[r][q + 1], acc[r][q + 2], acc[r][q + 3]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < 4; ++v)
+              if (j + v < B) o[v] = acc[r][q + v];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The second pass: out[e] = the sum of part[s, e] over s = 0, 1, .. in
+// that order, for the n values of an (NCH, K, B) output in V-wide pieces
+template <int V>
+__global__ void bdot_reduce_kernel(long long n_pieces, int splits,
+                                   const float* __restrict__ part,
+                                   float* __restrict__ out) {
+  using VT = typename Vec<V>::type;
+  grid_dependency_wait();  // the first pass's partial sums are written
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_pieces) return;
+  const VT* pv = reinterpret_cast<const VT*>(part) + e;
+  float s[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) s[v] = 0.0f;
+  for (int q0 = 0; q0 < splits; q0 += kBatch) {
+    VT x[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      x[q] = q0 + q < splits ? __ldg(pv + (size_t)(q0 + q) * n_pieces)
+                             : Vec<V>::zero();
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      if (q0 + q < splits)
+#pragma unroll
+        for (int v = 0; v < V; ++v) s[v] = s[v] + Vec<V>::get(x[q], v);
+  }
+  VT* o = reinterpret_cast<VT*>(out) + e;
+  if constexpr (V == 4)
+    *o = make_float4(s[0], s[1], s[2], s[3]);
+  else
+    *o = s[0];
 }
 
 __global__ void prefix_kernel(int B, const float* __restrict__ x,
@@ -254,18 +606,98 @@ inline int launched() { return (int)cudaGetLastError(); }
 
 constexpr int kBad = (int)cudaErrorInvalidValue;
 
+template <int K>
+cudaError_t skinny_launch(dim3 grid, cudaStream_t s, int vec, int T, int B,
+                          int splits, const float* a, const float* b,
+                          float* dst) {
+  if (vec)
+    bdot_skinny_kernel<K, 4><<<grid, kSkinnyThreads, 0, s>>>(T, B, splits, a,
+                                                              b, dst);
+  else
+    bdot_skinny_kernel<K, 1><<<grid, kSkinnyThreads, 0, s>>>(T, B, splits, a,
+                                                              b, dst);
+  return cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
-extern "C" int probe_bdot(int nch, int T, int K, int B, const float* a,
-                          const float* b, float* out, void* stream) {
-  if (nch < 1 || nch > 65535 || T < 1 || K < 1 || B < 1) return kBad;
-  const dim3 grid((B + 31) / 32, (K + kBdotRows - 1) / kBdotRows, nch);
-  const int warps = T / kBdotSpan < 1 ? 1
-                    : T / kBdotSpan > kBdotWarps ? kBdotWarps
-                                                 : T / kBdotSpan;
-  bdot_kernel<<<grid, 32 * warps, 0, (cudaStream_t)stream>>>(T, K, B, a, b,
-                                                             out);
-  return launched();
+// F1 by the plan probes/mosaic.bdot_plan gives: regime 0 (bytes) or 1
+// (operations), the rows and columns a block covers, 16-byte loads or
+// not, and the T splits (their partial sums in `part`, (splits, nch, K, B),
+// then added in order into `out` by a second launch).
+extern "C" int probe_bdot(int nch, int T, int K, int B, int regime,
+                          int tile_k, int tile_b, int vec, int splits,
+                          const float* a, const float* b, float* part,
+                          float* out, void* stream) {
+  if (nch < 1 || T < 1 || K < 1 || B < 1 || splits < 1 || splits > T ||
+      (long long)nch * splits > 65535 || (splits > 1 && part == nullptr))
+    return kBad;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* dst = splits > 1 ? part : out;
+  const int V = vec ? 4 : 1;
+  if (vec && (B % 4 || !aligned16(b) || !aligned16(dst) || !aligned16(out)))
+    return kBad;
+  cudaError_t err;
+  if (regime == 0) {
+    if (K > kSkinnyK || tile_k != K || tile_b != kSkinnyTX * V) return kBad;
+    const dim3 grid((B + tile_b - 1) / tile_b, 1, nch * splits);
+    switch (K) {
+#define F1_SKINNY(k)                                                       \
+  case k:                                                                  \
+    err = skinny_launch<k>(grid, s, vec, T, B, splits, a, b, dst);        \
+    break;
+      F1_SKINNY(1) F1_SKINNY(2) F1_SKINNY(3) F1_SKINNY(4) F1_SKINNY(5)
+      F1_SKINNY(6) F1_SKINNY(7) F1_SKINNY(8) F1_SKINNY(9) F1_SKINNY(10)
+      F1_SKINNY(11) F1_SKINNY(12) F1_SKINNY(13) F1_SKINNY(14) F1_SKINNY(15)
+      F1_SKINNY(16)
+#undef F1_SKINNY
+      default:
+        return kBad;
+    }
+  } else if (regime == 1) {
+    if (tile_k != tile_b || (vec && (K % 4 || !aligned16(a))))
+      return kBad;
+    const dim3 grid((B + tile_b - 1) / tile_b, (K + tile_k - 1) / tile_k,
+                    nch * splits);
+    // the shapes of probes/mosaic.py's TILES
+    if (tile_k == 64 && vec)
+      bdot_tile_kernel<64, 1, 32, 2, true><<<grid, 256, 0, s>>>(
+          T, K, B, splits, a, b, dst);
+    else if (tile_k == 64)
+      bdot_tile_kernel<64, 1, 32, 2, false><<<grid, 256, 0, s>>>(
+          T, K, B, splits, a, b, dst);
+    else if (tile_k == 32 && vec)
+      bdot_tile_kernel<32, 4, 32, 4, true><<<grid, 256, 0, s>>>(
+          T, K, B, splits, a, b, dst);
+    else if (tile_k == 32)
+      bdot_tile_kernel<32, 4, 32, 4, false><<<grid, 256, 0, s>>>(
+          T, K, B, splits, a, b, dst);
+    else
+      return kBad;
+    err = cudaGetLastError();
+  } else {
+    return kBad;
+  }
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  // the second pass, launched while the first runs (dependents_may_launch)
+  const long long pieces = (long long)nch * K * B / V;  // V = 4 divides B
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((pieces + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)(vec ? cudaLaunchKernelEx(&cfg, bdot_reduce_kernel<4>, pieces,
+                                        splits, (const float*)part, out)
+                   : cudaLaunchKernelEx(&cfg, bdot_reduce_kernel<1>, pieces,
+                                        splits, (const float*)part, out));
 }
 
 extern "C" int probe_prefix(int nch, int B, const float* x, float* out,

@@ -11,9 +11,11 @@ events recorded behind a spin of the stream, so the host's enqueueing is
 not timed; the inputs stay in L2 between launches, except the DMA
 probes' tables of 512 MiB), plain ms and library ms (the same way,
 median of 5 and 20), the bound (probes/__init__.bound_ms of the
-function's counts) and its share of the kernel's time, and the largest
-|difference| from the plain version. Then one JSON object per case. It needs a CUDA device and exits
-non-zero without one; chip_smoke.py runs run_suite as its phase 10.
+function's counts) and its share of the kernel's time, the largest
+|difference| from the plain version, and the plan F1 and F9's row gathers
+ran by (mosaic.bdot_plan, dma.gather_plan). Then one JSON object per
+case. It needs a CUDA device and exits non-zero without one;
+chip_smoke.py runs run_suite as its phase 10.
 """
 
 from __future__ import annotations
@@ -389,6 +391,21 @@ def agrees(case, args, k, p):
     return all(case.tol(args, a, b) for a, b in zip(ks, ps))
 
 
+def plan_of(case, args) -> Optional[str]:
+    """The plan F1 and F9's flat gathers run these arguments by."""
+    n_sm = mosaic.sm_count(args[0].device.index or 0)
+    if case.kernel is mosaic.bdot:
+        (NCH, T, K), B = args[0].shape, args[1].shape[-1]
+        p = mosaic.bdot_plan(NCH, T, K, B, n_sm)
+        return (f"{p.regime}, tiles {p.tile_k}x{p.tile_b}, {p.splits} "
+                f"split(s), grid {p.grid}")
+    if case.kernel in (dma.gather_rows, dma.gather_block):
+        B = args[1].shape[0] if case.kernel is dma.gather_rows else args[2]
+        p = dma.gather_plan(B, args[0].shape[1], n_sm)
+        return f"{p.tiles} tiles, grid {p.grid}"
+    return None
+
+
 def run_case(case, device, reps=20):
     args = case.make(device)
     before = case.kernel.launches
@@ -410,7 +427,7 @@ def run_case(case, device, reps=20):
             "bound_ms": bound, "bound_by": by, "share": bound / ms,
             "bytes": n_bytes, "ops": n_ops,
             "launches": case.kernel.launches - before,
-            "headline": case.headline}
+            "headline": case.headline, "plan": plan_of(case, args)}
 
 
 def run_suite(device, log=print, reps=20) -> list:
@@ -428,6 +445,7 @@ def run_suite(device, log=print, reps=20) -> list:
             f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}),"
             f" bound/kernel {r['share']:.4f}, max|diff| {r['max_abs_err']:.3g}"
+            + (f"; plan: {r['plan']}" if r["plan"] else "")
             + ("" if r["ok"] else "  MISMATCH"))
         records.append(r)
     bad = [(r["f"], r["shape"]) for r in records if not r["ok"]]

@@ -19,15 +19,18 @@ raise.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..ops.cuda_build import check
 from . import bind, launch, on_card
+from .mosaic import sm_count
 
 F32 = torch.float32
 
 _SIGNATURES = {
-    "probe_gather_rows": "iiippppp",
+    "probe_gather_rows": "iiiiippppp",
     "probe_gather_passes": "iiiippppp",
     "probe_gather_batched": "iiiipppp",
     "probe_scatter_slots": "iiipppp",
@@ -47,6 +50,53 @@ def _table(tbl):
 
 
 # ---------------------------------------------------------------- F9
+# csrc/probe_dma.cu's kGatherThreads
+GATHER_THREADS = 256
+GATHER_BLOCKS_PER_SM = 8  # 2048 threads: an SM's most
+
+
+class GatherPlan(NamedTuple):
+    """How gather_rows and gather_block walk their (B, K) output: `pieces`
+    of 16 bytes (the last one partial where B K % 4), in `tiles` of `tile`
+    pieces, `items` a thread of `threads`; `grid` blocks take tiles g,
+    g + grid, ..."""
+    pieces: int
+    tile: int
+    tiles: int
+    items: int
+    threads: int
+    grid: int
+
+
+def gather_plan(B: int, K: int, n_sm: int = 132) -> GatherPlan:
+    """The flat walk of a (B, K) gather: a piece a thread while the tiles
+    spread over the SMs at GATHER_BLOCKS_PER_SM blocks an SM (a small
+    gather's loads go out from as many SMs as it can reach), two past
+    that, so each thread has two pieces' loads in flight; as many blocks
+    as tiles, at most GATHER_BLOCKS_PER_SM an SM, each looping over its
+    tiles."""
+    if B < 1 or K < 1:
+        raise ValueError(f"empty gather of {B} rows of {K}")
+    pieces = -(-B * K // 4)
+    full = GATHER_BLOCKS_PER_SM * n_sm
+    items = 1 if pieces <= full * GATHER_THREADS else 2
+    tile = GATHER_THREADS * items
+    tiles = -(-pieces // tile)
+    return GatherPlan(pieces, tile, tiles, items, GATHER_THREADS,
+                      min(tiles, full))
+
+
+def _gather(wrapper, tbl, idx, offset, B):
+    NB, K = tbl.shape
+    plan = gather_plan(B, K, sm_count(tbl.device.index or 0))
+    out = torch.empty((B, K), dtype=F32, device=tbl.device)
+    launch(wrapper, build()[0].probe_gather_rows, NB, K, B, plan.items,
+           plan.grid,
+           tbl.data_ptr(), None if idx is None else idx.data_ptr(),
+           None if offset is None else offset.data_ptr(), out.data_ptr())
+    return out
+
+
 def gather_rows_plain(tbl, idx):
     return tbl[idx.long()]
 
@@ -54,15 +104,11 @@ def gather_rows_plain(tbl, idx):
 def gather_rows(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[j, :] = tbl[idx[j], :]: rows of an (NB, K) float32 table at
     (B,) float32 row indices -> (B, K)."""
-    NB, K = _table(tbl)
+    _table(tbl)
     check("idx", idx, F32, (idx.shape[0],), tbl.device)
     if not on_card(tbl):
         return gather_rows_plain(tbl, idx)
-    B = idx.shape[0]
-    out = torch.empty((B, K), dtype=F32, device=tbl.device)
-    launch(gather_rows, build()[0].probe_gather_rows, NB, K, B,
-           tbl.data_ptr(), idx.data_ptr(), None, out.data_ptr())
-    return out
+    return _gather(gather_rows, tbl, idx, None, idx.shape[0])
 
 
 gather_rows.launches = 0
@@ -89,16 +135,13 @@ def gather_block(tbl: torch.Tensor, offset: torch.Tensor,
                  n: int) -> torch.Tensor:
     """Rows offset[0] .. offset[0] + n - 1 of an (NB, K) float32 table,
     the offset a (1,) int32 tensor read on the device (probe_dma.py p1)."""
-    NB, K = _table(tbl)
+    _table(tbl)
     check("offset", offset, torch.int32, (1,), tbl.device)
     if n < 1:
         raise ValueError(f"n must be positive, not {n}")
     if not on_card(tbl):
         return gather_block_plain(tbl, offset, n)
-    out = torch.empty((n, K), dtype=F32, device=tbl.device)
-    launch(gather_block, build()[0].probe_gather_rows, NB, K, n,
-           tbl.data_ptr(), None, offset.data_ptr(), out.data_ptr())
-    return out
+    return _gather(gather_block, tbl, None, offset, n)
 
 
 gather_block.launches = 0

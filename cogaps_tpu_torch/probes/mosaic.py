@@ -30,6 +30,9 @@ exact.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Optional
+
 import torch
 
 from ..ops import rng
@@ -40,7 +43,7 @@ F32 = torch.float32
 MAX_LANES = 1024  # F2, F3 and F6 hold a chain's lanes in one block
 
 _SIGNATURES = {
-    "probe_bdot": "iiiipppp",
+    "probe_bdot": "iiiiiiiiippppp",
     "probe_prefix": "iippp",
     "probe_first_wins": "iippp",
     "probe_claim_min": "iiiippp",
@@ -62,24 +65,143 @@ def _lanes(name, B):
 
 
 # ---------------------------------------------------------------- F1
+# csrc/probe_mosaic.cu's kSkinnyK, kSkinnyThreads, kSkinnyTX and
+# kSkinnyChunk, and the shapes of its bdot_tile_kernel launches
+SKINNY_K = 16  # the bytes regime's largest K
+SKINNY_THREADS = 256  # a block: SKINNY_TX column units x 32 t rows
+SKINNY_TX = 8
+SKINNY_CHUNK = 256  # t of a staged in shared memory at a time
+
+
+class TileShape(NamedTuple):
+    groups: int  # thread groups splitting each chunk's t
+    chunk_t: int  # t of a and b staged at a time
+    stages: int  # chunks in flight
+
+
+# by side; a thread's tile is 4 x 4 in both
+TILES = {64: TileShape(1, 32, 2), 32: TileShape(4, 32, 4)}
+# T splits: none where the blocks already fill FILLED of a wave; else
+# enough to fill one, more up to WAVES blocks an SM while each split keeps
+# SPLIT_T t (the bytes kernel runs two blocks an SM, and a split shorter
+# than its chunk costs more in partial sums than it gains)
+FILLED = {"bytes": 1.0, "operations": 0.75}
+WAVES = {"bytes": 2, "operations": 1}
+SPLIT_T = {"bytes": SKINNY_CHUNK, "operations": 32}
+
+
+class BdotPlan(NamedTuple):
+    """How one bdot call runs: `regime` "bytes" (K <= SKINNY_K) or
+    "operations"; a block covers `tile_k` rows i and `tile_b` columns j
+    of one chain's (K, B) output, over one of `splits` T ranges, staging
+    `chunk_t` t of its inputs in shared memory at a time; `vec`: 16-byte
+    loads of b (and of a, operations regime); `grid` (column tiles, row
+    tiles, NCH * splits) of `threads` (x, y) blocks with `smem` bytes of
+    static shared memory; `scratch` the (splits, NCH, K, B) float32
+    partial sums, None with one split."""
+    regime: str
+    tile_k: int
+    tile_b: int
+    chunk_t: int
+    vec: bool
+    splits: int
+    grid: tuple
+    threads: tuple
+    smem: int
+    scratch: Optional[tuple]
+
+
+def _splits(T, blocks, n_sm, regime):
+    """How many T ranges to split a call of `blocks` blocks (a range) into
+    on n_sm SMs, as FILLED, WAVES and SPLIT_T say."""
+    if blocks >= FILLED[regime] * n_sm:
+        return 1
+    least = -(-n_sm // blocks)
+    most = WAVES[regime] * n_sm // blocks
+    return min(T, max(least, min(most, T // SPLIT_T[regime])))
+
+
+@functools.cache
+def bdot_plan(NCH: int, T: int, K: int, B: int, n_sm: int = 132) -> BdotPlan:
+    """The plan of bdot on (NCH, T, K) and (NCH, T, B) on a card of n_sm
+    SMs.
+
+    Bytes regime (K <= 16): a block of SKINNY_THREADS takes all K rows
+    and a strip of SKINNY_TX column units (a unit 4 columns where B % 4
+    == 0, so b is read 16 bytes a thread, else 1), its 32 t rows
+    splitting t.
+
+    Operations regime: 64 x 64 tiles of (K, B) where NCH x tiles fill at
+    least 3/4 of a wave, else 32 x 32 tiles whose blocks split each chunk's
+    t four ways.
+
+    Where NCH x strips (tiles) leave SMs idle, T is split (_splits)."""
+    if min(NCH, T, K, B) < 1:
+        raise ValueError(f"empty bdot ({NCH}, {T}, {K}) x ({NCH}, {T}, {B})")
+    if K <= SKINNY_K:
+        vec = B % 4 == 0
+        V = 4 if vec else 1
+        strips = -(-B // (V * SKINNY_TX))
+        splits = _splits(T, NCH * strips, n_sm, "bytes")
+        smem = 4 * (2 * SKINNY_CHUNK * K
+                    + SKINNY_THREADS // 32 * K * SKINNY_TX * V)
+        return BdotPlan("bytes", K, SKINNY_TX * V, SKINNY_CHUNK, vec, splits,
+                        (strips, 1, NCH * splits), (SKINNY_THREADS, 1), smem,
+                        (splits, NCH, K, B) if splits > 1 else None)
+    vec = K % 4 == 0 and B % 4 == 0
+    tile = 64
+    if NCH * -(-K // 64) * -(-B // 64) < FILLED["operations"] * n_sm:
+        tile = 32  # 4x the blocks
+    tiles = -(-K // tile) * -(-B // tile)
+    splits = _splits(T, NCH * tiles, n_sm, "operations")
+    shape = TILES[tile]
+    # the staged chunks of a and b; the t groups' sums reuse them
+    smem = 4 * shape.stages * shape.chunk_t * 2 * tile
+    return BdotPlan("operations", tile, tile, shape.chunk_t, vec, splits,
+                    (-(-B // tile), -(-K // tile), NCH * splits),
+                    (tile * tile // 16 * shape.groups, 1), smem,
+                    (splits, NCH, K, B) if splits > 1 else None)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(t):
+    """t, or a copy of it in new (16-byte aligned) memory."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def bdot_plain(a, b):
     """float64 products and sums, rounded once to float32."""
     return torch.einsum("cti,ctb->cib", a.double(), b.double()).float()
 
 
-def bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def bdot(a: torch.Tensor, b: torch.Tensor,
+         plan: Optional[BdotPlan] = None) -> torch.Tensor:
     """out[c, i, j] = sum_t a[c, t, i] b[c, t, j]: (NCH, T, k) and
     (NCH, T, B) float32 -> (NCH, k, B), the batched dot_general of the
-    probes (contracting T, batching NCH)."""
+    probes (contracting T, batching NCH). On the card it runs as `plan`
+    says (default bdot_plan of the shapes and the card's SMs)."""
     NCH, T, K = a.shape
     B = b.shape[-1]
     check("a", a, F32, (NCH, T, K), a.device)
     check("b", b, F32, (NCH, T, B), a.device)
     if not on_card(a):
         return bdot_plain(a, b)
+    if plan is None:
+        plan = bdot_plan(NCH, T, K, B, sm_count(a.device.index or 0))
+    if plan.vec:
+        a, b = _aligned(a), _aligned(b)
     out = torch.empty((NCH, K, B), dtype=F32, device=a.device)
-    launch(bdot, build()[0].probe_bdot, NCH, T, K, B, a.data_ptr(),
-           b.data_ptr(), out.data_ptr())
+    part = (None if plan.scratch is None else
+            torch.empty(plan.scratch, dtype=F32, device=a.device))
+    launch(bdot, build()[0].probe_bdot, NCH, T, K, B,
+           ("bytes", "operations").index(plan.regime), plan.tile_k,
+           plan.tile_b, int(plan.vec), plan.splits, a.data_ptr(),
+           b.data_ptr(), None if part is None else part.data_ptr(),
+           out.data_ptr())
     return out
 
 

@@ -917,6 +917,22 @@ def _slot_perm(nch, B, C, seed):
         np.float32)
 
 
+def _gather_nan_rows(tbl, idx):
+    """gather_rows_plain where idx names a row, else a row of NaN."""
+    ok = (idx >= 0) & (idx < tbl.shape[0])
+    rows = tbl[torch.where(ok, idx, 0).long()]
+    return torch.where(ok[:, None], rows, torch.nan)
+
+
+def _block_nan_rows(tbl, offset, n):
+    return _gather_nan_rows(tbl, (offset + torch.arange(
+        n, device=tbl.device)).float())
+
+
+def _bits_equal(args, k, p):
+    return torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
 def _probe_cases():
     from cogaps_tpu_torch.probes import dma, mosaic
     from cogaps_tpu_torch.probes.__main__ import within_rel, within_terms
@@ -933,6 +949,18 @@ def _probe_cases():
         "bdot-2x3000x11x70": ((_rand((2, 3000, 11), 3),
                                _rand((2, 3000, 70), 4)),
                               m.bdot, m.bdot_plain, bdot_tol),
+        # the regimes' edges: K = 16 (bytes) and 17 (operations), K = 128
+        # at T = 1 and 75, B = 9, 33 and 100 (B % 4 != 0 reads b 4 bytes a
+        # thread), one chain with its T split, T not a multiple of a chunk
+        **{f"bdot-{n}x{T}x{K}x{B}": ((_rand((n, T, K), 40 + K),
+                                     _rand((n, T, B), 41 + B)),
+                                    m.bdot, m.bdot_plain, bdot_tol)
+           for n, T, K, B in ((3, 500, 16, 40), (3, 500, 17, 40),
+                              (2, 1, 128, 64), (2, 75, 128, 64),
+                              (4, 300, 7, 9), (4, 300, 7, 33),
+                              (4, 300, 7, 100), (2, 40, 20, 33),
+                              (1, 1363, 7, 256), (1, 1000, 5, 100),
+                              (1, 130, 128, 256), (1, 3001, 16, 12))},
         "prefix-3x100": ((_rand((3, 100), 5, 10.0),), m.prefix,
                          m.prefix_plain, prefix_tol),
         "prefix-2x1024": ((_rand((2, 1024), 6),), m.prefix, m.prefix_plain,
@@ -972,6 +1000,22 @@ def _probe_cases():
                             d.gather_rows, d.gather_rows_plain, None),
         "gather_block": ((table, np.int32([4000]), 8), d.gather_block,
                          d.gather_block_plain, None),
+        # the flat walk: K = 50 (pieces straddle rows), 1 and 3, one row,
+        # rows past the table's end (NaN)
+        "gather_rows-K1": ((_rand((5000, 1), 42), _ints(0, 5000, (9000,), 43)),
+                           d.gather_rows, d.gather_rows_plain, None),
+        "gather_rows-K3": ((_rand((700, 3), 44), _ints(0, 700, (1001,), 45)),
+                           d.gather_rows, d.gather_rows_plain, None),
+        "gather_rows-K50-big": ((_rand((3000, 50), 46),
+                                 _ints(0, 3000, (20000,), 47)),
+                                d.gather_rows, d.gather_rows_plain, None),
+        "gather_rows-B1": ((_rand((300, 50), 48), np.float32([299])),
+                           d.gather_rows, d.gather_rows_plain, None),
+        "gather_rows-nan": ((_rand((300, 50), 51),
+                             np.float32([3, -1, 299, 300, 1e9, 0])),
+                            d.gather_rows, _gather_nan_rows, _bits_equal),
+        "gather_block-K50": ((_rand((300, 50), 52), np.int32([290]), 20),
+                             d.gather_block, _block_nan_rows, _bits_equal),
         "gather_passes-K8": ((np.repeat(np.arange(1000, dtype=np.float32),
                                         8).reshape(1000, 8),
                               _ints(0, 1000, (30,), 19), 5),
@@ -1001,6 +1045,10 @@ def _probe_cases():
 
 
 PROBE_IDS = ["bdot-3x50x5x40", "bdot-1x16x9x33", "bdot-2x3000x11x70",
+             "bdot-3x500x16x40", "bdot-3x500x17x40", "bdot-2x1x128x64",
+             "bdot-2x75x128x64", "bdot-4x300x7x9", "bdot-4x300x7x33",
+             "bdot-4x300x7x100", "bdot-2x40x20x33", "bdot-1x1363x7x256",
+             "bdot-1x1000x5x100", "bdot-1x130x128x256", "bdot-1x3001x16x12",
              "prefix-3x100",
              "prefix-2x1024", "first_wins-3x200", "first_wins-1x1024",
              "claim_row-3x100", "claim_row-odd", "claim_lane-3x100",
@@ -1008,6 +1056,9 @@ PROBE_IDS = ["bdot-3x50x5x40", "bdot-1x16x9x33", "bdot-2x3000x11x70",
              "while_count-2x64", "while_until-2x16", "reduce_sum-2x30x50",
              "reduce_min-3x7x300", "uniform-3x100", "uniform-2x4096",
              "gather_rows-K12", "gather_rows-K50", "gather_block",
+             "gather_rows-K1", "gather_rows-K3", "gather_rows-K50-big",
+             "gather_rows-B1", "gather_rows-nan",
+             "gather_block-K50",
              "gather_passes-K8", "gather_passes-K128", "gather_batched-K16",
              "gather_batched-flat", "scatter-2x30", "scatter-3x100",
              "strided-p2a", "strided-13x2.5"]
@@ -1034,6 +1085,61 @@ def test_probe_kernel_matches_plain(cuda_device, case):
                                           .max())
 
 
+def _on(device, *arrays):
+    return tuple(torch.as_tensor(x, device=device) for x in arrays)
+
+
+@pytest.mark.parametrize("shape", [(1, 1363, 7, 256), (16, 2000, 10, 100),
+                                   (1, 130, 128, 256), (3, 333, 5, 9)])
+def test_bdot_repeats_bit_for_bit(cuda_device, shape):
+    """T split, partial sums added in a fixed order: no run-to-run bits."""
+    from cogaps_tpu_torch.probes import mosaic
+    NCH, T, K, B = shape
+    a, b = _on(cuda_device, _rand((NCH, T, K), 60), _rand((NCH, T, B), 61))
+    plan = mosaic.bdot_plan(NCH, T, K, B,
+                            mosaic.sm_count(cuda_device.index or 0))
+    assert plan.splits > 1
+    first, second = mosaic.bdot(a, b), mosaic.bdot(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 64])
+@pytest.mark.parametrize("shape", [(2, 700, 9, 36), (2, 700, 9, 35),
+                                   (2, 700, 64, 40), (2, 700, 30, 30)])
+def test_bdot_any_split_of_t(cuda_device, shape, splits):
+    """Each regime, with and without 16-byte loads, at T splits the plan
+    would not choose."""
+    from cogaps_tpu_torch.probes import mosaic
+    from cogaps_tpu_torch.probes.__main__ import within_terms
+    NCH, T, K, B = shape
+    a, b = _on(cuda_device, _rand((NCH, T, K), 62), _rand((NCH, T, B), 63))
+    plan = mosaic.bdot_plan(NCH, T, K, B)
+    plan = plan._replace(splits=splits, grid=plan.grid[:2] + (NCH * splits,),
+                         scratch=(splits, NCH, K, B) if splits > 1 else None)
+    out = mosaic.bdot(a, b, plan)
+    assert within_terms(mosaic.bdot_plain)((a, b), out,
+                                           mosaic.bdot_plain(a, b))
+
+
+def test_probe_kernels_take_unaligned_inputs(cuda_device):
+    """A table 4 bytes past 16-byte alignment takes F9's 4-byte loads; F1
+    copies b to aligned memory for its 16-byte ones."""
+    from cogaps_tpu_torch.probes import dma, mosaic
+    from cogaps_tpu_torch.probes.__main__ import within_terms
+    flat, idx = _on(cuda_device, _rand((300 * 50 + 1,), 49),
+                    _ints(0, 300, (77,), 50))
+    tbl = flat[1:].view(300, 50)
+    assert tbl.data_ptr() % 8 == 4
+    assert torch.equal(dma.gather_rows(tbl, idx),
+                       dma.gather_rows_plain(tbl, idx))
+    flat_b, a = _on(cuda_device, _rand((2 * 50 * 64 + 1,), 64),
+                    _rand((2, 50, 7), 65))
+    b = flat_b[1:].view(2, 50, 64)
+    assert within_terms(mosaic.bdot_plain)((a, b), mosaic.bdot(a, b),
+                                           mosaic.bdot_plain(a, b))
+
+
 def test_probe_wrappers_raise_on_card(cuda_device):
     from cogaps_tpu_torch.probes import dma, mosaic
     a = torch.ones((2, 10, 3), device=cuda_device)
@@ -1044,3 +1150,7 @@ def test_probe_wrappers_raise_on_card(cuda_device):
     with pytest.raises(ValueError, match="multiple of 4"):
         dma.gather_passes(torch.ones((10, 6), device=cuda_device),
                           torch.zeros(3, device=cuda_device), 2)
+    b = torch.ones((2, 10, 8), device=cuda_device)
+    bad = mosaic.bdot_plan(2, 10, 3, 8)._replace(tile_b=6)  # 6 % 4 != 0
+    with pytest.raises(RuntimeError, match="bdot kernel launch failed"):
+        mosaic.bdot(a, b, bad)

@@ -574,3 +574,191 @@ def test_every_probe_site_has_a_function():
     assert {e["source"] for e in entries} == {
         "cogaps_tpu_torch/csrc/probe_mosaic.cu",
         "cogaps_tpu_torch/csrc/probe_dma.cu"}
+
+
+# ----------------------------------------------------------------------
+# F1's and F9's plans (probes/mosaic.bdot_plan, probes/dma.gather_plan)
+# against a model of how csrc/probe_mosaic.cu and probe_dma.cu walk them
+# ----------------------------------------------------------------------
+CSRC = TOOLS.parent / "cogaps_tpu_torch" / "csrc"
+H100_SMS = 132
+SUITE_BDOT = [(8, 1363, 7, 256), (8, 1363, 7, 512), (8, 1363, 7, 1024),
+              (1, 1363, 7, 256), (8, 1363, 9, 512), (8, 128, 128, 512),
+              (8, 128, 128, 256), (1, 128, 128, 256), (8, 75, 128, 512),
+              (16, 1363, 7, 9), (16, 20000, 10, 100)]
+EDGE_BDOT = [(3, 500, 16, 40), (3, 500, 17, 40), (2, 1, 128, 64),
+             (2, 75, 128, 64), (4, 300, 7, 9), (4, 300, 7, 33),
+             (4, 300, 7, 100), (2, 40, 20, 33), (1, 1000, 5, 100),
+             (1, 130, 128, 256), (1, 3001, 16, 12), (1, 16, 9, 33),
+             (1, 1, 1, 1), (5, 7, 1, 1000)]
+
+
+def test_bdot_plan_regimes_at_the_suite_shapes():
+    """K <= 16 is bytes-bound (every 1363 x 7/9 shape and the port's
+    two), K = 128 operations-bound; each entry of the suite runs by one."""
+    shapes = {(c.make(torch.device("cpu"))[0].shape,
+               c.make(torch.device("cpu"))[1].shape[-1])
+              for c in small_cases() if c.f == "F1"}
+    assert {(*a, b) for a, b in shapes} == set(SUITE_BDOT)
+    for NCH, T, K, B in SUITE_BDOT:
+        plan = mosaic.bdot_plan(NCH, T, K, B)
+        assert plan.regime == ("bytes" if K <= 16 else "operations")
+        assert plan.vec == (B % 4 == 0 and (K <= 16 or K % 4 == 0))
+
+
+@pytest.mark.parametrize("shape", [s for s in SUITE_BDOT if s[0] == 1])
+def test_bdot_plan_fills_a_wave_with_one_chain(shape):
+    plan = mosaic.bdot_plan(*shape, H100_SMS)
+    assert np.prod(plan.grid) >= H100_SMS and plan.splits > 1
+
+
+def bdot_walk(plan, NCH, T, K, B):
+    """How many times the kernel's blocks and threads add each term
+    (c, t, i, j) into the output: a count array (NCH, T, K, B)."""
+    seen = np.zeros((NCH, T, K, B), np.int64)
+    gx, gy, gz = plan.grid
+    assert gz == NCH * plan.splits
+    for z in range(gz):
+        c, p = divmod(z, plan.splits)
+        t_lo, t_hi = T * p // plan.splits, T * (p + 1) // plan.splits
+        for x in range(gx):
+            for y in range(gy):
+                if plan.regime == "bytes":
+                    V = 4 if plan.vec else 1
+                    tx = mosaic.SKINNY_TX
+                    assert tx * V == plan.tile_b
+                    assert plan.threads == (mosaic.SKINNY_THREADS, 1)
+                    # each thread's columns; its t are split among the
+                    # block's t rows, together the whole range
+                    for ux in range(tx):
+                        u = x * tx + ux
+                        if u < B // V:
+                            seen[c, t_lo:t_hi, :, u * V:u * V + V] += 1
+                else:
+                    i0, j0 = y * plan.tile_k, x * plan.tile_b
+                    seen[c, t_lo:t_hi, i0:i0 + plan.tile_k,
+                         j0:j0 + plan.tile_b] += 1
+    return seen
+
+
+@pytest.mark.parametrize("shape", SUITE_BDOT[3:4] + SUITE_BDOT[6:8]
+                         + SUITE_BDOT[9:10] + EDGE_BDOT)
+def test_bdot_plan_covers_every_term_once(shape):
+    """Tiles, strips and T splits cover T, K and B exactly, ragged edges
+    included: each term of each output lands once."""
+    NCH, T, K, B = shape
+    plan = mosaic.bdot_plan(NCH, T, K, B, H100_SMS)
+    assert 1 <= plan.splits <= T
+    assert (plan.scratch is None) == (plan.splits == 1)
+    if plan.scratch is not None:
+        assert plan.scratch == (plan.splits, NCH, K, B)
+    if plan.regime == "bytes":
+        assert plan.tile_k == K and plan.grid[1] == 1
+    gx, gy, _ = plan.grid
+    assert (gx - 1) * plan.tile_b < B <= gx * plan.tile_b
+    assert (gy - 1) * plan.tile_k < K <= gy * plan.tile_k
+    assert (bdot_walk(plan, NCH, T, K, B) == 1).all()
+
+
+@pytest.mark.parametrize("shape", SUITE_BDOT + EDGE_BDOT)
+def test_bdot_plan_fits_shared_memory_and_the_grid(shape):
+    plan = mosaic.bdot_plan(*shape)
+    V = 4 if plan.vec else 1
+    if plan.regime == "bytes":  # a_s double buffer and the warps' sums
+        want = 4 * (2 * mosaic.SKINNY_CHUNK * shape[2]
+                    + mosaic.SKINNY_THREADS // 32 * plan.tile_b * shape[2])
+    else:  # As and Bs, `stages` chunks each (the t groups' sums reuse
+        #    them)
+        tile = mosaic.TILES[plan.tile_k]
+        want = 4 * tile.stages * tile.chunk_t * 2 * plan.tile_k
+        assert tile.groups * plan.tile_k ** 2 * 4 <= want
+    assert plan.smem == want <= 48 * 1024 <= 232_448  # static
+    assert plan.grid[2] <= 65535 and np.prod(plan.threads) <= 1024
+
+
+def test_plan_constants_are_the_kernels():
+    mos = (CSRC / "probe_mosaic.cu").read_text()
+    for name, value in (("kSkinnyK", mosaic.SKINNY_K),
+                        ("kSkinnyThreads", mosaic.SKINNY_THREADS),
+                        ("kSkinnyTX", mosaic.SKINNY_TX),
+                        ("kSkinnyChunk", mosaic.SKINNY_CHUNK)):
+        assert f"constexpr int {name} = {value};" in mos
+    for side, (groups, chunk_t, stages) in mosaic.TILES.items():
+        for vec in ("true", "false"):
+            launch = (f"bdot_tile_kernel<{side}, {groups}, {chunk_t}, "
+                      f"{stages}, {vec}><<<grid, "
+                      f"{side * side // 16 * groups}, 0, s>>>")
+            assert launch in mos, launch
+    dm = (CSRC / "probe_dma.cu").read_text()
+    assert f"constexpr int kGatherThreads = {dma.GATHER_THREADS};" in dm
+
+
+def gather_walk(plan, B, K):
+    """How often the kernel's threads write each float of the flat (B, K)
+    output, from its loop: block g takes tiles g, g + grid, ...; thread x
+    of a tile piece it * threads + x, 4 floats. Also the pieces that
+    straddle two rows."""
+    n = B * K
+    written = np.zeros(n, np.int64)
+    straddle = 0
+    for g in range(plan.grid):
+        for tile in range(g, plan.tiles, plan.grid):
+            e0 = tile * plan.tile * 4
+            e1 = min(n, e0 + plan.tile * 4)
+            for it in range(plan.items):
+                for x in range(plan.threads):
+                    lo = e0 + 4 * (it * plan.threads + x)
+                    hi = min(lo + 4, e1)
+                    if lo < hi:
+                        written[lo:hi] += 1
+                        straddle += lo // K != (hi - 1) // K
+    return written, straddle
+
+
+@pytest.mark.parametrize("B,K", [(512, 50), (20000, 50), (1, 50), (9000, 1),
+                                 (1001, 3), (1024, 128), (8, 128), (77, 12)])
+def test_gather_plan_covers_the_output_in_pieces(B, K):
+    """Every float of the (B, K) output in one 16-byte piece (the last one
+    partial where B K % 4); at K = 50 half the row ends fall inside a
+    piece."""
+    plan = dma.gather_plan(B, K, H100_SMS)
+    assert plan.pieces == -(-B * K // 4) <= plan.tiles * plan.tile
+    assert plan.tile == plan.items * plan.threads
+    assert plan.grid == min(plan.tiles, dma.GATHER_BLOCKS_PER_SM * H100_SMS)
+    written, straddle = gather_walk(plan, B, K)
+    assert (written == 1).all()
+    if K == 50:
+        assert straddle == sum(1 for j in range(1, B) if (50 * j) % 4)
+    if K % 4 == 0:
+        assert straddle == 0
+
+
+def test_gather_plan_at_one_k4_sweep():
+    """512,000 rows of 50: 6.4 M pieces, two a thread, in 12,500 tiles
+    over 8 blocks an SM; the probes' 1024-row gather a piece a thread."""
+    plan = dma.gather_plan(512_000, 50)
+    assert plan.pieces == 6_400_000 and plan.items == 2
+    assert plan.tiles == 12_500 and plan.grid == 1056
+    small = dma.gather_plan(1024, 128)
+    assert small.items == 1 and small.grid == small.tiles == 128
+
+
+def test_gather_row_division_by_magic_numbers():
+    """probe_dma.cu's make_div and fast_div (Granlund and Montgomery's
+    round-up method), mirrored: n // K for K from 1 to 1100 and a few
+    large ones, and n across the 32 bits."""
+    src = (CSRC / "probe_dma.cu").read_text()
+    assert "(((1ull << l) - d) << 32) / d + 1;" in src
+    assert "return (t + ((n - t) >> d.sh1)) >> d.sh2;" in src
+    rng = np.random.default_rng(5)
+    n = np.concatenate([np.arange(70_000), rng.integers(0, 2**32, 200_000),
+                        2**32 - 1 - np.arange(100)]).astype(np.uint64)
+    for d in [*range(1, 1101), 4095, 4096, 4097, 65535, 2**31 - 1, 2**31,
+              2**32 - 1]:
+        lg = (d - 1).bit_length()  # ceil(log2 d)
+        m = (((1 << lg) - d) << 32) // d + 1
+        assert m < 2**32
+        t = (np.uint64(m) * n) >> np.uint64(32)
+        q = (t + ((n - t) >> np.uint64(min(lg, 1)))) >> np.uint64(
+            max(lg - 1, 0))
+        assert (q == n // np.uint64(d)).all(), d
