@@ -10,8 +10,9 @@ throughput harness on GIST (the fused span, and the per-call route on
 the same data for comparison), runs a 5,000 x 2,000 k=10 dataset, drives
 the sparse model through ``CoGAPS(sparse_optimization=True)``, the sparse
 multi-chain engine and the atlas engine, runs the probe suite (the H100
-counterparts of tools/probe_*.py), and fails on the first phase that
-fails. Without a CUDA device, or without the package beside it, it exits
+counterparts of tools/probe_*.py), drives the distributed runs through
+``GWCoGAPS()`` and ``scCoGAPS()`` and a checkpoint resume through
+``CoGAPS()``, and fails on the first phase that fails. Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result.
 
 Phases:
@@ -87,14 +88,39 @@ Phases:
               functions F1-F11 at the probes' shapes and the port's, its
               kernel held to its plain version (exact, or within the
               function's stated tolerance) and timed beside its plain
-              version, its library call and its bound.
+              version, its library call and its bound;
+  11 distributed — first K3 against its plain version on unequal gene
+              subsets padded with invS2 = 0 (4990/5000/5005/5005 of a
+              20000 x 100 matrix, 3 iterations: decision-exact, the
+              padded rows changing nothing); then GWCoGAPS on
+              synthetic_dense(20000, 100, 10) (bulk RNA-seq: four
+              5000-gene subsets, k=10, 500 + 500 iterations a stage,
+              output_frequency 0) and scCoGAPS on synthetic_sparse(2000,
+              40000, 10) (four 10,000-cell subsets, the sparse model,
+              k=10, 300 + 300): the stitched free factor finite and
+              nonzero, the fixed one zero, the input order restored,
+              chi^2 of D against the stitched factor and the consensus at
+              most 0.2x the zero model's (under the default uncertainty,
+              and max(0.1 D, 0.1) for the sparse model); GWCoGAPS's free
+              stage launches K3 once a 50-iteration chunk and its fixed
+              stage K1 once an iteration, scCoGAPS's stages the sparse
+              kernels once a sampler call; seconds, updates/s and
+              launches of each stage (the result's
+              diagnostics["stages"]), the sparse mode, k_out and peak
+              device memory;
+  12 checkpoints — CoGAPS on GIST (k=7, 1000 + 1000 iterations) with a
+              checkpoint every 250 iterations into a temporary file,
+              resumed from the file it leaves (sampling iteration 750)
+              with seed=99, and run without checkpoints: Amean, Pmean,
+              Asd and meanChiSq bit-equal in all three.
 
 The last line is {"ok": true, "device": {...}}; the one before it is the
 card's name and power limit; before that, one JSON line describing each
 kernel of the path ("ms" by CUDA events around back-to-back calls; for
 K1 and K2 also "device_ms", the kernel's own device time by
 torch.profiler: their calls are short enough that the events time the
-wrapper's host work too).
+wrapper's host work too; "launches" summed over the main-path phases
+that run the kernel, "launches_by_phase" each phase's count).
 """
 
 import json
@@ -1092,6 +1118,250 @@ def falling(hist):
 
 
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# phase 11: distributed runs (GWCoGAPS, scCoGAPS)
+# ----------------------------------------------------------------------
+def launch_counters():
+    """The wrappers whose launch counts phases 11 and 12 read."""
+    from cogaps_tpu_torch.ops import atlas_cuda, span_cuda, sweep_cuda
+    return {"sweep": sweep_cuda.run_updates_multi,
+            "span": span_cuda.run_span,
+            "atlas": atlas_cuda.run_updates_atlas_multi}
+
+
+def chisq_fit(D, A, P, S, device):
+    """(chi^2 of D against A P^T under S, chi^2 of the zero model), in
+    float64 on the card."""
+    import torch
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), device=device).double()
+
+    Dt, St = t(D), t(S)
+    fit = float((((Dt - t(A) @ t(P).T) / St) ** 2).sum())
+    return fit, float(((Dt / St) ** 2).sum())
+
+
+def span_padded_check(D, device, n_warm=20, n_it=3, seed=5):
+    """K3 against its plain version on unequal, padded gene subsets of D
+    (4990, 5000, 5005 and 5005 of its 20000 rows, padded to 5005 with
+    invS2 = 0), n_it equilibration iterations from a state after n_warm
+    per-call ones: the padded rows must not change a decision."""
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, ChainEngine,
+                                         PhiloxRandom)
+    from cogaps_tpu_torch.ops import span, span_cuda
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    cuts = np.cumsum([0, 4990, 5000, 5005, 5005])
+    Ds = [D[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    cfg = cogaps_tpu_torch.CogapsParams(
+        n_patterns=10, n_iterations=500, seed=seed,
+        output_frequency=0).engine_config(5005, D.shape[1])
+    eng = MultichainEngine(stack_device_data(Ds, None, cfg, device), cfg,
+                           device)
+    if not eng._fused_ok():
+        raise AssertionError("padded subsets left the fused route")
+
+    def rand():
+        return PhiloxRandom([seed] * 4, device)
+
+    state, stats = ChainEngine.run_phase(eng, eng.init_state(),
+                                         eng.init_stats(), rand(),
+                                         EQUILIBRATION, 0, n_warm)
+    args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, EQUILIBRATION,
+            eng.data, n_warm, n_it, state, stats)
+    out_k = span_cuda.run_span(*args, rand())
+    out_p = span.run_span_plain(*args, rand())
+    torch.cuda.synchronize()
+    problems, err = compare_span(
+        f"K3 on padded subsets (4990/5000/5005/5005 x 100, k=10), {n_it} "
+        f"iterations from {n_warm}", out_k, out_p)
+    if problems:
+        raise AssertionError(f"K3 and its plain version disagree on padded "
+                             f"subsets: {problems}")
+    return err
+
+
+def phase_distributed(device, card, seed=13):
+    """GWCoGAPS on bulk data and scCoGAPS on single-cell data, each
+    through its entry point on the card, four subsets each; each run
+    driven with the launch counts set to 0 just before it and read just
+    after, and every stage (one multichain program,
+    parallel/distributed.py) read from the result's diagnostics["stages"]:
+    its seconds, updates and launches. Returns (launches by kernel summed
+    over both runs, launches by run and stage, K3's max |difference| on
+    padded subsets)."""
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import (synthetic_dense,
+                                                synthetic_sparse)
+    from cogaps_tpu_torch.models import dense
+    from cogaps_tpu_torch.ops import span_cuda
+    from cogaps_tpu_torch.sparse_engine import resolve_sparse_mode
+    counters = launch_counters()
+
+    def drive(entry, D, params, **kw):
+        """(result, seconds, stages) of one run; the stages' launches
+        must sum to the run's."""
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res = entry(D, params, messages=False, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in counters.items()}
+        stages = res.diagnostics["stages"]
+        if len(stages) != 2 or any(
+                sum(st["launches"][n] for st in stages) != launches[n]
+                for n in counters):
+            raise AssertionError(f"stage launches {stages} do not add up "
+                                 f"to the run's {launches}")
+        return res, t_run, stages
+
+    def report(what, res, t_run, n_it, modes, base):
+        stages = res.diagnostics["stages"]
+        for i, st in enumerate(stages):
+            log(f"  {what} stage {i + 1} ({'free' if i == 0 else 'fixed'}"
+                f"): {st['seconds']:.3f} s, {st['updates'] / st['seconds']:.1f}"
+                f" updates/s ({st['updates']} updates, {n_it}+{n_it} "
+                f"iterations, 4 chains), launches {st['launches']}")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {what}: {t_run:.3f} s in all, k_out {res.Amean.shape[1]}, "
+            f"{modes}, peak device memory of the run "
+            f"{(peak - base) / 2**30:.3f} GiB (above the "
+            f"{base / 2**30:.3f} GiB held before it), meanChiSq "
+            f"{res.mean_chi_sq:.1f}; card: {card}")
+
+    by_run = {}
+    # genome-wide bulk RNA-seq: 20000 genes in four 5000-gene subsets
+    n_it = 500
+    [D] = synthetic_dense(20000, 100, 10, 1, seed)
+    err = span_padded_check(D, device)
+    genes = [f"g{i}" for i in range(D.shape[0])]
+    params = cogaps_tpu_torch.CogapsParams(
+        n_patterns=10, n_iterations=n_it, seed=seed, n_sets=4,
+        output_frequency=0)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, t_run, stages = drive(cogaps_tpu_torch.GWCoGAPS, D, params,
+                               gene_names=genes)
+    report("[11 distributed] GWCoGAPS 20000x100 k=10", res, t_run, n_it,
+           "dense model (stage 1 fused span K3, stage 2 per-call K1)",
+           base)
+    by_run["GWCoGAPS"] = [st["launches"] for st in stages]
+    consensus = res.diagnostics["consensusPatterns"]
+    fit, zero = chisq_fit(D, res.Amean, consensus,
+                          dense.default_uncertainty(D), device)
+    log(f"  GWCoGAPS chi^2 of D against Amean consensus^T {fit:.1f}, "
+        f"zero model {zero:.1f} (ratio {fit / zero:.6f}, gate <= 0.2)")
+    k_out = consensus.shape[1]
+    if (res.Amean.shape != (20000, k_out)
+            or not np.isfinite(res.Amean).all()
+            or not np.abs(res.Amean).sum() > 0):
+        raise AssertionError("GWCoGAPS: Amean not finite and nonzero")
+    if np.abs(res.Pmean).sum() != 0 or res.gene_names != genes:
+        raise AssertionError("GWCoGAPS: Pmean not zero or genes reordered")
+    if not fit <= 0.2 * zero:
+        raise AssertionError(f"GWCoGAPS does not fit: {fit} vs {zero}")
+    if (stages[0]["launches"]["span"] < 2 * n_it // span_cuda.CHUNK
+            or stages[1]["launches"]["sweep"] < 2 * n_it):
+        raise AssertionError(f"GWCoGAPS launches {by_run['GWCoGAPS']}")
+    del D, res
+
+    # single-cell: 40000 cells in four 10000-cell subsets, sparse model
+    n_it = 300
+    [D] = synthetic_sparse(2000, 40000, 10, 1, seed)
+    cells = [f"c{j}" for j in range(D.shape[1])]
+    params = cogaps_tpu_torch.CogapsParams(
+        n_patterns=10, n_iterations=n_it, seed=seed, n_sets=4,
+        output_frequency=0)
+    mode = resolve_sparse_mode(4, 2000, 10000, 10, device)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, t_run, stages = drive(cogaps_tpu_torch.scCoGAPS, D, params,
+                               sample_names=cells)
+    report(f"scCoGAPS 2000x40000 k=10 ({(D == 0).mean():.4f} zeros)",
+           res, t_run, n_it, f"sparse model, mode {mode}", base)
+    by_run["scCoGAPS"] = [st["launches"] for st in stages]
+    consensus = res.diagnostics["consensusPatterns"]
+    fit, zero = chisq_fit(D, consensus, res.Pmean,
+                          np.maximum(0.1 * D, 0.1), device)
+    log(f"  scCoGAPS chi^2 of D against consensus Pmean^T {fit:.1f}, "
+        f"zero model {zero:.1f} (ratio {fit / zero:.6f}, gate <= 0.2)")
+    k_out = consensus.shape[1]
+    if (res.Pmean.shape != (40000, k_out)
+            or not np.isfinite(res.Pmean).all()
+            or not np.abs(res.Pmean).sum() > 0):
+        raise AssertionError("scCoGAPS: Pmean not finite and nonzero")
+    if np.abs(res.Amean).sum() != 0 or res.sample_names != cells:
+        raise AssertionError("scCoGAPS: Amean not zero or cells reordered")
+    if not fit <= 0.2 * zero:
+        raise AssertionError(f"scCoGAPS does not fit: {fit} vs {zero}")
+    calls = (2 * 2 * n_it, 2 * n_it)  # sampler calls: both, then P only
+    for st, n in zip(stages, calls):
+        if st["launches"]["sweep"] + st["launches"]["atlas"] < n:
+            raise AssertionError(f"scCoGAPS launches {by_run['scCoGAPS']}")
+    total = {n: sum(st[n] for runs in by_run.values() for st in runs)
+             for n in counters}
+    return total, by_run, err
+
+
+# ----------------------------------------------------------------------
+# phase 12: checkpoints
+# ----------------------------------------------------------------------
+def phase_checkpoint(device, n_it=1000, every=250):
+    """CoGAPS on GIST with a checkpoint every `every` iterations, a
+    resume from the file that run leaves (with another seed argument),
+    and the same run without checkpoints: all three bit-equal. Returns
+    the sweep kernel's launches in the three runs."""
+    import shutil
+    import tempfile
+    import cogaps_tpu_torch
+    counters = launch_counters()
+    for w in counters.values():
+        w.launches = 0
+    kw = dict(n_patterns=7, n_iterations=n_it, messages=False,
+              device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gist_checkpoint.npz")
+        t0 = time.perf_counter()
+        r_ck = cogaps_tpu_torch.CoGAPS(GIST_CSV, seed=42,
+                                       checkpoint_interval=every,
+                                       checkpoint_out_file=out, **kw)
+        t1 = time.perf_counter()
+        left = os.path.join(tmp, "left.npz")
+        shutil.copy(out, left)
+        z = np.load(left)
+        at = (int(z["phase"]), int(z["iteration"]))
+        t2 = time.perf_counter()
+        r_res = cogaps_tpu_torch.CoGAPS(GIST_CSV, seed=99,
+                                        checkpoint_in_file=left, **kw)
+        t3 = time.perf_counter()
+        r_plain = cogaps_tpu_torch.CoGAPS(GIST_CSV, seed=42, **kw)
+        t4 = time.perf_counter()
+    launches = {n: w.launches for n, w in counters.items()}
+    log(f"[12 checkpoints] CoGAPS GIST k=7 {n_it}+{n_it} iterations: "
+        f"checkpointed every {every} {t1 - t0:.3f} s, resumed from the "
+        f"file it left (phase {at[0]}, iteration {at[1]}) with seed=99 "
+        f"{t3 - t2:.3f} s, without checkpoints {t4 - t3:.3f} s; launches "
+        f"{launches}; meanChiSq {r_ck.mean_chi_sq!r}, {r_res.mean_chi_sq!r},"
+        f" {r_plain.mean_chi_sq!r}")
+    if at != (1, n_it - every) or r_res.diagnostics["seed"] != 42:
+        raise AssertionError(f"checkpoint left at {at}")
+    for other, what in ((r_res, "resumed"), (r_plain, "uninterrupted")):
+        for name in ("Amean", "Pmean", "Asd"):
+            if not np.array_equal(getattr(r_ck, name), getattr(other, name)):
+                raise AssertionError(f"{what} run: {name} differs")
+        if other.mean_chi_sq != r_ck.mean_chi_sq:
+            raise AssertionError(f"{what} run: meanChiSq differs")
+    if launches["sweep"] < 2 * 2 * n_it * 2 + 2 * every:
+        raise AssertionError(f"only {launches} launches")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cogaps_tpu_torch")):
         log("cogaps_tpu_torch is not beside this script: run it from a "
@@ -1380,6 +1650,17 @@ def main() -> int:
         f"version or within its tolerance; launches {probe_launches}; phase "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # 11. distributed runs through GWCoGAPS() and scCoGAPS()
+    t0 = time.perf_counter()
+    dist_launches, dist_by_run, padded_err = phase_distributed(device, card)
+    log(f"  launches by run and stage {json.dumps(dist_by_run)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 12. checkpoints
+    t0 = time.perf_counter()
+    ckpt_launches = phase_checkpoint(device)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+
     def entry(name, source, replaces, launches, err, row, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -1387,20 +1668,36 @@ def main() -> int:
                 "bound_ms": row[3], "bound_by": row[4], "library_ms": None,
                 "shape": row[0], **extra}
 
-    table_launches = sparse_launches["sweep"] + multi_launches["sweep"]
+    # launches by main-path phase: the dense sweep (K1) in phases 4, 11
+    # (GWCoGAPS's fixed stage) and 12; the same kernel on the sparse
+    # tables (K2) in 7, 8 and 11 (scCoGAPS); K3 in 5 and 11; K4 in 9
+    sweep_by = {"4": launches, "11": sum(st["sweep"] for st in
+                                         dist_by_run["GWCoGAPS"]),
+                "12": ckpt_launches["sweep"]}
+    tables_by = {"7": sparse_launches["sweep"], "8": multi_launches["sweep"],
+                 "11": sum(st["sweep"] for st in dist_by_run["scCoGAPS"])}
+    span_by = {"5": span_launches, "11": dist_launches["span"]}
+    atlas_by = {"7": sparse_launches["atlas"], "8": multi_launches["atlas"],
+                "9": atlas_launches, "11": dist_launches["atlas"]}
+
+    def by_phase(counts):
+        return dict(launches=sum(counts.values()), launches_by_phase=counts)
+
     kernel_line = {"kernels": [
         entry("sweep", "cogaps_tpu_torch/csrc/sweep.cu",
-              "cogaps_tpu/ops/pallas_sweep.py:815", launches, max_err,
-              kernel_times[0], device_ms=kernel_times[0][8]),
+              "cogaps_tpu/ops/pallas_sweep.py:815", 0, max_err,
+              kernel_times[0], device_ms=kernel_times[0][8]) | by_phase(
+                  sweep_by),
         entry("sweep_tables", "cogaps_tpu_torch/csrc/sweep.cu",
-              "cogaps_tpu/ops/pallas_sweep.py:1074", table_launches,
-              tables_err, tables_times[0], device_ms=tables_times[0][8]),
+              "cogaps_tpu/ops/pallas_sweep.py:1074", 0, tables_err,
+              tables_times[0], device_ms=tables_times[0][8]) | by_phase(
+                  tables_by),
         entry("atlas", "cogaps_tpu_torch/csrc/atlas.cu",
-              "cogaps_tpu/ops/pallas_atlas.py:760", atlas_launches,
-              atlas_err, atlas_times[0]),
+              "cogaps_tpu/ops/pallas_atlas.py:760", 0, atlas_err,
+              atlas_times[0]) | by_phase(atlas_by),
         entry("span", "cogaps_tpu_torch/csrc/span.cu",
-              "cogaps_tpu/ops/pallas_iter.py:161", span_launches, span_err,
-              span_times),
+              "cogaps_tpu/ops/pallas_iter.py:161", 0,
+              max(span_err, padded_err), span_times) | by_phase(span_by),
     ] + probe_suite.kernel_entries(probe_records, probe_launches)}
     if min(e["launches"] for e in kernel_line["kernels"]) <= 0:
         raise AssertionError("a kernel of the path was never launched")

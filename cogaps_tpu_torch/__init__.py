@@ -5,9 +5,11 @@ the reference): atomic-prior Gibbs-sampled NMF ``D ~ A @ P.T`` with
 per-element uncertainty and two-phase annealed MCMC. It holds the dense
 and the sparse model: ``CoGAPS()`` (sparse_optimization=True or COO
 input runs sparse_engine.py), the multi-chain engines, and the atlas
-engine (``parallel.atlas_engine.run_atlas``), with the sweep kernels
-written in CUDA for Hopper (csrc/sweep.cu, csrc/atlas.cu). It imports
-torch and numpy only.
+engine (``parallel.atlas_engine.run_atlas``), the distributed
+subset-and-consensus runs ``scCoGAPS()`` and ``GWCoGAPS()``
+(parallel/distributed.py) and checkpoints (utils/checkpoint.py), with
+the kernels written in CUDA for Hopper (csrc/). It imports torch and
+numpy only.
 
 Float32 matrix products stay in full float32: the Y tables are formed
 as ((D - M O^T) * invS2) @ O with heavy cancellation, which TF32's ~3
@@ -16,7 +18,7 @@ digits would corrupt.
 
 import torch
 
-from .api import CoGAPS
+from .api import CoGAPS, GWCoGAPS, scCoGAPS
 from .params import CogapsParams
 from .result import CogapsResult
 
@@ -25,4 +27,5 @@ torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
 
-__all__ = ["CoGAPS", "CogapsParams", "CogapsResult", "__version__"]
+__all__ = ["CoGAPS", "scCoGAPS", "GWCoGAPS", "CogapsParams", "CogapsResult",
+           "__version__"]

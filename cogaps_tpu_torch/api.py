@@ -6,13 +6,17 @@ a numpy array, an io.coo.CooMatrix or a csv/tsv/mtx/gct path, validates
 the inputs (R/HelperFunctions.R:194-249), runs the two-phase engine on
 `device` — the dense model, or the sparse model (sparse_engine.py) for
 sparse_optimization=True or COO input — and returns a CogapsResult.
-`device` is where the engine runs: there is no silent fallback, so
+With ``distributed="genome-wide"`` or ``"single-cell"`` (and through
+``GWCoGAPS()`` and ``scCoGAPS()``) it runs the subset-and-consensus
+scheme of parallel/distributed.py instead (reference: R/CoGAPS.R:145-151).
+A single run writes a checkpoint every ``checkpoint_interval``
+iterations and resumes from ``checkpoint_in_file`` (utils/checkpoint.py).
+`device` is where the engines run: there is no silent fallback, so
 without a GPU the default raises from torch, and the CPU is asked for by
 name.
 
 Not in this slice, and raising NotImplementedError rather than being
-ignored: distributed runs, checkpoints and h5/h5ad input (ROADMAP.md,
-"Queue 1").
+ignored: h5/h5ad input (ROADMAP.md, "Queue 1").
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .io.coo import CooMatrix
 from .models import dense, sparse
 from .params import CogapsParams
 from .result import CogapsResult, finalize_statistics, mean_chi_sq
+from .utils import checkpoint as ckpt
 from .utils.debug import check_state
 from .utils.logging import log_message, log_worker
 
@@ -45,7 +50,8 @@ def _load_data(data, transpose: bool):
     gene_names = sample_names = None
     if isinstance(data, str):
         if data.endswith((".h5", ".hdf5", ".h5ad")):
-            raise _not_ported("h5/h5ad input", "analysis, plots and h5 I/O")
+            raise _not_ported("h5/h5ad input",
+                              "the CLI and the rest of the run surface")
         mat, gene_names, sample_names = parsers.read_matrix(data)
     elif isinstance(data, CooMatrix):
         if transpose:
@@ -134,10 +140,6 @@ def CoGAPS(
             raise ValueError(f"unrecognized CoGAPS parameter: {key!r}")
         setattr(params, name, val)
     params.validate()
-    if params.distributed is not None:
-        raise _not_ported("distributed CoGAPS", "distributed runs")
-    if params.checkpoint_in_file or params.checkpoint_interval > 0:
-        raise _not_ported("checkpointing", "checkpoints")
 
     D, file_genes, file_samples = _load_data(data, params.transpose_data)
     gene_names = list(gene_names) if gene_names is not None else file_genes
@@ -148,6 +150,16 @@ def CoGAPS(
     if sample_names is None:
         sample_names = [f"Sample_{i+1}" for i in range(D.shape[1])]
     _check_inputs(D, uncertainty, params)
+
+    if params.distributed is not None:
+        if isinstance(D, CooMatrix):
+            # the subsets are slices of a dense matrix, as in the JAX
+            # package (cogaps_tpu/parallel/distributed.py:267, :381)
+            raise ValueError("distributed runs need a dense matrix, not a "
+                             "CooMatrix")
+        from .parallel.distributed import distributed_cogaps
+        return distributed_cogaps(D, params, uncertainty, gene_names,
+                                  sample_names, torch.device(device))
     return _run_single(D, params, uncertainty, gene_names, sample_names,
                        torch.device(device))
 
@@ -156,7 +168,12 @@ def _run_single(D: np.ndarray, params: CogapsParams, uncertainty,
                 gene_names, sample_names, device) -> CogapsResult:
     """One full engine run (reference: src/Cogaps.cpp:141-215,
     src/GapsRunner.cpp:380-503)."""
-    seed = params.resolved_seed()
+    # a resumed run restores the original seed regardless of the seed
+    # argument (reference: GapsRunner.cpp:100-106)
+    if params.checkpoint_in_file:
+        seed = ckpt.checkpoint_seed(params.checkpoint_in_file)
+    else:
+        seed = params.resolved_seed()
     is_coo = isinstance(D, CooMatrix)
     config = params.engine_config(D.shape[0], D.shape[1])
     if params.sparse_optimization or is_coo:
@@ -180,14 +197,35 @@ def _run_single(D: np.ndarray, params: CogapsParams, uncertainty,
 
     rand = PhiloxRandom([seed], device)
     start = time.time()
-    state = engine.init_state(params.fixed_patterns)
-    stats = engine.init_stats()
+    if params.checkpoint_in_file:
+        state, stats, phase0, start_iter = ckpt.load_checkpoint(
+            params.checkpoint_in_file, engine)
+    else:
+        state = engine.init_state(params.fixed_patterns)
+        stats = engine.init_stats()
+        phase0, start_iter = EQUILIBRATION, 0
     if params.running_distributed:
         log_worker(params.worker_id, "is starting!")
     progress_cb = _make_progress(engine, params, config, start)
-    for phase in (EQUILIBRATION, SAMPLING):
-        state, stats = engine.run_phase(state, stats, rand, phase,
-                                        progress_cb=progress_cb)
+    # a resume may start in either phase (GapsRunner.cpp:453-468)
+    for phase in (EQUILIBRATION, SAMPLING)[phase0:]:
+        it = start_iter if phase == phase0 else 0
+        if params.checkpoint_interval > 0 and not params.subset_indices:
+            # spans of checkpoint_interval iterations, a checkpoint after
+            # each but the run's last (GapsRunner.cpp:225-270)
+            while it < config.n_iterations:
+                stop = min(it + params.checkpoint_interval,
+                           config.n_iterations)
+                state, stats = engine.run_phase(state, stats, rand, phase,
+                                                it, stop,
+                                                progress_cb=progress_cb)
+                it = stop
+                if it < config.n_iterations or phase == EQUILIBRATION:
+                    ckpt.save_checkpoint(params.checkpoint_out_file, engine,
+                                         state, stats, phase, it, seed)
+        else:
+            state, stats = engine.run_phase(state, stats, rand, phase, it,
+                                            progress_cb=progress_cb)
         if params.debug_checks:
             check_state(state, config.n_patterns)
 
@@ -266,6 +304,25 @@ def _run_single(D: np.ndarray, params: CogapsParams, uncertainty,
         Pmean=np.asarray(pmean, np.float32), Psd=np.asarray(psd, np.float32),
         mean_chi_sq=mcs, gene_names=gene_names, sample_names=sample_names,
         pattern_names=pattern_names, diagnostics=diagnostics)
+
+
+def scCoGAPS(data, params: Optional[CogapsParams] = None,
+             **kwargs) -> CogapsResult:
+    """Single-cell CoGAPS: distributed across sample (cell) subsets, the
+    sparse model by default (reference: R/CoGAPS.R:173-211)."""
+    params = dataclasses.replace(params) if params is not None else CogapsParams()
+    params.distributed = "single-cell"
+    kwargs.setdefault("sparse_optimization", True)
+    return CoGAPS(data, params, **kwargs)
+
+
+def GWCoGAPS(data, params: Optional[CogapsParams] = None,
+             **kwargs) -> CogapsResult:
+    """Genome-wide CoGAPS: distributed across gene subsets (reference:
+    R/CoGAPS.R:213-236)."""
+    params = dataclasses.replace(params) if params is not None else CogapsParams()
+    params.distributed = "genome-wide"
+    return CoGAPS(data, params, **kwargs)
 
 
 def _fmt_hms(seconds: float) -> str:

@@ -361,11 +361,12 @@ __device__ __forceinline__ bool sweep_front(const SweepArgs& p,
 #pragma unroll
     for (int j = 0; j < 9; ++j) u[j] = in_batch ? blk[j * B + lane] : F(0.0);
   } else {
+    // the counter holds no chain index: a chain's stream is its seed
+    // word's, so chains of one seed draw alike (engine.PhiloxRandom)
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
       const uint4 w = philox(
-          make_uint4((uint32_t)lane, (uint32_t)g, (uint32_t)s,
-                     (uint32_t)chain),
+          make_uint4((uint32_t)lane, (uint32_t)g, (uint32_t)s, 0u),
           ch.key0, p.key1);
       u[4 * g] = to_unit(w.x);
       u[4 * g + 1] = to_unit(w.y);

@@ -104,10 +104,14 @@ def stream_key(phase: int, it: int, stream: int) -> int:
 
 class PhiloxRandom:
     """The engine's random streams: chain c draws from Philox4x32-10
-    under key (seeds[c], stream_key(phase, it, stream)). Budgets are drawn
-    on the device, the normals of _BLOCK iterations at a time; the sweeps'
-    blocks are drawn inside the kernel (ops/rng.philox_uniforms on the
-    CPU)."""
+    under key (seeds[c], stream_key(phase, it, stream)), and its counters
+    hold no chain index, so a chain's draws are its seed's alone: chains
+    of one seed draw alike, as the JAX package's chains keyed by one
+    PRNGKey(seed) do (the distributed runs' subset chains), and a chain
+    of a multichain run draws what a one-chain run of its seed draws.
+    Budgets are drawn on the device, the normals of _BLOCK iterations at
+    a time; the sweeps' blocks are drawn inside the kernel
+    (ops/rng.philox_uniforms on the CPU)."""
 
     _BLOCK = 256
 
@@ -396,6 +400,7 @@ class ChainEngine:
     run_phase with their own data and iteration."""
 
     iterate = staticmethod(run_iteration)
+    sparse_model = False  # the model, as a checkpoint records it
 
     def __init__(self, data: DeviceData, config: EngineConfig, device):
         device = torch.device(device)

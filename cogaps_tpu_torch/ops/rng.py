@@ -212,7 +212,8 @@ def philox_uniforms(key0, key1: int, chain: int, first_sweep: int,
     """The uniform blocks of sweeps [first, first + n) in the kernel's
     fast mode, as one (n*16, B) slab: in sweep s, lane l, row 4g+j is
     word j of philox((l, g, s, chain), (key0, key1)). `key0` is the
-    chain's seed word (int or 0-dim tensor)."""
+    chain's seed word (int or 0-dim tensor); the kernel's counter word
+    `chain` is 0, whatever the chain (ops/sweep_cuda.PhiloxKey)."""
     shape = (n_sweeps, 4, B)
     sweep = torch.arange(first_sweep, first_sweep + n_sweeps,
                          dtype=torch.int64, device=device)
@@ -229,13 +230,13 @@ def philox_uniforms(key0, key1: int, chain: int, first_sweep: int,
 
 def philox_normals(key0, key1s):
     """Two standard normals per chain and key word (Box-Muller on the four
-    words of philox((0, 0, 0, chain), (key0[chain], key1))): the update
+    words of philox((0, 0, 0, 0), (key0[chain], key1))): the update
     budgets of the A and P samplers. `key0` is an (NCH,) int64 tensor,
-    `key1s` a (T,) int64 tensor; returns two (NCH, T) tensors."""
-    chain = torch.arange(key0.shape[0], dtype=torch.int64,
-                         device=key0.device)[:, None]
-    zero = torch.zeros_like(chain)
-    w = philox4x32(zero, zero, zero, chain, (key0 & _MASK32)[:, None],
+    `key1s` a (T,) int64 tensor; returns two (NCH, T) tensors. A chain's
+    normals are its seed word's alone."""
+    zero = torch.zeros((key0.shape[0], 1), dtype=torch.int64,
+                       device=key0.device)
+    w = philox4x32(zero, zero, zero, zero, (key0 & _MASK32)[:, None],
                    (key1s & _MASK32)[None, :])
     u = [to_unit(x) for x in w]
     two_pi = 6.283185307179586

@@ -71,7 +71,7 @@ STATIC_SMEM = 4 * (32 + MAX_BATCH + 1 + 3 + 8)
 
 class PhiloxKey(NamedTuple):
     """Fast-mode key: chain c's blocks are philox((lane, row group,
-    sweep, c), (key0[c], key1))."""
+    sweep, 0), (key0[c], key1)) — its seed word's alone."""
 
     key0: torch.Tensor  # (NCH,) int64 per-chain seed words, on the device
     key1: int  # (phase, iteration, sampler) word
@@ -218,7 +218,7 @@ def plain_chains(one: Callable, rand: Union[PhiloxKey, UniformSource],
         key = rand
 
         def rand(c, first, n):
-            return gaps_rng.philox_uniforms(key.key0[c], key.key1, c, first,
+            return gaps_rng.philox_uniforms(key.key0[c], key.key1, 0, first,
                                             n, B, device=device)
 
     outs = []

@@ -17,8 +17,11 @@ frozen partner factor, and the closed-form chi^2 from the CSR rows every
 chisq_every-th output tick. The JAX engine's paired 128-lane planes, M
 mirrors with metadata lanes and per-iteration plane rebuild exist for the
 TPU's DMA rules and are not carried over; neither is its k <= 60 bound
-(the CSR kernel reads k from its arguments). Checkpoints wait for a later
-slice.
+(the CSR kernel reads k from its arguments). A checkpoint
+(save_checkpoint/load_checkpoint, in utils/checkpoint.py's format)
+stores the atoms, the factors and the statistics: the planes and mirrors
+the JAX engine rebuilds from do not exist here. As in the JAX package,
+run_atlas takes no checkpoint options.
 """
 
 from __future__ import annotations
@@ -30,10 +33,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..engine import (EQUILIBRATION, SAMPLER_A, SAMPLER_P, SAMPLING,
-                      ChainState, PhiloxRandom, RunStats, accumulate_stats,
-                      annealing_temp, derive_hist, init_chain_state,
-                      init_run_stats)
+from ..engine import (BUDGETS, EQUILIBRATION, SAMPLER_A, SAMPLER_P,
+                      SAMPLING, ChainState, PhiloxRandom, RunStats,
+                      accumulate_stats, annealing_temp, derive_hist,
+                      init_chain_state, init_run_stats, stream_key)
 from ..io.coo import CooMatrix
 from ..models import sparse
 from ..ops import rng as gaps_rng
@@ -41,6 +44,7 @@ from ..ops.atlas_cuda import run_updates_atlas_multi
 from ..ops.sweep import MassParams, make_consts
 from ..params import CogapsParams, EngineConfig
 from ..result import CogapsResult, finalize_statistics
+from ..utils import checkpoint
 
 
 def build_side(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -54,14 +58,19 @@ def build_side(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
 class AtlasRandom(PhiloxRandom):
     """The atlas engine's random source: the sweeps' Philox keys of
     engine.PhiloxRandom, and exact Poisson budgets round(Poisson(max(n,
-    10))) drawn on the device from one torch.Generator (the JAX atlas
-    engine draws jax.random.poisson, atlas_engine.py:249-252)."""
+    10))) drawn on the device from a torch.Generator seeded afresh for
+    each (seed, phase, iteration), as the JAX atlas engine draws
+    jax.random.poisson under a key folded from them
+    (atlas_engine.py:249-252): a checkpoint needs the seed alone."""
 
     def __init__(self, seed: int, device):
         super().__init__([seed], device)
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.seed = int(seed) & 0xFFFFFFFF
+        self.generator = torch.Generator(device=device)
 
     def budgets(self, phase, it, n_a, n_p):
+        self.generator.manual_seed(
+            (self.seed << 32) | stream_key(phase, it, BUDGETS))
         lam = torch.clamp(torch.stack([n_a, n_p]), min=10).to(torch.float32)
         n = gaps_rng.poisson(lam, self.generator)
         return n[0], n[1]
@@ -70,6 +79,9 @@ class AtlasRandom(PhiloxRandom):
 class AtlasEngine:
     """Single-chain sparse engine on the CSR sweep kernel. `coo` is a
     CooMatrix (genes x samples), never densified."""
+
+    n_chains = 1
+    sparse_model = True
 
     def __init__(self, coo: CooMatrix, config: EngineConfig,
                  batch: int = 512, capacity: Optional[int] = None,
@@ -154,6 +166,26 @@ class AtlasEngine:
             if progress is not None:
                 progress(phase, it, state)
         return state, stats
+
+
+# ----------------------------------------------------------------------
+# Checkpoints: the atoms, the factors and the statistics, in the format
+# of utils/checkpoint.py (the JAX engine stores its M mirrors and
+# rebuilds its planes from them; the port has neither, and its M is the
+# factor itself). The random source needs only the seed (AtlasRandom).
+# ----------------------------------------------------------------------
+def save_checkpoint(path: str, engine: AtlasEngine, state: ChainState,
+                    stats: RunStats, phase: int, it: int, seed: int) -> str:
+    """Write the chain after iteration `it` of `phase` to `path`."""
+    checkpoint.save_checkpoint(path, engine, state, stats, phase, it, seed)
+    return path
+
+
+def load_checkpoint(path: str, engine: AtlasEngine):
+    """(state, stats, phase, iter, seed) of a checkpoint, on the engine's
+    device; refuses a file of other dimensions or configuration."""
+    state, stats, phase, it = checkpoint.load_checkpoint(path, engine)
+    return state, stats, phase, it, checkpoint.checkpoint_seed(path)
 
 
 def run_atlas(coo: CooMatrix, n_patterns: int = 50,

@@ -141,10 +141,13 @@ def stack_sparse_device_data(Ds: Sequence, cfg: EngineConfig, device,
 
 
 def _mass(lam: np.ndarray, max_gibbs_mass: float) -> MassParams:
+    """lambda rounded to float32, and maxGibbsMass / lambda divided in
+    float32 from the rounded lambda, as the JAX engines divide it."""
+    lam = lam.astype(np.float32)
     return MassParams(
-        lam=torch.from_numpy(lam.astype(np.float32)),
+        lam=torch.from_numpy(lam),
         max_gibbs_mass=torch.from_numpy(
-            (max_gibbs_mass / lam).astype(np.float32)))
+            (np.float32(max_gibbs_mass) / lam).astype(np.float32)))
 
 
 def _table_call(mode, atoms, M, csr, Wd, D1, other, temp, n_upd, consts,
@@ -231,6 +234,7 @@ class SparseChainEngine(ChainEngine):
     data has none."""
 
     iterate = staticmethod(run_iteration_sparse)
+    sparse_model = True
 
     def __init__(self, data: SparseDeviceData, config: EngineConfig,
                  device):

@@ -81,19 +81,53 @@ def test_seed_consistency(modsim_golden):
     assert a.gene_names[0] == "Gene_1" and len(a.pattern_names) == 3
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(distributed="genome-wide"), "distributed"),
-    # the sparse model runs now (tests/test_torch_sparse.py); its
-    # distributed form, scCoGAPS, is still out of the port
-    pytest.param(dict(sparse_optimization=True, distributed="single-cell"),
-                 "distributed", id="kwargs1-sparseOptimization"),
-    (dict(checkpoint_interval=10), "checkpointing"),
-])
-def test_out_of_slice_options_raise(modsim_golden, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cogaps_tpu_torch.CoGAPS(modsim_golden["D"], n_patterns=3,
-                                n_iterations=5, messages=False, device="cpu",
-                                **kwargs)
+@pytest.mark.parametrize("path", ["x.h5", "x.hdf5", "x.h5ad"])
+@pytest.mark.parametrize("entry", ["CoGAPS", "scCoGAPS"])
+def test_out_of_slice_options_raise(entry, path):
+    """h5/h5ad input is not ported yet and raises, from every entry point
+    (distributed runs and checkpoints run: tests/test_torch_distributed.py,
+    tests/test_torch_checkpoints.py)."""
+    with pytest.raises(NotImplementedError, match="h5"):
+        getattr(cogaps_tpu_torch, entry)(path, n_patterns=3, n_iterations=5,
+                                         messages=False, device="cpu")
+
+
+@pytest.mark.parametrize("entry,mode", [("GWCoGAPS", "genome-wide"),
+                                        ("scCoGAPS", "single-cell")])
+def test_distributed_entry_points_stitch(modsim_golden, entry, mode):
+    """GWCoGAPS and scCoGAPS (exported as cogaps_tpu/__init__.py exports
+    them) return one stitched result in the input order: the free factor
+    learned, the fixed one zero (scCoGAPS on the sparse model by
+    default)."""
+    assert entry in cogaps_tpu_torch.__all__
+    D = modsim_golden["D"]
+    genes = [f"g{i:03d}" for i in range(D.shape[0])]
+    cells = [f"c{i:03d}" for i in range(D.shape[1])]
+    params = cogaps_tpu_torch.CogapsParams(n_patterns=3, n_iterations=15,
+                                           seed=3, n_sets=2)
+    res = getattr(cogaps_tpu_torch, entry)(D, params, messages=False,
+                                           gene_names=genes,
+                                           sample_names=cells, device="cpu")
+    assert res.gene_names == genes and res.sample_names == cells
+    names = genes if mode == "genome-wide" else cells
+    assert sorted(x for s in res.diagnostics["subsets"] for x in s) == names
+    free, fixed = ((res.Amean, res.Pmean) if mode == "genome-wide"
+                   else (res.Pmean, res.Amean))
+    assert np.abs(free).sum() > 0 and np.abs(fixed).sum() == 0
+    k_out = res.diagnostics["consensusPatterns"].shape[1]
+    assert res.Amean.shape == (D.shape[0], k_out)
+
+
+def test_checkpointed_run_writes_a_file(modsim_golden, tmp_path):
+    out = str(tmp_path / "run.npz")
+    res = cogaps_tpu_torch.CoGAPS(modsim_golden["D"], n_patterns=3,
+                                  n_iterations=10, seed=1, messages=False,
+                                  checkpoint_interval=4,
+                                  checkpoint_out_file=out, device="cpu")
+    z = np.load(out)
+    assert int(z["magic"]) == 0xB123AA4D and int(z["seed"]) == 1
+    assert (int(z["phase"]), int(z["iteration"])) == (1, 8)
+    assert np.isfinite(res.mean_chi_sq)
 
 
 def test_input_validation(modsim_golden):
@@ -106,6 +140,11 @@ def test_input_validation(modsim_golden):
         cogaps_tpu_torch.CoGAPS(D, n_patterns=3, device="cpu", bogus=1)
     with pytest.raises(NotImplementedError, match="h5"):
         cogaps_tpu_torch.CoGAPS("x.h5ad", device="cpu")
+    from cogaps_tpu_torch.io.coo import CooMatrix
+    r, c = np.nonzero(D)
+    coo = CooMatrix(r.astype(np.int32), c.astype(np.int32), D[r, c], D.shape)
+    with pytest.raises(ValueError, match="dense matrix"):
+        cogaps_tpu_torch.GWCoGAPS(coo, n_patterns=3, device="cpu")
 
 
 @pytest.mark.parametrize("shape,k,overrides", [
@@ -156,6 +195,46 @@ def test_statistics_helpers_match_jax():
             == [f.name for f in dataclasses.fields(jresult.CogapsResult)])
 
 
+def _functions(module):
+    """name -> AST dump of each top-level function of a module's source."""
+    tree = ast.parse(open(module.__file__).read())
+    return {n.name: ast.dump(n) for n in tree.body
+            if isinstance(n, ast.FunctionDef)}
+
+
+def test_clustering_copy_matches_jax():
+    """parallel/clustering.py is cogaps_tpu/parallel/clustering.py's code,
+    function for function (only the module docstring differs)."""
+    from cogaps_tpu.parallel import clustering as jclustering
+    from cogaps_tpu_torch.parallel import clustering
+    mine, theirs = _functions(clustering), _functions(jclustering)
+    assert set(mine) == set(theirs) == {
+        "complete_linkage", "cutree_k", "corcut", "corr_to_mean_pattern",
+        "pattern_match"}
+    for name in mine:
+        assert mine[name] == theirs[name], name
+
+
+@pytest.mark.parametrize("holes", [False, True], ids=["compact", "holes"])
+def test_load_table_matches_jax(holes):
+    """utils/atoms_compat.load_table compacts a table as the JAX
+    package's does (a stable compaction of live slots)."""
+    from cogaps_tpu.utils import atoms_compat as jatoms_compat
+    from cogaps_tpu_torch.utils import atoms_compat
+    rs = np.random.default_rng(2)
+    elem = np.full(16, -1, np.int32)
+    live = (rs.random(16) < 0.5) if holes else (np.arange(16) < 7)
+    elem[live] = rs.integers(0, 100, int(live.sum()))
+    mass = np.where(live, rs.gamma(2, 1, 16), 0).astype(np.float32)
+    mine = atoms_compat.load_table(mass, elem, int(live.sum()))
+    theirs = jatoms_compat.load_table(mass, elem, int(live.sum()))
+    for f in ("mass", "elem", "n"):
+        a, b = getattr(mine, f).numpy(), np.asarray(getattr(theirs, f))
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert (mine.elem[:int(live.sum())] >= 0).all()
+
+
 FORBIDDEN = ("jax", "jaxlib", "flax", "cogaps_tpu")
 
 
@@ -184,7 +263,9 @@ def test_sources_import_no_jax():
 def test_clean_import_loads_no_jax():
     code = ("import sys; import cogaps_tpu_torch; "
             "from cogaps_tpu_torch import api, engine, convert, bench_harness; "
-            "from cogaps_tpu_torch.parallel import multichain; "
+            "from cogaps_tpu_torch.parallel import (multichain, distributed, "
+            "clustering, atlas_engine); "
+            "from cogaps_tpu_torch.utils import checkpoint, atoms_compat; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))" % (FORBIDDEN,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -33,7 +33,10 @@ of 8, 4, 2 and 1 CTAs a chain: equal atom tables and counters, mass, M and
 the running sums within 1e-5; its rebuild alone to the plain tables, bit
 for bit, at GIST x16, 2000 x 128 k=10, k = 1 and 12, and at 1 to 200
 chains; two runs give the same bits, and a cluster launch the card
-refuses raises."""
+refuses raises; a fused run broken off mid-chunk and resumed from a
+checkpoint gives the bits of the run without a break. Chains of one seed
+draw alike in fast mode, and as a one-chain launch of that seed does
+(the distributed runs' subset chains)."""
 
 import os
 import re
@@ -160,7 +163,7 @@ def test_exact_and_fast_modes_agree(cuda_device):
         sweep_cuda.PhiloxKey(key0=key0, key1=9))
     exact = sweep_cuda.run_updates_multi(
         atoms, M, Y, phase, 1.0, budgets, consts, mass,
-        lambda c, first, n: rng.philox_uniforms(21 + c, 9, c, first, n, 1024,
+        lambda c, first, n: rng.philox_uniforms(21 + c, 9, 0, first, n, 1024,
                                                 device=cuda_device))
     assert_same(fast, exact)
 
@@ -1154,3 +1157,60 @@ def test_probe_wrappers_raise_on_card(cuda_device):
     bad = mosaic.bdot_plan(2, 10, 3, 8)._replace(tile_b=6)  # 6 % 4 != 0
     with pytest.raises(RuntimeError, match="bdot kernel launch failed"):
         mosaic.bdot(a, b, bad)
+
+
+def test_chains_of_one_seed_draw_alike(cuda_device):
+    """Fast mode's counters hold no chain index: two chains of one seed
+    and one state decide alike, and as a one-chain launch of that seed
+    does (engine.PhiloxRandom)."""
+    atoms, M, Y, phase, consts, mass = make_states(cuda_device, 1363, 9, 7,
+                                                   1024, 8192, nch=1)
+
+    def stacked(x, n):
+        return x.expand((n,) + tuple(x.shape[1:])).contiguous()
+
+    import dataclasses
+    two = [dataclasses.replace(atoms, **{f: stacked(getattr(atoms, f), 2)
+                                         for f in ("mass", "elem", "n")}),
+           stacked(M, 2), stacked(Y, 2),
+           dense.DensePhase(*(stacked(x, 2) for x in phase))]
+    mass2 = sweep.MassParams(*(stacked(x, 2) for x in mass))
+    budgets = torch.full((2,), 3000, dtype=torch.int32, device=cuda_device)
+    out2 = sweep_cuda.run_updates_multi(
+        *two, 1.0, budgets, consts, mass2,
+        sweep_cuda.PhiloxKey(key0=torch.tensor([21, 21], device=cuda_device),
+                             key1=9))
+    out1 = sweep_cuda.run_updates_multi(
+        atoms, M, Y, phase, 1.0, budgets[:1], consts, mass,
+        sweep_cuda.PhiloxKey(key0=torch.tensor([21], device=cuda_device),
+                             key1=9))
+    for c in range(2):
+        assert torch.equal(out2[0].elem[c], out1[0].elem[0])
+        assert torch.equal(out2[1][c], out1[1][0])
+        assert int(out2[3][c]) == int(out1[3][0]) == 3000
+
+
+def test_fused_resume_mid_chunk_equals_unbroken(cuda_device, tmp_path):
+    """MultichainEngine.run_phase on the fused span, broken off at an
+    iteration inside a span_cuda.CHUNK and resumed from a checkpoint in a
+    new PhiloxRandom, gives the bits of the run without a break."""
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.utils import checkpoint as ckpt
+    eng, st, ss, seeds = span_case(cuda_device, n_warm=20)
+    assert eng._fused_ok()
+    rand = PhiloxRandom(seeds, cuda_device)
+    whole = eng.run_phase(st, ss, rand, EQUILIBRATION, 20)
+    whole = eng.run_phase(*whole, rand, SAMPLING, 0, 30)
+    part = eng.run_phase(st, ss, PhiloxRandom(seeds, cuda_device),
+                         EQUILIBRATION, 20, 33)
+    path = str(tmp_path / "fused.npz")
+    ckpt.save_checkpoint(path, eng, *part, EQUILIBRATION, 33, seeds)
+    st2, ss2, phase, it = ckpt.load_checkpoint(path, eng)
+    rand2 = PhiloxRandom(ckpt.checkpoint_seeds(path), cuda_device)
+    again = eng.run_phase(st2, ss2, rand2, phase, it)
+    again = eng.run_phase(*again, rand2, SAMPLING, 0, 30)
+    for x, y in ((whole[0].M_a, again[0].M_a), (whole[0].M_p, again[0].M_p),
+                 (whole[0].atoms_a.elem, again[0].atoms_a.elem),
+                 (whole[1].a_sum, again[1].a_sum),
+                 (whole[1].upd, again[1].upd)):
+        assert torch.equal(x, y)

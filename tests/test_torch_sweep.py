@@ -222,7 +222,7 @@ def test_stacked_wrapper_equals_per_chain_calls(setup, mode):
         rand = sweep_cuda.PhiloxKey(key0=torch.tensor([7, 8, 9]), key1=1234)
 
         def chain_blocks(c):
-            return lambda i: rng.philox_uniforms(7 + c, 1234, c, i, 1, B)
+            return lambda i: rng.philox_uniforms(7 + c, 1234, 0, i, 1, B)
     else:
         def rand(c, first, n):
             return t(jax_blocks(keys[c], first, n))
