@@ -12,13 +12,17 @@ the sparse model through ``CoGAPS(sparse_optimization=True)``, the sparse
 multi-chain engine and the atlas engine, runs the probe suite (the H100
 counterparts of tools/probe_*.py), drives the distributed runs through
 ``GWCoGAPS()`` and ``scCoGAPS()`` and a checkpoint resume through
-``CoGAPS()``, and fails on the first phase that fails. Without a CUDA device, or without the package beside it, it exits
-non-zero and prints no result.
+``CoGAPS()``, runs the command line (``python -m cogaps_tpu_torch``) on
+a single-cell MatrixMarket file with the analysis toolkit on what it
+writes, and fails on the first phase that fails. Without a CUDA device,
+or without the package beside it, it exits non-zero and prints no
+result.
 
 Phases:
   1 device  — name and power limit (nvidia-smi);
   2 build   — nvcc builds of the five kernel sources, with ptxas's
-              reports;
+              reports, and the native parser's (native/fastparse.cpp by
+              the host's C++ compiler, io/native.py), all at once;
   3 kernels — kernel vs plain version on CUDA tensors, in exact mode (the
               same uniform slab) and in fast mode (in-kernel Philox);
               per-call times:
@@ -113,6 +117,26 @@ Phases:
               resumed from the file it leaves (sampling iteration 750)
               with seed=99, and run without checkpoints: Amean, Pmean,
               Asd and meanChiSq bit-equal in all three.
+  13 cli    — the 2000 x 10000 k=10 sparse matrix of phases 3 and 7
+              (one scCoGAPS worker's single-cell subset) written as a
+              MatrixMarket file, read by the native parser (what
+              read_matrix chooses) and by the Python parser: equal
+              matrices and names, each one's seconds; then ``python -m
+              cogaps_tpu_torch <file>.mtx --sparse --n-patterns 10
+              --n-iterations 500 --output-frequency 50 -o <tmp>/out --csv
+              --seed 13`` as a subprocess with no --device: a finite
+              meanChiSq and updates in its summary line, diagnostics
+              ["device"] CUDA, the chi^2 history falling 5x, from_csv of
+              its CSV files equal to load of its npz (the %.10g text
+              holds a float32); the same argv through __main__.main in
+              this process under the launch counters: K2 launched at least
+              twice an iteration, K4 never, the result bit-equal to the
+              subprocess's; then pattern_markers, calc_z,
+              calc_cogaps_stat (5 seeded gene sets of 50),
+              get_pattern_gene_set (enrichment, 100 permutations) and
+              manova (3 seeded groups of the 10,000 cells) on the loaded
+              result: each finite and of its shape, with its seconds;
+              and build_report().
 
 The last line is {"ok": true, "device": {...}}; the one before it is the
 card's name and power limit; before that, one JSON line describing each
@@ -123,6 +147,7 @@ wrapper's host work too; "launches" summed over the main-path phases
 that run the kernel, "launches_by_phase" each phase's count).
 """
 
+import collections
 import json
 import os
 import re
@@ -1071,13 +1096,25 @@ def build_all():
         _, report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         futs = {"sweep": pool.submit(timed, sweep_cuda.build),
                 "atlas": pool.submit(timed, atlas_cuda.build),
                 "span": pool.submit(timed, span_cuda.build),
                 "probe_mosaic": pool.submit(timed, mosaic.build),
-                "probe_dma": pool.submit(timed, dma.build)}
+                "probe_dma": pool.submit(timed, dma.build),
+                "fastparse": pool.submit(timed, build_native)}
         return {name: f.result() for name, f in futs.items()}
+
+
+def build_native():
+    """The native parser (io/native.py: native/fastparse.cpp by the host's
+    C++ compiler into cogaps_tpu_torch/_build/); fails if it cannot be
+    built."""
+    from cogaps_tpu_torch.io import native
+    if not native.available():
+        raise AssertionError(f"the native parser did not build: "
+                             f"{native.failure()}")
+    return None, ""
 
 
 def time_modes(D, device, n_warm=150, n_timed=20):
@@ -1362,6 +1399,181 @@ def phase_checkpoint(device, n_it=1000, every=250):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 13: the command line, the parsers and the analysis toolkit
+# ----------------------------------------------------------------------
+def write_mtx(path, D):
+    """D as a MatrixMarket coordinate file; %.9g holds a float32 exactly."""
+    r, c = np.nonzero(D)
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n"
+                f"{D.shape[0]} {D.shape[1]} {len(r)}\n")
+        np.savetxt(f, np.column_stack([r + 1, c + 1, D[r, c]]),
+                   fmt=("%d", "%d", "%.9g"))
+
+
+def phase_cli(D, card, n_it=500, seed=13):
+    """``python -m cogaps_tpu_torch <D>.mtx --sparse`` on the card, as a
+    subprocess with no --device and again in this process under the
+    launch counters; the two parsers on the file it reads; the analysis
+    toolkit on the result it wrote. Returns the kernels' launches in the
+    in-process run."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch import __main__ as cli
+    from cogaps_tpu_torch import analysis, sparse_engine
+    from cogaps_tpu_torch.io import native, parsers
+    from cogaps_tpu_torch.result import CogapsResult
+    counters = launch_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        path, out = os.path.join(tmp, "sc.mtx"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        write_mtx(path, D)
+        t_write = time.perf_counter() - t0
+        # 2. the native and the Python parser on the file
+        if not native.available():
+            raise AssertionError(f"no native parser: {native.failure()}")
+        t0 = time.perf_counter()
+        nat = parsers.read_matrix(path)
+        t1 = time.perf_counter()
+        py = parsers.read_matrix(path, use_native=False)
+        t2 = time.perf_counter()
+        if not (np.array_equal(nat[0], py[0]) and nat[1:] == py[1:]
+                and np.array_equal(nat[0], D)):
+            raise AssertionError("the native and Python parsers disagree")
+        log(f"[13 cli] {D.shape[0]}x{D.shape[1]} mtx of {int((D != 0).sum())}"
+            f" nonzeros ({os.path.getsize(path) / 2**20:.1f} MiB, written in "
+            f"{t_write:.3f} s): read_matrix chose the native parser "
+            f"({native.library_path().name}) {t1 - t0:.3f} s, the Python "
+            f"parser {t2 - t1:.3f} s, equal matrices and names; card: {card}")
+        del nat, py
+        # 3. the command line as a user runs it: the card by default
+        argv = [path, "--sparse", "--n-patterns", "10", "--n-iterations",
+                str(n_it), "--output-frequency", "50", "-o", out, "--csv",
+                "--seed", str(seed)]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "cogaps_tpu_torch",
+                               *argv], cwd=HERE, capture_output=True,
+                              text=True, timeout=600)
+        t_sub = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        res = CogapsResult.load(out + ".npz")
+        back = CogapsResult.from_csv(out)
+        h = np.asarray(res.diagnostics["chisqHistory"])
+        csv_err = max(float(np.abs(getattr(back, n) - getattr(res, n)).max())
+                      for n in ("Amean", "Pmean", "Asd", "Psd"))
+        log(f"  python -m cogaps_tpu_torch sc.mtx {' '.join(argv[1:])}: "
+            f"{t_sub:.3f} s in all (process start-up included), summary "
+            f"{json.dumps(summary)}; device {res.diagnostics['device']}; "
+            f"from_csv - load max|diff| {csv_err!r}; chi^2 history "
+            f"{np.round(h, 1).tolist()}")
+        if not (np.isfinite(summary["meanChiSq"])
+                and summary["totalUpdates"] > 0):
+            raise AssertionError(f"CLI summary {summary}")
+        if not res.diagnostics["device"].startswith("cuda"):
+            raise AssertionError("the CLI did not run on the card")
+        if not (np.isfinite(h).all() and h[-1] < 0.2 * h[0]):
+            raise AssertionError("the CLI's chi^2 history did not fall 5x")
+        for n in ("Amean", "Pmean", "Asd", "Psd"):
+            a, b = getattr(back, n), getattr(res, n)
+            if a.shape != b.shape or not np.allclose(a, b, rtol=5e-10,
+                                                     atol=0.0):
+                raise AssertionError(f"from_csv and load disagree on {n}")
+        # 4. the same argv in this process, under the launch counters and
+        # counting the sparse model's update calls by mode
+        table_calls = collections.Counter()
+        table_call = sparse_engine._table_call
+
+        def counted(mode, *args, **kwargs):
+            table_calls[mode] += 1
+            return table_call(mode, *args, **kwargs)
+
+        torch.cuda.synchronize()
+        for w in counters.values():
+            w.launches = 0
+        sparse_engine._table_call = counted
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                cli.main(argv)
+            torch.cuda.synchronize()
+            t_in = time.perf_counter() - t0
+        finally:
+            sparse_engine._table_call = table_call
+        launches = {n: w.launches for n, w in counters.items()}
+        again = CogapsResult.load(out + ".npz")
+        same = all(np.array_equal(getattr(again, n), getattr(res, n))
+                   for n in ("Amean", "Pmean", "Asd", "Psd"))
+        log(f"  in-process main(): {t_in:.3f} s, launches {launches}, "
+            f"the sparse model's update calls by mode {dict(table_calls)}, "
+            f"result bit-equal to the subprocess's: {same}; summary "
+            f"{said.getvalue().strip().splitlines()[-1]}")
+        # two K2 launches an iteration, each one of the sparse model's
+        # "dense"-mode update calls, and no other kernel
+        want = 2 * 2 * n_it
+        if (launches != {"sweep": want, "span": 0, "atlas": 0}
+                or dict(table_calls) != {"dense": want}):
+            raise AssertionError(f"launches {launches} and sparse update "
+                                 f"calls {dict(table_calls)} for {n_it} + "
+                                 f"{n_it} iterations")
+        if not same:
+            raise AssertionError("the same argv and seed gave another result")
+    # 5. the analysis toolkit on the result the CLI wrote
+    rs = np.random.default_rng(seed)
+    genes, n_cells = res.gene_names, res.Pmean.shape[0]
+    sets = {f"set{i}": [genes[j] for j in rs.choice(len(genes), 50,
+                                                    replace=False)]
+            for i in range(5)}
+    labels = rs.integers(0, 3, n_cells)
+    groups = np.stack([labels == 1, labels == 2], axis=1).astype(np.float64)
+    k = res.Amean.shape[1]
+    checks = {
+        "pattern_markers": (lambda: analysis.pattern_markers(res), lambda o: (
+            o["PatternRanks"].shape == (len(genes), k)
+            and sorted(g for v in o["PatternMarkers"].values() for g in v)
+            == sorted(genes))),
+        "calc_z": (lambda: analysis.calc_z(res), lambda o: (
+            o.shape == (len(genes), k) and np.isfinite(o).all())),
+        "calc_cogaps_stat": (lambda: analysis.calc_cogaps_stat(res, sets),
+                             lambda o: o["GSUpreg"].shape == (5, k) and all(
+                                 np.isfinite(o[x]).all() for x in (
+                                     "twoSidedPValue", "GSUpreg",
+                                     "GSDownreg", "GSActEst"))),
+        "get_pattern_gene_set": (
+            lambda: analysis.get_pattern_gene_set(res, sets),
+            lambda o: len(o) == k and all(
+                len(p["results"]) == 5 and all(
+                    0.0 <= r["padj"] <= 1.0 and np.isfinite(r["ES"])
+                    for r in p["results"]) for p in o)),
+        "manova": (lambda: analysis.manova(groups, res), lambda o: (
+            len(o) == k and all(np.isfinite([f["pillai"], f["approx_f"],
+                                             f["p_value"]]).all()
+                                for f in o.values()))),
+    }
+    seconds = {}
+    for name, (run, ok) in checks.items():
+        t0 = time.perf_counter()
+        o = run()
+        seconds[name] = time.perf_counter() - t0
+        if not ok(o):
+            raise AssertionError(f"{name} gave a result of the wrong shape "
+                                 f"or not finite")
+    log(f"  analysis on the loaded result ({len(genes)} genes x {n_cells} "
+        f"cells, k={k}), seconds: " + ", ".join(
+            f"{n} {t:.3f}" for n, t in seconds.items())
+        + f" (5 gene sets of 50; enrichment with 100 permutations; MANOVA of"
+        f" 3 seeded groups); card: {card}")
+    log("  build_report():\n    " + cogaps_tpu_torch.build_report().replace(
+        "\n", "\n    "))
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cogaps_tpu_torch")):
         log("cogaps_tpu_torch is not beside this script: run it from a "
@@ -1387,7 +1599,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     builds = build_all()
-    log(f"[2 build] the five kernel sources built and loaded in "
+    log(f"[2 build] the five kernel sources and the native parser built "
+        f"and loaded in "
         f"{time.perf_counter() - t0:.1f} s (" + ", ".join(
             f"{name} {sec:.1f} s" for name, (sec, _) in builds.items()) + ")")
     for name, (_, report) in builds.items():
@@ -1661,6 +1874,11 @@ def main() -> int:
     ckpt_launches = phase_checkpoint(device)
     log(f"  phase {time.perf_counter() - t0:.1f} s")
 
+    # 13. the command line on one scCoGAPS worker's single-cell subset
+    t0 = time.perf_counter()
+    cli_launches = phase_cli(D_sparse, card)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+
     def entry(name, source, replaces, launches, err, row, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -1670,12 +1888,14 @@ def main() -> int:
 
     # launches by main-path phase: the dense sweep (K1) in phases 4, 11
     # (GWCoGAPS's fixed stage) and 12; the same kernel on the sparse
-    # tables (K2) in 7, 8 and 11 (scCoGAPS); K3 in 5 and 11; K4 in 9
+    # tables (K2) in 7, 8, 11 (scCoGAPS) and 13 (the CLI); K3 in 5 and 11;
+    # K4 in 9
     sweep_by = {"4": launches, "11": sum(st["sweep"] for st in
                                          dist_by_run["GWCoGAPS"]),
                 "12": ckpt_launches["sweep"]}
     tables_by = {"7": sparse_launches["sweep"], "8": multi_launches["sweep"],
-                 "11": sum(st["sweep"] for st in dist_by_run["scCoGAPS"])}
+                 "11": sum(st["sweep"] for st in dist_by_run["scCoGAPS"]),
+                 "13": cli_launches["sweep"]}
     span_by = {"5": span_launches, "11": dist_launches["span"]}
     atlas_by = {"7": sparse_launches["atlas"], "8": multi_launches["atlas"],
                 "9": atlas_launches, "11": dist_launches["atlas"]}

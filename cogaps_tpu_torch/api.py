@@ -2,8 +2,9 @@
 (reference: R/CoGAPS.R:90-236).
 
 ``CoGAPS(data, params=None, n_patterns=..., device="cuda", ...)`` takes
-a numpy array, an io.coo.CooMatrix or a csv/tsv/mtx/gct path, validates
-the inputs (R/HelperFunctions.R:194-249), runs the two-phase engine on
+a numpy array, an io.coo.CooMatrix, or a csv/tsv/mtx/gct (io/parsers.py)
+or h5/hdf5/h5ad path (io/h5.py), validates the inputs
+(R/HelperFunctions.R:194-249), runs the two-phase engine on
 `device` — the dense model, or the sparse model (sparse_engine.py) for
 sparse_optimization=True or COO input — and returns a CogapsResult.
 With ``distributed="genome-wide"`` or ``"single-cell"`` (and through
@@ -14,9 +15,6 @@ iterations and resumes from ``checkpoint_in_file`` (utils/checkpoint.py).
 `device` is where the engines run: there is no silent fallback, so
 without a GPU the default raises from torch, and the CPU is asked for by
 name.
-
-Not in this slice, and raising NotImplementedError rather than being
-ignored: h5/h5ad input (ROADMAP.md, "Queue 1").
 """
 
 from __future__ import annotations
@@ -39,30 +37,29 @@ from .utils.debug import check_state
 from .utils.logging import log_message, log_worker
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to cogaps_tpu_torch yet (ROADMAP.md "
-        f"Queue 1, {item}); cogaps_tpu runs it")
-
-
 def _load_data(data, transpose: bool):
-    """Input coercion (reference: R/HelperFunctions.R:342-356)."""
+    """Input coercion (reference: R/HelperFunctions.R:342-356 + file
+    dispatch in R/CoGAPS.R:145-151)."""
     gene_names = sample_names = None
     if isinstance(data, str):
         if data.endswith((".h5", ".hdf5", ".h5ad")):
-            raise _not_ported("h5/h5ad input",
-                              "the CLI and the rest of the run surface")
-        mat, gene_names, sample_names = parsers.read_matrix(data)
+            from .io.h5 import read_any_h5
+            mat, gene_names, sample_names = read_any_h5(data)
+        else:
+            mat, gene_names, sample_names = parsers.read_matrix(data)
     elif isinstance(data, CooMatrix):
-        if transpose:
-            data = CooMatrix(rows=data.cols, cols=data.rows, vals=data.vals,
-                             shape=(data.shape[1], data.shape[0]))
-        return data, None, None
+        mat = data
     else:
         mat = np.asarray(data, dtype=np.float32)
         if hasattr(data, "index") and hasattr(data, "columns"):  # DataFrame
             gene_names = [str(x) for x in data.index]
             sample_names = [str(x) for x in data.columns]
+    if isinstance(mat, CooMatrix):
+        if transpose:
+            mat = CooMatrix(rows=mat.cols, cols=mat.rows, vals=mat.vals,
+                            shape=(mat.shape[1], mat.shape[0]))
+            gene_names, sample_names = sample_names, gene_names
+        return mat, gene_names, sample_names
     if mat.ndim != 2:
         raise ValueError("data must be a 2-D matrix")
     if transpose:

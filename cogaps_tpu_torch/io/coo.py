@@ -1,7 +1,7 @@
-"""COO input — a copy of the CooMatrix NamedTuple of cogaps_tpu/io/h5.py
-(that module also holds the h5 readers, which need h5py and wait for a
-later slice). A CooMatrix flows into the sparse engines without
-densifying."""
+"""COO input — a copy of the CooMatrix NamedTuple of cogaps_tpu/io/h5.py,
+the package's one COO class: io/h5.py's readers return it, and api.py and
+sparse_engine.py test for it. A CooMatrix flows into the sparse engines
+without densifying."""
 
 from __future__ import annotations
 

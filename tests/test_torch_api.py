@@ -81,15 +81,72 @@ def test_seed_consistency(modsim_golden):
     assert a.gene_names[0] == "Gene_1" and len(a.pattern_names) == 3
 
 
+@pytest.fixture(scope="module")
+def h5_inputs(tmp_path_factory, modsim_golden):
+    """modsim's D as a 10x CellRanger .h5 (COO on read), a plain dense
+    .hdf5 and an AnnData .h5ad (COO), written as tests/test_h5.py:14-58
+    writes them."""
+    h5py = pytest.importorskip("h5py")
+    sps = pytest.importorskip("scipy.sparse")
+    D = modsim_golden["D"]
+    root = tmp_path_factory.mktemp("h5_inputs")
+    genes = np.array([f"g{i}".encode() for i in range(D.shape[0])])
+    cells = np.array([f"c{i}".encode() for i in range(D.shape[1])])
+    with h5py.File(root / "x.h5", "w") as f:
+        m = sps.csc_matrix(D)
+        g = f.create_group("matrix")
+        g["data"], g["indices"], g["indptr"] = m.data, m.indices, m.indptr
+        g["shape"] = np.array(D.shape)
+        g.create_group("features")["name"] = genes
+        g["barcodes"] = cells
+    with h5py.File(root / "x.hdf5", "w") as f:
+        f["counts"], f["row_names"], f["col_names"] = D, genes, cells
+    with h5py.File(root / "x.h5ad", "w") as f:
+        m = sps.csr_matrix(D.T)
+        X = f.create_group("X")
+        X.attrs["encoding-type"] = "csr_matrix"
+        X.attrs["shape"] = np.array(D.T.shape)
+        X["data"], X["indices"], X["indptr"] = m.data, m.indices, m.indptr
+        for key, idx, names in (("obs", "cell", cells), ("var", "gene", genes)):
+            grp = f.create_group(key)
+            grp.attrs["_index"] = idx
+            grp[idx] = names
+    return root
+
+
 @pytest.mark.parametrize("path", ["x.h5", "x.hdf5", "x.h5ad"])
 @pytest.mark.parametrize("entry", ["CoGAPS", "scCoGAPS"])
-def test_out_of_slice_options_raise(entry, path):
-    """h5/h5ad input is not ported yet and raises, from every entry point
-    (distributed runs and checkpoints run: tests/test_torch_distributed.py,
-    tests/test_torch_checkpoints.py)."""
-    with pytest.raises(NotImplementedError, match="h5"):
-        getattr(cogaps_tpu_torch, entry)(path, n_patterns=3, n_iterations=5,
-                                         messages=False, device="cpu")
+def test_out_of_slice_options_raise(entry, path, h5_inputs):
+    """h5/hdf5/h5ad input, from both entry points, does what the JAX
+    package does: a run on what io/h5.read_any_h5 reads (bit-equal to the
+    port's run on the matrix and names cogaps_tpu's reader returns), or,
+    where JAX raises (a distributed run given the COO matrix a 10x or
+    AnnData file reads as), a ValueError."""
+    import cogaps_tpu
+    from cogaps_tpu.io.h5 import read_any_h5 as jread_any_h5
+    from cogaps_tpu_torch.io.coo import CooMatrix
+    file = str(h5_inputs / path)
+    kw = dict(n_patterns=3, n_iterations=5, seed=2, messages=False)
+    if entry == "scCoGAPS":
+        kw["n_sets"] = 2
+    mat, genes, cells = jread_any_h5(file)
+    is_coo = not isinstance(mat, np.ndarray)
+    if entry == "scCoGAPS" and is_coo:
+        with pytest.raises(ValueError):
+            cogaps_tpu.scCoGAPS(file, **kw)
+        with pytest.raises(ValueError, match="dense matrix"):
+            cogaps_tpu_torch.scCoGAPS(file, device="cpu", **kw)
+        return
+    res = getattr(cogaps_tpu_torch, entry)(file, device="cpu", **kw)
+    if is_coo:
+        mat = CooMatrix(*mat)
+    ref = getattr(cogaps_tpu_torch, entry)(mat, device="cpu", gene_names=genes,
+                                           sample_names=cells, **kw)
+    assert res.gene_names == genes == [f"g{i}" for i in range(25)]
+    assert res.sample_names == cells == [f"c{i}" for i in range(20)]
+    for name in ("Amean", "Asd", "Pmean", "Psd"):
+        np.testing.assert_array_equal(getattr(res, name), getattr(ref, name))
+    assert res.mean_chi_sq == ref.mean_chi_sq and np.isfinite(res.mean_chi_sq)
 
 
 @pytest.mark.parametrize("entry,mode", [("GWCoGAPS", "genome-wide"),
@@ -138,8 +195,13 @@ def test_input_validation(modsim_golden):
         cogaps_tpu_torch.CoGAPS(D, n_patterns=20, device="cpu")
     with pytest.raises(ValueError, match="unrecognized"):
         cogaps_tpu_torch.CoGAPS(D, n_patterns=3, device="cpu", bogus=1)
-    with pytest.raises(NotImplementedError, match="h5"):
-        cogaps_tpu_torch.CoGAPS("x.h5ad", device="cpu")
+    # a missing h5ad file raises what it raises in the JAX package
+    import cogaps_tpu
+    missing = os.path.join(DATA, "missing.h5ad")
+    with pytest.raises(Exception) as theirs:
+        cogaps_tpu.CoGAPS(missing, n_patterns=3)
+    with pytest.raises(theirs.type):
+        cogaps_tpu_torch.CoGAPS(missing, n_patterns=3, device="cpu")
     from cogaps_tpu_torch.io.coo import CooMatrix
     r, c = np.nonzero(D)
     coo = CooMatrix(r.astype(np.int32), c.astype(np.int32), D[r, c], D.shape)
@@ -261,13 +323,19 @@ def test_sources_import_no_jax():
 
 
 def test_clean_import_loads_no_jax():
+    """Importing the package and every module of it loads no jax, no
+    cogaps_tpu, and none of the optional h5py, scipy or matplotlib (the
+    card's machine has no h5py)."""
     code = ("import sys; import cogaps_tpu_torch; "
             "from cogaps_tpu_torch import api, engine, convert, bench_harness; "
+            "from cogaps_tpu_torch import analysis, plots, datasets, __main__; "
+            "from cogaps_tpu_torch.io import h5, rdata, native; "
             "from cogaps_tpu_torch.parallel import (multichain, distributed, "
             "clustering, atlas_engine); "
             "from cogaps_tpu_torch.utils import checkpoint, atoms_compat; "
             "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in %r))" % (FORBIDDEN,))
+            "if m.split('.')[0] in %r))"
+            % (FORBIDDEN + ("h5py", "scipy", "matplotlib"),))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          env={k: v for k, v in os.environ.items()

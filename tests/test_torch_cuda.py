@@ -36,7 +36,11 @@ chains; two runs give the same bits, and a cluster launch the card
 refuses raises; a fused run broken off mid-chunk and resumed from a
 checkpoint gives the bits of the run without a break. Chains of one seed
 draw alike in fast mode, and as a one-chain launch of that seed does
-(the distributed runs' subset chains)."""
+(the distributed runs' subset chains). The command line without
+--device runs on the card (K1 launches; diagnostics["device"] is CUDA
+in the npz and the CSV meta file), and the native parser builds with the
+card host's C++ compiler into cogaps_tpu_torch/_build/ and reads GIST as
+the Python parsers do."""
 
 import os
 import re
@@ -1214,3 +1218,44 @@ def test_fused_resume_mid_chunk_equals_unbroken(cuda_device, tmp_path):
                  (whole[1].a_sum, again[1].a_sum),
                  (whole[1].upd, again[1].upd)):
         assert torch.equal(x, y)
+
+
+# ----------------------------------------------------------------------
+# the command line and the native parser on the card's machine
+# ----------------------------------------------------------------------
+def test_cli_runs_on_the_card_by_default(cuda_device, tmp_path, capsys):
+    """``python -m cogaps_tpu_torch`` without --device runs on the card:
+    the dense sweep kernel (K1) launches and the result's
+    diagnostics["device"] is CUDA, in the npz and the CSV meta file."""
+    import json
+    from cogaps_tpu_torch import __main__ as cli
+    from cogaps_tpu_torch.result import CogapsResult
+    prefix = str(tmp_path / "gist")
+    sweep_cuda.run_updates_multi.launches = 0
+    assert cli.main([os.path.join(DATA, "GIST.csv"), "-o", prefix,
+                     "--n-patterns", "7", "--n-iterations", "100",
+                     "--output-frequency", "50", "--seed", "3", "--csv",
+                     "--quiet"]) == 0
+    launches = sweep_cuda.run_updates_multi.launches
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert np.isfinite(summary["meanChiSq"]) and summary["totalUpdates"] > 0
+    assert launches >= 2 * 2 * 100
+    for res in (CogapsResult.load(prefix + ".npz"),
+                CogapsResult.from_csv(prefix)):
+        assert res.diagnostics["device"].startswith("cuda")
+        assert res.get_param("n_patterns") == 7
+
+
+def test_native_parser_builds_on_the_cards_host(cuda_device):
+    """The native parser (native/fastparse.cpp) builds with the host's
+    C++ compiler into cogaps_tpu_torch/_build/ and reads GIST as the
+    Python parsers do, bit for bit."""
+    from cogaps_tpu_torch.io import native, parsers
+    assert native.available(), native.failure()
+    assert native.library_path().parent == native.BUILD_DIR
+    for ext in ("csv", "tsv", "gct", "mtx"):
+        path = os.path.join(DATA, f"GIST.{ext}")
+        a = parsers.read_matrix(path)
+        b = parsers.read_matrix(path, use_native=False)
+        assert np.array_equal(a[0], b[0]) and a[0].shape == (1363, 9)
+        assert a[1:] == b[1:]
