@@ -14,7 +14,10 @@ counterparts of tools/probe_*.py), drives the distributed runs through
 ``GWCoGAPS()`` and ``scCoGAPS()`` and a checkpoint resume through
 ``CoGAPS()``, runs the command line (``python -m cogaps_tpu_torch``) on
 a single-cell MatrixMarket file with the analysis toolkit on what it
-writes, and fails on the first phase that fails. Without a CUDA device,
+writes, holds both kernel routes to the sequential oracle's equilibrium,
+runs the gene-sharded dense and sparse engines at full width and, with
+ranks that share the card, checks their bits across rank counts, and
+fails on the first phase that fails. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no
 result.
 
@@ -137,6 +140,42 @@ Phases:
               manova (3 seeded groups of the 10,000 cells) on the loaded
               result: each finite and of its shape, with its seconds;
               and build_report().
+  14 oracle — the numpy SequentialOracle (cogaps_tpu_torch/oracle.py) on
+              modsim (25 x 20, k=3, tests/conftest.py's seed) with seeds
+              0-3, 600 + 600 iterations, one host process a seed, and
+              after it the port on the card with the same seeds and
+              iterations: the per-call route (a one-chain GapsEngine a
+              seed; K1, never K3) and the fused route (a 4-chain
+              MultichainEngine, output_frequency 0; K3, never K1); each
+              route's mean chi^2 within 25% of the oracle's and its mean
+              atom counts within 30% (tests/test_oracle.py:68-75), the
+              three runs' means printed; K1's two calls of one more
+              iteration and a 5-iteration K3 span from the routes' final
+              states, each against its plain version;
+  15 sharded — first, bits across rank counts with ranks sharing the
+              card over gloo (spawned, joined with a timeout): (b) the
+              dense engine of (a), 20 + 20, on 2 and 4 ranks, and a
+              checkpoint written by 2 ranks at sampling iteration 10;
+              (d) synthetic_sparse(2000, 10000, 10), n_shards=4, 5 + 5,
+              on 2 ranks; (e) 16 GIST chains (the fused span), 100 + 100,
+              on 2 ranks, their checkpoint after equilibration. Then,
+              with the card to itself: (a) ShardedGapsEngine on
+              synthetic_dense(20000, 2000, 10), n_blocks=8, mesh=None,
+              200 + 200: a finite, falling chi^2 history, the trimmed
+              shape, P's atom masses on M_p within 0.01 x max(1, max
+              M_p), K1 launched exactly twice an iteration; (c)
+              SparseShardedEngine on synthetic_coo(30000, 50000, 0.02),
+              k=50, n_shards=4, mesh=None, 40 + 40: a finite, falling
+              chi^2, P's drift as in (a), the mode the rule chose,
+              exactly its launches (K2 twice an iteration, or K2 and K4
+              once each in "xla" mode) and one more iteration timed in
+              parts (A tables, A launch, P table build, their sum, P's K2
+              launch); each with its seconds, seconds an iteration,
+              updates/s, peak memory and launches, and with its update
+              calls of one more iteration held against their plain
+              versions; then (b), (d) and (e) on one rank and the two
+              resumes on 1: every leaf of state and statistics bit-equal
+              to the ranks' runs.
 
 The last line is {"ok": true, "device": {...}}; the one before it is the
 card's name and power limit; before that, one JSON line describing each
@@ -468,9 +507,8 @@ def gist_state_cases(device, nch=4, seed=31, n_it=50):
     import cogaps_tpu_torch
     from cogaps_tpu_torch.bench_harness import throughput_engine
     from cogaps_tpu_torch.engine import (EQUILIBRATION, ChainEngine,
-                                         PhiloxRandom, annealing_temp)
+                                         PhiloxRandom)
     from cogaps_tpu_torch.io import parsers
-    from cogaps_tpu_torch.models import dense
     D, _, _ = parsers.read_matrix(GIST_CSV)
     eng, _ = throughput_engine(D, cogaps_tpu_torch.CogapsParams(
         n_patterns=7, n_iterations=2000, seed=seed, output_frequency=0),
@@ -478,23 +516,68 @@ def gist_state_cases(device, nch=4, seed=31, n_it=50):
     rand = PhiloxRandom([seed + c for c in range(nch)], device)
     st, _ = ChainEngine.run_phase(eng, eng.init_state(), eng.init_stats(),
                                   rand, EQUILIBRATION, 0, n_it)
-    n_a, n_p = rand.budgets(EQUILIBRATION, n_it, st.atoms_a.n, st.atoms_p.n)
-    temp = annealing_temp(eng.config, EQUILIBRATION, n_it)
-    d = eng.data
     cases = []
-    for side, atoms, M, tabs, consts, mass, budgets in (
-            ("A", st.atoms_a, st.M_a, (d.D, d.invS2, st.M_a, st.M_p),
-             eng.consts_a, d.mass_a, n_a),
-            ("P", st.atoms_p, st.M_p, (d.D_t, d.invS2_t, st.M_p, st.M_a),
-             eng.consts_p, d.mass_p, n_p)):
-        cache, phase = dense.tables(*tabs)
+    for side, args in zip("AP", chain_calls(eng, st, rand, EQUILIBRATION,
+                                            n_it)):
+        atoms, M, Y, phase, temp, budgets, consts, mass, _ = args
         cases.append(dict(
             name=(f"GIST {side} after {n_it} iterations ({consts.n_rows}x"
                   f"{consts.m}, k=7, B={consts.batch}, C={consts.capacity},"
                   f" atoms {atoms.n.tolist()})"),
-            atoms=atoms, M=M, Y=cache.Y, phase=phase, consts=consts,
+            atoms=atoms, M=M, Y=Y, phase=phase, consts=consts,
             mass=mass, budgets=budgets, nch=nch, B=consts.batch, temp=temp))
     return cases
+
+
+def chain_calls(eng, st, rand, phase, it):
+    """The arguments of iteration `it`'s two sweep-kernel calls of a
+    ChainEngine from state st, as engine.run_iteration builds them: the
+    A sampler's, then the P sampler's (on st's M_a), each with the
+    iteration's budgets, temperature and Philox key."""
+    from cogaps_tpu_torch.engine import SAMPLER_A, SAMPLER_P, annealing_temp
+    from cogaps_tpu_torch.models import dense
+    n_a, n_p = rand.budgets(phase, it, st.atoms_a.n, st.atoms_p.n)
+    temp = annealing_temp(eng.config, phase, it)
+    d = eng.data
+    calls = []
+    for atoms, M, tabs, consts, mass, budgets, sampler in (
+            (st.atoms_a, st.M_a, (d.D, d.invS2, st.M_a, st.M_p),
+             eng.consts_a, d.mass_a, n_a, SAMPLER_A),
+            (st.atoms_p, st.M_p, (d.D_t, d.invS2_t, st.M_p, st.M_a),
+             eng.consts_p, d.mass_p, n_p, SAMPLER_P)):
+        cache, tphase = dense.tables(*tabs)
+        calls.append((atoms, M, cache.Y, tphase, temp, budgets, consts, mass,
+                      rand.sweeps(phase, it, sampler)))
+    return calls
+
+
+def check_call(name, args, atlas=False):
+    """One update call of a main path at its own shapes, the kernel
+    against its plain version on the same arguments (the path's Philox
+    key): decisions exact, mass and M within phase 3's tolerances
+    (compare, compare_atlas for K4). Returns the largest |difference|;
+    raises on a mismatch."""
+    import torch
+    from cogaps_tpu_torch.ops import atlas_cuda, sweep_cuda
+    if atlas:
+        kernel, plain, cmp = (atlas_cuda.run_updates_atlas_multi,
+                              atlas_cuda.run_updates_atlas_multi_plain,
+                              compare_atlas)
+    else:
+        kernel, plain, cmp = (sweep_cuda.run_updates_multi,
+                              sweep_cuda.run_updates_multi_plain, compare)
+    out_k = kernel(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = plain(*args)
+    torch.cuda.synchronize()
+    problems, err = cmp({"name": name}, out_k, out_p,
+                        f"kernel vs plain ({time.perf_counter() - t0:.1f} s "
+                        f"plain)")
+    if problems:
+        raise AssertionError(f"{name}: kernel and plain version disagree: "
+                             f"{problems}")
+    return err
 
 
 def sweep_classes(report):
@@ -1574,6 +1657,512 @@ def phase_cli(D, card, n_it=500, seed=13):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 14: the sequential oracle
+# ----------------------------------------------------------------------
+def make_modsim(n_genes=25, n_samples=20, k=3, noise=0.1, seed=0):
+    """The modsim toy of tests/conftest.py::make_modsim (the reference's
+    modsimdata, R/data.R:12), copied: (D, A, P)."""
+    rng = np.random.default_rng(seed)
+    A = rng.gamma(2.0, 1.0, (n_genes, k)).astype(np.float32)
+    P = rng.gamma(2.0, 1.0, (n_samples, k)).astype(np.float32)
+    D = (A @ P.T + rng.normal(0, noise, (n_genes, n_samples)))
+    return D.clip(0).astype(np.float32), A, P
+
+
+def oracle_equilibrium(seed, n_it):
+    """(chi^2, atoms A, atoms P) of the SequentialOracle on modsim after
+    n_it + n_it iterations: a worker of phase 14's process pool."""
+    from cogaps_tpu_torch.oracle import SequentialOracle
+    orc = SequentialOracle(make_modsim()[0], k=3, seed=seed).run(n_it)
+    return orc.chisq(), orc.dom_a.size(), orc.dom_p.size()
+
+
+def phase_oracle(device, card, n_it=600, seeds=(0, 1, 2, 3)):
+    """The oracle on the host (one process a seed), then, once it has
+    ended, the port on the card with the same seeds and iterations: the
+    per-call route (a one-chain GapsEngine a seed, K1) and the fused
+    route (a 4-chain MultichainEngine with output_frequency 0, K3). Each
+    route's mean chi^2 within 25% of the oracle's, its mean atom counts
+    within 30% (tests/test_oracle.py:68-75). Then each kernel against
+    its plain version at the routes' shapes, from their final states:
+    K1's A and P calls of one more iteration of the last seed, K3 over a
+    5-iteration span of the 4 chains. Returns (each route's launches by
+    kernel, the largest |difference| of K1, of K3)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, SAMPLING, GapsEngine,
+                                         PhiloxRandom)
+    from cogaps_tpu_torch.ops import span, span_cuda
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    D = make_modsim()[0]
+    cfg = cogaps_tpu_torch.CogapsParams(
+        n_patterns=3, n_iterations=n_it,
+        output_frequency=0).engine_config(*D.shape)
+    counters = launch_counters()
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(len(seeds), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        futs = [pool.submit(oracle_equilibrium, s, n_it) for s in seeds]
+        runs = {"oracle": [f.result(timeout=600) for f in futs]}
+    secs = {"oracle": time.perf_counter() - t0}
+    launches, ends = {}, {}
+    for route in ("per-call", "fused"):
+        for w in counters.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if route == "per-call":
+            out = []
+            for s in seeds:
+                eng = GapsEngine(D, None, cfg, device)
+                rand = PhiloxRandom([s], device)
+                st, ss = eng.init_state(), eng.init_stats()
+                for ph in (EQUILIBRATION, SAMPLING):
+                    st, ss = eng.run_phase(st, ss, rand, ph)
+                out.append((float(eng.chisq(st)[0]), int(st.atoms_a.n[0]),
+                            int(st.atoms_p.n[0])))
+        else:
+            eng = MultichainEngine(stack_device_data(
+                [D] * len(seeds), None, cfg, device), cfg, device)
+            rand = PhiloxRandom(list(seeds), device)
+            st, ss = eng.init_state(), eng.init_stats()
+            for ph in (EQUILIBRATION, SAMPLING):
+                st, ss = eng.run_phase(st, ss, rand, ph)
+            out = list(zip(eng.chisq(st).tolist(), st.atoms_a.n.tolist(),
+                           st.atoms_p.n.tolist()))
+        torch.cuda.synchronize()
+        secs[route] = time.perf_counter() - t1
+        runs[route] = out
+        launches[route] = {n: w.launches for n, w in counters.items()}
+        ends[route] = (eng, st, ss, rand)
+    ref = np.mean(runs["oracle"], axis=0)
+    log(f"[14 oracle] modsim 25x20 k=3, seeds {list(seeds)}, {n_it}+{n_it} "
+        f"iterations (the oracle on the host, {len(seeds)} processes; the "
+        f"card's routes after it); card: {card}")
+    log("  run | mean chi^2 | mean atoms A | mean atoms P | per seed "
+        "(chi^2, A, P) | launches | seconds")
+    for route in ("oracle", "per-call", "fused"):
+        m = np.mean(runs[route], axis=0)
+        log(f"  {route} | {m[0]:.2f} | {m[1]:.2f} | {m[2]:.2f} | "
+            f"{[(round(c, 2), a, p) for c, a, p in runs[route]]} | "
+            f"{launches.get(route, '-')} | {secs[route]:.2f}")
+    for route in ("per-call", "fused"):
+        m = np.mean(runs[route], axis=0)
+        for i, (what, band) in enumerate((("chi^2", 0.25), ("atoms A", 0.3),
+                                          ("atoms P", 0.3))):
+            if not abs(m[i] - ref[i]) < band * ref[i]:
+                raise AssertionError(
+                    f"{route} route: mean {what} {m[i]:.2f} outside "
+                    f"{band:.0%} of the oracle's {ref[i]:.2f}")
+    k1, k3 = launches["per-call"], launches["fused"]
+    if not (k1["sweep"] > 0 and k1["span"] == 0 and k3["span"] > 0
+            and k3["sweep"] == 0):
+        raise AssertionError(f"routes launched {launches}")
+
+    eng, st, _, rand = ends["per-call"]
+    err_k1 = max(check_call(f"14 per-call {side} sampler (modsim, k=3, "
+                            f"seed {seeds[-1]}, iteration {n_it})", args)
+                 for side, args in zip("AP", chain_calls(
+                     eng, st, rand, SAMPLING, n_it)))
+    eng, st, ss, rand = ends["fused"]
+    span_args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, SAMPLING,
+                 eng.data, 0, 5, st, ss)
+    out_k = span_cuda.run_span(*span_args, rand)
+    out_p = span.run_span_plain(*span_args, rand)
+    torch.cuda.synchronize()
+    problems, err_k3 = compare_span(
+        f"14 fused, K3 vs plain: modsim x{len(seeds)}, 5 sampling "
+        f"iterations from the final state", out_k, out_p)
+    if problems:
+        raise AssertionError(f"K3 and its plain version disagree at "
+                             f"modsim: {problems}")
+    return launches, err_k1, err_k3
+
+
+# ----------------------------------------------------------------------
+# phase 15: gene-sharded chains and chain-sharded runs
+# ----------------------------------------------------------------------
+def sharded_specs():
+    from cogaps_tpu_torch.parallel.multichain import CHAIN_SPEC
+    from cogaps_tpu_torch.parallel.sharded import STATE_SPEC, STATS_SPEC
+    return {"dense": (STATE_SPEC, STATS_SPEC),
+            "sparse": (STATE_SPEC, STATS_SPEC), "chains": CHAIN_SPEC}
+
+
+def job_engine(kind, n_it, mesh, device):
+    """(engine, random source, checkpoint seed) of phase 15's runs:
+    "dense", ShardedGapsEngine on synthetic_dense(20000, 2000, 10) with
+    n_blocks = 8; "sparse", SparseShardedEngine on synthetic_sparse(2000,
+    10000, 10) with n_shards = 4; "chains", MultichainEngine of 16 GIST
+    chains (k=7, output_frequency 0: the fused span), chain c seeded
+    17 + c."""
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import (synthetic_dense,
+                                                synthetic_sparse)
+    from cogaps_tpu_torch.engine import PhiloxRandom
+    from cogaps_tpu_torch.io.coo import CooMatrix
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    from cogaps_tpu_torch.parallel.sharded import (ShardedGapsEngine,
+                                                   ShardedRandom)
+    from cogaps_tpu_torch.parallel.sparse_sharded import SparseShardedEngine
+    P = cogaps_tpu_torch.CogapsParams
+    if kind == "dense":
+        [D] = synthetic_dense(20000, 2000, 10, 1, 15)
+        cfg = P(n_patterns=10, n_iterations=n_it, seed=15,
+                output_frequency=max(n_it // 10, 1)).engine_config(*D.shape)
+        return (ShardedGapsEngine(D, None, cfg, mesh=mesh, n_blocks=8,
+                                  device=device),
+                ShardedRandom(15, device), 15)
+    if kind == "sparse":
+        [D] = synthetic_sparse(2000, 10000, 10, 1, 16)
+        r, c = np.nonzero(D)
+        coo = CooMatrix(r.astype(np.int32), c.astype(np.int32), D[r, c],
+                        D.shape)
+        cfg = P(n_patterns=10, n_iterations=n_it, seed=16,
+                output_frequency=1).engine_config(*D.shape)
+        return (SparseShardedEngine(coo, cfg, mesh=mesh, n_shards=4,
+                                    device=device),
+                ShardedRandom(16, device), 16)
+    D = np.load(GIST_NPZ)["D"].astype(np.float32)
+    cfg = P(n_patterns=7, n_iterations=n_it, seed=17,
+            output_frequency=0).engine_config(*D.shape)
+    eng = MultichainEngine(stack_device_data([D] * 16, None, cfg, "cpu"),
+                           cfg, device, mesh=mesh)
+    seeds = [17 + c for c in range(16)]
+    return (eng, PhiloxRandom([seeds[c] for c in eng.chains], device),
+            np.asarray(seeds))
+
+
+def run_job(kind, n_it, out, mesh=None, device="cuda", resume=None,
+            save=None):
+    """A whole run of one kind (from the checkpoint `resume`, if given;
+    writing one at save = (prefix, phase, iteration) on the way), its end
+    written as a per-rank checkpoint to `out`. Returns (engine, state,
+    stats, seconds of the iterations)."""
+    import torch
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING
+    eng, rand, seed = job_engine(kind, n_it, mesh, device)
+    start = (EQUILIBRATION, 0)
+    if resume is None:
+        state, stats = eng.init_state(), eng.init_stats()
+    else:
+        state, stats, phase, it, _ = eng.load_checkpoint(resume)
+        start = (phase, it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for phase in (EQUILIBRATION, SAMPLING):
+        if phase < start[0]:
+            continue
+        it = start[1] if phase == start[0] else 0
+        if save is not None and save[1] == phase:
+            state, stats = eng.run_phase(state, stats, rand, phase, it,
+                                         save[2])
+            eng.save_checkpoint(save[0], state, stats, phase, save[2], seed)
+            it = save[2]
+        state, stats = eng.run_phase(state, stats, rand, phase, it, n_it)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    eng.save_checkpoint(out, state, stats, SAMPLING, n_it, seed)
+    return eng, state, stats, secs
+
+
+def rank_card(rank, n, jobs):
+    """One of n ranks sharing the card over gloo: each job (kind,
+    iterations, out, save) on the group's mesh."""
+    from cogaps_tpu_torch.parallel import multihost
+    for kind, n_it, out, save in jobs:
+        mesh = multihost.global_mesh("chains" if kind == "chains"
+                                     else "genes")
+        secs = run_job(kind, n_it, out, mesh, save=save)[3]
+        log(f"  rank {rank} of {n} ({mesh.backend}, the card shared): "
+            f"{kind} {n_it}+{n_it} iterations {secs:.2f} s")
+
+
+def job_leaves(kind, out):
+    """(name, array) of every leaf of a run's final checkpoint, whole."""
+    import dataclasses
+    from cogaps_tpu_torch.parallel import multihost
+    spec = sharded_specs()[kind]
+    full = multihost.load_sharded_checkpoint(out, spec)
+    names = []
+    for part, tree in zip(("state", "stats"), spec):
+        for f in dataclasses.fields(tree):
+            sub = getattr(tree, f.name)
+            if dataclasses.is_dataclass(sub):
+                names += [f"{part}.{f.name}.{g.name}"
+                          for g in dataclasses.fields(sub)]
+            else:
+                names.append(f"{part}.{f.name}")
+    return list(zip(names, multihost.flatten(full)))
+
+
+def same_bits(kind, a, b, what):
+    """Fail unless two runs' final checkpoints are bit-equal, leaf by
+    leaf."""
+    la, lb = job_leaves(kind, a), job_leaves(kind, b)
+    for (name, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                x, y):
+            diff = (np.abs(x.astype(np.float64) - y.astype(np.float64)).max()
+                    if x.shape == y.shape else "shape")
+            raise AssertionError(f"{what}: {name} differs ({diff})")
+    return len(la)
+
+
+def run_report(what, stats, secs, launches, n_it, held):
+    """Phase 15's line for one run: seconds, seconds an iteration,
+    updates/s, the run's peak device memory above the `held` bytes
+    allocated before it, and launches by kernel."""
+    import torch
+    upd = int(stats.upd.sum())
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    log(f"  {what}: {secs:.3f} s, {secs / (2 * n_it):.5f} s an iteration, "
+        f"{upd / secs:.1f} updates/s ({upd} updates), peak device memory "
+        f"of the run {peak:.2f} GiB (above the {held / 2**30:.2f} GiB held "
+        f"before it), launches {launches}")
+
+
+def p_drift(state, n_samples, k):
+    """max |M_p - the P atoms' mass per element| and its limit, 0.01 x
+    max(1, max M_p) (tests/test_parallel.py:78-92 at this scale)."""
+    from cogaps_tpu_torch.ops.atoms import total_mass_per_element
+    mp = total_mass_per_element(state.atoms_p.chain(0),
+                                n_samples * k).reshape(n_samples, k)
+    drift = float((mp - state.M_p[0]).abs().max())
+    return drift, 0.01 * max(1.0, float(state.M_p.max()))
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def unit_checks(what, eng, st, units, seed, it):
+    """Phase 15's update calls of one more sampling iteration of a
+    gene-sharded engine (its own a_call and p_call, the run's streams),
+    each kernel against its plain version. Returns the largest
+    |difference| of the A call and of the P call."""
+    from cogaps_tpu_torch.engine import SAMPLER_A, SAMPLER_P, SAMPLING
+    from cogaps_tpu_torch.parallel.sharded import ShardedRandom
+    rand = ShardedRandom(seed, eng.device)
+    n_a, n_p = rand.budgets(SAMPLING, it, st.atoms_a.n, st.atoms_p.n, units)
+    err_a = check_call(f"{what} A sampler ({len(units)} units)", eng.a_call(
+        st, n_a, 1.0, rand.sweeps(SAMPLING, it, SAMPLER_A, units)),
+        atlas=getattr(eng, "mode", None) == "xla")
+    return err_a, check_call(f"{what} P sampler", eng.p_call(
+        st.atoms_p, st.M_p, st.M_a, 1.0, n_p,
+        rand.sweeps(SAMPLING, it, SAMPLER_P)))
+
+
+def sparse_split(eng, state, it):
+    """One more sampling iteration of the sparse sharded engine, timed in
+    its parts (ms) through the engine's own steps: the A sampler's
+    arguments (a_call: its tables, a shard at a time, unless the mode is
+    "xla") and its launch, the P sampler's per-shard table build
+    (p_parts), their ordered sum (sum_p_parts) and its K2 launch."""
+    from cogaps_tpu_torch.engine import SAMPLER_A, SAMPLER_P, SAMPLING
+    from cogaps_tpu_torch.ops.atlas_cuda import run_updates_atlas_multi
+    from cogaps_tpu_torch.ops.sweep_cuda import run_updates_multi
+    from cogaps_tpu_torch.parallel.sharded import ShardedRandom
+    rand = ShardedRandom(19, eng.device)
+    n_a, n_p = rand.budgets(SAMPLING, it, state.atoms_a.n, state.atoms_p.n,
+                            eng.shards)
+    xla = eng.mode == "xla"
+    ms = {}
+    args, ms["A tables"] = timed(lambda: eng.a_call(
+        state, n_a, 1.0, rand.sweeps(SAMPLING, it, SAMPLER_A, eng.shards)))
+    out_a, ms["A launch (K4)" if xla else "A launch (K2)"] = timed(
+        lambda: (run_updates_atlas_multi if xla else run_updates_multi)(
+            *args))
+    del args
+    parts, ms["P table build"] = timed(lambda: eng.p_parts(out_a[1],
+                                                           state.M_p))
+    (Y0, phase), ms["P table sum"] = timed(lambda: eng.sum_p_parts(
+        parts, out_a[1]))
+    del parts
+    _, ms["P launch (K2)"] = timed(lambda: run_updates_multi(
+        state.atoms_p, state.M_p, Y0, phase, 1.0, n_p, eng.consts_p,
+        eng.mass_p, rand.sweeps(SAMPLING, it, SAMPLER_P)))
+    return {k: round(v, 3) for k, v in ms.items()}
+
+
+def phase_sharded(device, card, n_full=200, n_atlas=40):
+    """Bitwise checks across rank counts with ranks that share the card
+    over gloo, run first, while this process waits: (b) the dense
+    engine, 20 + 20 iterations, on 2 and 4 ranks, and a checkpoint
+    written by 2 ranks at sampling iteration 10; (d) the sparse engine
+    at 2000 x 10000, k=10, n_shards=4, 5 + 5, on 2 ranks; (e) 16 GIST
+    chains (the fused span), 100 + 100, on 2 ranks, and their checkpoint
+    after equilibration. Then, with the card and the host to this
+    process alone: (a) ShardedGapsEngine at 20000 x 2000, k=10,
+    n_blocks=8, mesh=None, n_full + n_full iterations; (c)
+    SparseShardedEngine at 30000 x 50000 (2% nonzeros), k=50,
+    n_shards=4, mesh=None, n_atlas + n_atlas; each with its update calls
+    of one more iteration held against their plain versions; (b), (d)
+    and (e) on mesh=None and the two resumes on 1 rank, bit-equal to the
+    ranks' runs. Returns (the launches by kernel of this process's runs,
+    the largest |difference| by kernel of those checks)."""
+    import tempfile
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import synthetic_coo
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING
+    from cogaps_tpu_torch.parallel import launch
+    from cogaps_tpu_torch.parallel.sharded import ShardedRandom
+    from cogaps_tpu_torch.parallel.sparse_sharded import SparseShardedEngine
+    counters = launch_counters()
+    total = collections.Counter()
+
+    def counted(kind, fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after; returns (its result, the launches, the device bytes
+        allocated before it)."""
+        for w in counters.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out = fn()
+        got = {n: w.launches for n, w in counters.items()}
+        if kind == "sparse":  # the sweep kernel on sparse tables is K2
+            got["tables"] = got.pop("sweep")
+        total.update(got)
+        return out, {n: c for n, c in got.items() if c}, held
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def p(name):
+            return os.path.join(tmp, name)
+
+        t0 = time.perf_counter()
+        groups = [launch.start(rank_card, 2, [
+            ("dense", 20, p("d2"), (p("dmid"), SAMPLING, 10)),
+            ("sparse", 5, p("s2"), None),
+            ("chains", 100, p("c2"), (p("cmid"), EQUILIBRATION, 100))]),
+            launch.start(rank_card, 4, [("dense", 20, p("d4"), None)])]
+        try:
+            for g in groups:
+                launch.join(g, timeout=600)
+        except BaseException:
+            for g in groups:
+                launch.kill(g)
+            raise
+        log(f"[15 sharded] the groups of 2 and 4 ranks, run together, "
+            f"ended after {time.perf_counter() - t0:.1f} s (start-up "
+            f"included); card: {card}")
+
+        # (a) dense, full width
+        (eng, st, ss, secs), got, held = counted(
+            "dense", lambda: run_job("dense", n_full, p("d_full")))
+        log(f"  (a) ShardedGapsEngine, synthetic_dense(20000, 2000, 10), "
+            f"n_blocks=8, mesh=None, {n_full}+{n_full} iterations, alone "
+            f"on the card")
+        run_report("dense full width", ss, secs, got, n_full, held)
+        hist = ss.chisq_hist[0].cpu().numpy()
+        drift, limit = p_drift(st, eng.n_samples, 10)
+        log(f"  chi^2 history {np.round(hist, 1).tolist()}; atoms A "
+            f"{int(st.atoms_a.n.sum())} ({st.atoms_a.n.tolist()}), P "
+            f"{int(st.atoms_p.n[0])}; P mass drift {drift:.3g} (limit "
+            f"{limit:.3g})")
+        if not falling(hist) or drift > limit:
+            raise AssertionError("dense sharded run: chi^2 not falling "
+                                 "or P drifted")
+        if eng.trim(st.M_a.cpu().numpy()).shape != (20000, 10):
+            raise AssertionError("trimmed A has the wrong shape")
+        if got != {"sweep": 2 * 2 * n_full}:
+            raise AssertionError(f"launches {got}, expected K1 twice an "
+                                 f"iteration")
+        errs = {"sweep": max(unit_checks("15 (a)", eng, st, eng.blocks, 15,
+                                         n_full))}
+        del eng, st, ss
+
+        # (c) sparse, full width
+        t0 = time.perf_counter()
+        coo = synthetic_coo(30000, 50000, 0.02, 19)
+        t1 = time.perf_counter()
+        cfg = cogaps_tpu_torch.CogapsParams(
+            n_patterns=50, n_iterations=n_atlas, seed=19,
+            output_frequency=max(n_atlas // 2, 1)).engine_config(*coo.shape)
+        eng = SparseShardedEngine(coo, cfg, n_shards=4, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        nnz = len(coo.vals)
+        del coo
+
+        def sparse_run():
+            rand = ShardedRandom(19, device)
+            st, ss = eng.init_state(), eng.init_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for ph in (EQUILIBRATION, SAMPLING):
+                st, ss = eng.run_phase(st, ss, rand, ph)
+            torch.cuda.synchronize()
+            return st, ss, time.perf_counter() - t
+
+        (st, ss, secs), got, held = counted("sparse", sparse_run)
+        log(f"  (c) SparseShardedEngine, synthetic_coo(30000, 50000, "
+            f"0.02): {nnz} nonzeros, k=50, n_shards=4, mesh=None, A-side "
+            f"mode {eng.mode!r} (sparse_engine.resolve_sparse_mode at one "
+            f"shard of {eng.g_local} genes), {n_atlas}+{n_atlas} "
+            f"iterations, alone on the card; set-up {t1 - t0:.1f} s COO "
+            f"generation + {t2 - t1:.1f} s shards")
+        run_report("sparse full width", ss, secs, got, n_atlas, held)
+        hist = ss.chisq_hist[0].cpu().numpy()
+        drift, limit = p_drift(st, eng.n_samples, 50)
+        split = sparse_split(eng, st, n_atlas)
+        log(f"  chi^2 history {np.round(hist, 1).tolist()}; atoms A "
+            f"{st.atoms_a.n.tolist()}, P {int(st.atoms_p.n[0])}; P mass "
+            f"drift {drift:.3g} (limit {limit:.3g}); one more iteration "
+            f"in parts (ms): {json.dumps(split)}")
+        if not falling(hist) or drift > limit:
+            raise AssertionError("sparse sharded run: chi^2 not falling "
+                                 "or P drifted")
+        want = ({"atlas": 2 * n_atlas, "tables": 2 * n_atlas}
+                if eng.mode == "xla" else {"tables": 4 * n_atlas})
+        if got != want:
+            raise AssertionError(f"sparse sharded launches {got}, expected "
+                                 f"{want} in mode {eng.mode!r}")
+        err_a, errs["tables"] = unit_checks("15 (c)", eng, st, eng.shards,
+                                            19, n_atlas)
+        a_kind = "atlas" if eng.mode == "xla" else "tables"
+        errs[a_kind] = max(errs.get(a_kind, 0.0), err_a)
+        del eng, st, ss
+
+        # (b), (d), (e) on one rank, and the resumes from 2 ranks' files
+        one = {}
+        for part, kind, n_it in (("(b)", "dense", 20), ("(d)", "sparse", 5),
+                                 ("(e)", "chains", 100)):
+            (_, _, ss, secs), got, held = counted(
+                kind, lambda: run_job(kind, n_it, p(kind[0] + "1")))
+            one[kind] = got
+            run_report(f"{part} {kind}, mesh=None", ss, secs, got, n_it,
+                       held)
+        if not (one["chains"].get("span") and not one["chains"].get("sweep")):
+            raise AssertionError(f"the chains left the fused span: "
+                                 f"{one['chains']}")
+        for kind, n_it, resume, out in (("dense", 20, "dmid", "dr"),
+                                        ("chains", 100, "cmid", "cr")):
+            counted(kind, lambda: run_job(kind, n_it, p(out),
+                                          resume=p(resume)))
+        checks = [("dense", "d1", "d2", "2 ranks"),
+                  ("dense", "d1", "d4", "4 ranks"),
+                  ("dense", "d1", "dr", "resumed on 1 from 2 ranks"),
+                  ("sparse", "s1", "s2", "2 ranks"),
+                  ("chains", "c1", "c2", "2 ranks"),
+                  ("chains", "c1", "cr", "resumed on 1 from 2 ranks")]
+        for kind, a, b, what in checks:
+            n = same_bits(kind, p(a), p(b), f"{kind}, {what}")
+            log(f"  {kind}: mesh=None == {what}, all {n} leaves bit-equal")
+    return dict(total), errs
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cogaps_tpu_torch")):
         log("cogaps_tpu_torch is not beside this script: run it from a "
@@ -1879,6 +2468,17 @@ def main() -> int:
     cli_launches = phase_cli(D_sparse, card)
     log(f"  phase {time.perf_counter() - t0:.1f} s")
 
+    # 14. the sequential oracle against both routes
+    t0 = time.perf_counter()
+    oracle_launches, oracle_k1_err, oracle_k3_err = phase_oracle(device,
+                                                                 card)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+
+    # 15. gene-sharded chains and chain-sharded runs
+    t0 = time.perf_counter()
+    sharded_launches, sharded_errs = phase_sharded(device, card)
+    log(f"  phase {time.perf_counter() - t0:.1f} s")
+
     def entry(name, source, replaces, launches, err, row, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -1887,37 +2487,50 @@ def main() -> int:
                 "shape": row[0], **extra}
 
     # launches by main-path phase: the dense sweep (K1) in phases 4, 11
-    # (GWCoGAPS's fixed stage) and 12; the same kernel on the sparse
-    # tables (K2) in 7, 8, 11 (scCoGAPS) and 13 (the CLI); K3 in 5 and 11;
-    # K4 in 9
+    # (GWCoGAPS's fixed stage), 12, 14 (the per-call route) and 15 (the
+    # dense sharded engine); the same kernel on the sparse tables (K2) in
+    # 7, 8, 11 (scCoGAPS), 13 (the CLI) and 15 (the sparse sharded
+    # engine); K3 in 5, 11, 14 (the fused route) and 15 (the chains); K4
+    # in 9, and in 15 where the sparse mode rule picks it
     sweep_by = {"4": launches, "11": sum(st["sweep"] for st in
                                          dist_by_run["GWCoGAPS"]),
-                "12": ckpt_launches["sweep"]}
+                "12": ckpt_launches["sweep"],
+                "14": oracle_launches["per-call"]["sweep"],
+                "15": sharded_launches.get("sweep", 0)}
     tables_by = {"7": sparse_launches["sweep"], "8": multi_launches["sweep"],
                  "11": sum(st["sweep"] for st in dist_by_run["scCoGAPS"]),
-                 "13": cli_launches["sweep"]}
-    span_by = {"5": span_launches, "11": dist_launches["span"]}
+                 "13": cli_launches["sweep"],
+                 "15": sharded_launches.get("tables", 0)}
+    span_by = {"5": span_launches, "11": dist_launches["span"],
+               "14": oracle_launches["fused"]["span"],
+               "15": sharded_launches.get("span", 0)}
     atlas_by = {"7": sparse_launches["atlas"], "8": multi_launches["atlas"],
                 "9": atlas_launches, "11": dist_launches["atlas"]}
+    if sharded_launches.get("atlas"):
+        atlas_by["15"] = sharded_launches["atlas"]
 
     def by_phase(counts):
         return dict(launches=sum(counts.values()), launches_by_phase=counts)
 
     kernel_line = {"kernels": [
         entry("sweep", "cogaps_tpu_torch/csrc/sweep.cu",
-              "cogaps_tpu/ops/pallas_sweep.py:815", 0, max_err,
+              "cogaps_tpu/ops/pallas_sweep.py:815", 0,
+              max(max_err, oracle_k1_err, sharded_errs["sweep"]),
               kernel_times[0], device_ms=kernel_times[0][8]) | by_phase(
                   sweep_by),
         entry("sweep_tables", "cogaps_tpu_torch/csrc/sweep.cu",
-              "cogaps_tpu/ops/pallas_sweep.py:1074", 0, tables_err,
+              "cogaps_tpu/ops/pallas_sweep.py:1074", 0,
+              max(tables_err, sharded_errs["tables"]),
               tables_times[0], device_ms=tables_times[0][8]) | by_phase(
                   tables_by),
         entry("atlas", "cogaps_tpu_torch/csrc/atlas.cu",
-              "cogaps_tpu/ops/pallas_atlas.py:760", 0, atlas_err,
+              "cogaps_tpu/ops/pallas_atlas.py:760", 0,
+              max(atlas_err, sharded_errs.get("atlas", 0.0)),
               atlas_times[0]) | by_phase(atlas_by),
         entry("span", "cogaps_tpu_torch/csrc/span.cu",
               "cogaps_tpu/ops/pallas_iter.py:161", 0,
-              max(span_err, padded_err), span_times) | by_phase(span_by),
+              max(span_err, padded_err, oracle_k3_err),
+              span_times) | by_phase(span_by),
     ] + probe_suite.kernel_entries(probe_records, probe_launches)}
     if min(e["launches"] for e in kernel_line["kernels"]) <= 0:
         raise AssertionError("a kernel of the path was never launched")

@@ -1,5 +1,5 @@
 """Independent chains run as one program — the PyTorch counterpart of
-cogaps_tpu/parallel/multichain.py without the device mesh.
+cogaps_tpu/parallel/multichain.py.
 
 The counterpart of the reference's process-level parallelism (one
 forked C++ engine per data subset, R/DistributedCogaps.R:56-67): chains
@@ -8,11 +8,17 @@ Where the run records nothing per iteration and the data is small (the
 throughput configuration on GIST), whole spans of iterations run in one
 launch of the fused-span kernel (ops/span_cuda.py, the port of ops/pallas_iter.py);
 otherwise each sampler's update call runs every chain in one kernel
-launch.
+launch. With a process mesh (parallel/multihost.py) each rank holds a
+contiguous group of the chains and runs them with no communication, as
+the JAX engine's shard_map over its "chains" axis does; a chain's bits do
+not depend on the rank count, since its Philox streams hold no chain
+index (engine.PhiloxRandom). Checkpoints are per rank: each rank writes
+the chains it holds, and a load reassembles them for the current mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -20,8 +26,10 @@ import numpy as np
 from ..engine import (ChainEngine, ChainState, DeviceData, RunStats,
                       _device_data)
 from ..models import dense
+from ..ops.atoms import AtomTable
 from ..ops import span_cuda
 from ..params import EngineConfig
+from . import multihost
 
 # the fused span's domain: the JAX package's semantic condition
 MAX_SPAN_SAMPLES = 128
@@ -36,6 +44,10 @@ MAX_SPAN_SAMPLES = 128
 # k=10 (948 M) 5.5095 : 4.8534 and 5.5512 : 4.8791. The span wins up to
 # 284 M, the two trade places near 474 M, per-call wins beyond.
 MAX_SPAN_REBUILD_OPS = 300_000_000
+# every leaf of a multichain state is sharded along its chain dimension
+CHAIN_SPEC = (ChainState(atoms_a=AtomTable(0, 0, 0),
+                         atoms_p=AtomTable(0, 0, 0), M_a=0, M_p=0),
+              RunStats(**{f.name: 0 for f in dataclasses.fields(RunStats)}))
 
 
 def stack_device_data(Ds, Ss, cfg: EngineConfig, device) -> DeviceData:
@@ -68,7 +80,24 @@ def stack_device_data(Ds, Ss, cfg: EngineConfig, device) -> DeviceData:
 class MultichainEngine(ChainEngine):
     """C independent chains of stacked data on `device`. `data` carries a
     leading chain axis (stack_device_data); states, statistics and the
-    PhiloxRandom seeds follow it."""
+    PhiloxRandom seeds follow it. With a `mesh` (multihost.ProcessMesh)
+    this rank holds the chains `self.chains` of `data`: its states,
+    statistics and random streams are theirs (PhiloxRandom of
+    [seeds[c] for c in self.chains])."""
+
+    def __init__(self, data: DeviceData, config: EngineConfig, device,
+                 mesh: Optional[multihost.ProcessMesh] = None):
+        self.mesh = mesh
+        self.n_chains_total = data.D.shape[0]
+        self.chains = multihost.local_units(self.n_chains_total, mesh)
+        if mesh is not None:
+            lo, hi = self.chains.start, self.chains.stop
+            data = DeviceData(
+                D=data.D[lo:hi], invS2=data.invS2[lo:hi],
+                D_t=data.D_t[lo:hi], invS2_t=data.invS2_t[lo:hi],
+                mass_a=type(data.mass_a)(*(x[lo:hi] for x in data.mass_a)),
+                mass_p=type(data.mass_p)(*(x[lo:hi] for x in data.mass_p)))
+        super().__init__(data, config, device)
 
     def _fused_ok(self) -> bool:
         """Whether run_phase takes the fused span: the semantic conditions
@@ -110,3 +139,31 @@ class MultichainEngine(ChainEngine):
             if progress_cb is not None:
                 progress_cb(phase, b, state)
         return state, stats
+
+    # ------------------------------------------------------------------
+    # per-rank checkpoints (cogaps_tpu/parallel/multichain.py:345-376):
+    # every leaf is sharded along its leading chain dimension
+    def save_checkpoint(self, path_prefix: str, state: ChainState,
+                        stats: RunStats, phase: int, it: int, seeds) -> str:
+        """Write this rank's chains after iteration `it` of `phase`;
+        `seeds` holds every chain's seed."""
+        return multihost.save_sharded_checkpoint(
+            path_prefix, (state, stats),
+            extra={"phase": np.int32(phase), "iter": np.int32(it),
+                   "seeds": np.asarray(seeds),
+                   "n_chains": np.int32(self.n_chains_total)},
+            spec=CHAIN_SPEC, mesh=self.mesh)
+
+    def load_checkpoint(self, path_prefix: str):
+        """(state, stats, phase, iter, seeds): this rank's chains of a
+        checkpoint written on any rank count, on the engine's device;
+        `seeds` holds every chain's seed."""
+        with np.load(multihost.shard_files(path_prefix)[0]) as z:
+            if int(z["extra_n_chains"]) != self.n_chains_total:
+                raise ValueError("checkpoint chain count mismatch")
+            phase, it = int(z["extra_phase"]), int(z["extra_iter"])
+            seeds = np.asarray(z["extra_seeds"])
+        state, stats = multihost.load_sharded_checkpoint(
+            path_prefix, CHAIN_SPEC, CHAIN_SPEC, self.mesh)
+        return (multihost.to_device(state, self.device),
+                multihost.to_device(stats, self.device), phase, it, seeds)

@@ -329,9 +329,11 @@ def test_clean_import_loads_no_jax():
     code = ("import sys; import cogaps_tpu_torch; "
             "from cogaps_tpu_torch import api, engine, convert, bench_harness; "
             "from cogaps_tpu_torch import analysis, plots, datasets, __main__; "
+            "from cogaps_tpu_torch import oracle; "
             "from cogaps_tpu_torch.io import h5, rdata, native; "
             "from cogaps_tpu_torch.parallel import (multichain, distributed, "
-            "clustering, atlas_engine); "
+            "clustering, atlas_engine, sharded, sparse_sharded, multihost, "
+            "launch); "
             "from cogaps_tpu_torch.utils import checkpoint, atoms_compat; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in %r))"

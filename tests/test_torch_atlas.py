@@ -262,7 +262,8 @@ def test_atlas_state_converts_from_jax():
     rng = np.random.default_rng(4)
     M_a = rng.gamma(2.0, 1.0, (64, 3)).astype(np.float32)
     jstate = jstate._replace(mmir_a=jstate.mmir_a.at[:, :3].set(M_a))
-    state = convert.atlas_state_from_numpy(jax.device_get(jstate), 3)
+    state = convert.atlas_state_from_numpy(jax.device_get(jstate), 3,
+                                           device="cpu")
     np.testing.assert_array_equal(state.M_a[0].numpy(), M_a)
     assert state.M_p.shape == (1, 48, 3)
     assert state.atoms_a.mass.shape == (1, 2048)

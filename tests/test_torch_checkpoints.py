@@ -315,8 +315,9 @@ def test_checkpoint_arrays_equal_jax(tmp_path, modsim, sparse_model):
         peng = sparse_engine.SparseGapsEngine(D, cfg, "cpu")
     else:
         peng = engine.GapsEngine(D, None, cfg, "cpu")
-    pstate = convert.chain_state_from_numpy(jax.device_get(jstate))
-    pstats = convert.run_stats_from_numpy(jax.device_get(jstats))
+    pstate = convert.chain_state_from_numpy(jax.device_get(jstate),
+                                            device="cpu")
+    pstats = convert.run_stats_from_numpy(jax.device_get(jstats), device="cpu")
     ppath = str(tmp_path / "port.npz")
     ckpt.save_checkpoint(ppath, peng, pstate, pstats, 0, 12, 9)
 

@@ -40,7 +40,11 @@ draw alike in fast mode, and as a one-chain launch of that seed does
 --device runs on the card (K1 launches; diagnostics["device"] is CUDA
 in the npz and the CSV meta file), and the native parser builds with the
 card host's C++ compiler into cogaps_tpu_torch/_build/ and reads GIST as
-the Python parsers do."""
+the Python parsers do. The gene-sharded engines run their kernels as
+their plain versions run the same iterations (the dense engine's blocks
+and replicated P on K1, the sparse engine's P sampler on summed tables
+on K2: decision-exact, mass and M within 1e-5), and two ranks that share
+the card over gloo give the bits of one process (mesh=None)."""
 
 import os
 import re
@@ -1259,3 +1263,122 @@ def test_native_parser_builds_on_the_cards_host(cuda_device):
         b = parsers.read_matrix(path, use_native=False)
         assert np.array_equal(a[0], b[0]) and a[0].shape == (1363, 9)
         assert a[1:] == b[1:]
+
+
+# ----------------------------------------------------------------------
+# the gene-sharded engines (parallel/sharded.py, sparse_sharded.py)
+# ----------------------------------------------------------------------
+def _assert_states_match(got, want, what):
+    for side in ("atoms_a", "atoms_p"):
+        a, b = getattr(got, side), getattr(want, side)
+        assert torch.equal(a.elem, b.elem) and torch.equal(a.n, b.n), (
+            what, side)
+        torch.testing.assert_close(a.mass, b.mass, rtol=1e-5, atol=1e-5)
+    for name in ("M_a", "M_p"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_sharded_dense_iterations_match_plain(cuda_device, monkeypatch):
+    """Three iterations of ShardedGapsEngine (8 blocks of a 2000 x 100
+    matrix, k=10) from a state after 20: K1 for the blocks and for the
+    replicated P, against the same iterations on the plain version."""
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.params import CogapsParams
+    from cogaps_tpu_torch.parallel import sharded
+    [D] = synthetic_dense(2000, 100, 10, 1, 4)
+    cfg = CogapsParams(n_patterns=10, n_iterations=40, seed=4,
+                       output_frequency=1).engine_config(*D.shape)
+    eng = sharded.ShardedGapsEngine(D, None, cfg, n_blocks=8,
+                                    device=cuda_device)
+    rand = sharded.ShardedRandom(4, cuda_device)
+    st, ss = eng.run_phase(eng.init_state(), eng.init_stats(), rand, 0, 0,
+                           20)
+    before = sweep_cuda.run_updates_multi.launches
+    kst, kss = eng.run_phase(st, ss, rand, 0, 20, 23)
+    assert sweep_cuda.run_updates_multi.launches - before == 6
+    monkeypatch.setattr(sharded, "run_updates_multi",
+                        sweep_cuda.run_updates_multi_plain)
+    pst, pss = eng.run_phase(st, ss, rand, 0, 20, 23)
+    _assert_states_match(kst, pst, "dense sharded")
+    assert torch.equal(kss.upd, pss.upd)
+    assert torch.equal(kss.prop_counts, pss.prop_counts)
+    torch.testing.assert_close(kss.chisq_hist, pss.chisq_hist, rtol=1e-5,
+                               atol=0)
+
+
+def test_sparse_sharded_p_sampler_matches_plain(cuda_device):
+    """The sparse sharded engine's P sampler: one K2 launch on the tables
+    summed over 4 shards (2000 x 10000, k=10), against its plain version
+    on the same tables."""
+    from cogaps_tpu_torch.bench_harness import synthetic_sparse
+    from cogaps_tpu_torch.engine import SAMPLER_P
+    from cogaps_tpu_torch.io.coo import CooMatrix
+    from cogaps_tpu_torch.params import CogapsParams
+    from cogaps_tpu_torch.parallel import sharded, sparse_sharded
+    [D] = synthetic_sparse(2000, 10000, 10, 1, 6)
+    r, c = np.nonzero(D)
+    coo = CooMatrix(r.astype(np.int32), c.astype(np.int32), D[r, c], D.shape)
+    cfg = CogapsParams(n_patterns=10, n_iterations=20,
+                       seed=6).engine_config(*D.shape)
+    eng = sparse_sharded.SparseShardedEngine(coo, cfg, n_shards=4,
+                                             device=cuda_device)
+    rand = sharded.ShardedRandom(6, cuda_device)
+    st, _ = eng.run_phase(eng.init_state(), eng.init_stats(), rand, 0, 0, 10)
+    Y0, phase = eng.p_tables(st.M_a, st.M_p)
+    n_p = torch.full((1,), 400, dtype=torch.int32, device=cuda_device)
+    args = (st.atoms_p, st.M_p, Y0, phase, 1.0, n_p, eng.consts_p,
+            eng.mass_p, rand.sweeps(1, 0, SAMPLER_P))
+    out_k = sweep_cuda.run_updates_multi(*args)
+    out_p = sweep_cuda.run_updates_multi_plain(*args)
+    for i in (3, 4):  # done, sweeps
+        assert torch.equal(out_k[i], out_p[i])
+    assert torch.equal(out_k[5].processed, out_p[5].processed)
+    assert torch.equal(out_k[0].elem, out_p[0].elem)
+    torch.testing.assert_close(out_k[0].mass, out_p[0].mass, rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(out_k[1], out_p[1], rtol=1e-5, atol=1e-5)
+
+
+def test_two_ranks_sharing_the_card_match_one(cuda_device, tmp_path):
+    """The dense sharded engine on 2 ranks that share the card over gloo
+    (tensors on the card, collectives staged through the host): the bits
+    of the one-process run."""
+    import torch_ranks
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.parallel import launch
+    [D] = synthetic_dense(2000, 100, 10, 1, 5)
+    params = dict(n_patterns=10, n_iterations=10, seed=5, output_frequency=2)
+    kw = {"n_blocks": 8}
+    launch.join(launch.start(torch_ranks.rank_run, 2, "dense", D, params,
+                             kw, str(tmp_path / "two"), None, None, "cuda"),
+                timeout=300)
+    torch_ranks.run("dense", D, params, kw, str(tmp_path / "one"),
+                    device="cuda")
+    torch_ranks.assert_same_bits(
+        torch_ranks.result("dense", str(tmp_path / "two")),
+        torch_ranks.result("dense", str(tmp_path / "one")), "2 ranks")
+
+
+def test_nccl_ranks_on_their_own_cards_match_one(cuda_device, tmp_path):
+    """With a card a rank the default backend is NCCL (collectives on the
+    cards, no host staging): the dense sharded engine on 2 or 4 ranks,
+    each on its own card, gives the bits of one process on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a card a rank: two cards or more")
+    import torch_ranks
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.parallel import launch, multihost
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    assert multihost.default_backend(n) == "nccl"
+    [D] = synthetic_dense(2000, 100, 10, 1, 5)
+    params = dict(n_patterns=10, n_iterations=10, seed=5, output_frequency=2)
+    kw = {"n_blocks": 8}
+    launch.join(launch.start(torch_ranks.rank_run, n, "dense", D, params,
+                             kw, str(tmp_path / "ranks"), None, None, "cuda",
+                             backend="nccl"), timeout=300)
+    torch_ranks.run("dense", D, params, kw, str(tmp_path / "one"),
+                    device="cuda")
+    torch_ranks.assert_same_bits(
+        torch_ranks.result("dense", str(tmp_path / "ranks")),
+        torch_ranks.result("dense", str(tmp_path / "one")), f"{n} ranks")

@@ -154,15 +154,18 @@ def test_subset_chains_lockstep_with_jax(modsim, mode, sparse_model, fixed):
     assert vars(cfg) == vars(jcfg)
     if sparse_model:
         cfg = dataclasses.replace(cfg, sparse_table_mode="xla")
-        data = convert.sparse_data_from_numpy(jax.device_get(jeng.data))
+        data = convert.sparse_data_from_numpy(jax.device_get(jeng.data),
+                                              device="cpu")
         run = sparse_engine.run_iteration_sparse
     else:
-        data = convert.device_data_from_numpy(jax.device_get(jeng.data))
+        data = convert.device_data_from_numpy(jax.device_get(jeng.data),
+                                              device="cpu")
         run = engine.run_iteration
     hist = engine.derive_hist(cfg)
     consts_a, consts_p = engine.build_consts(cfg, G, S)
-    pstate = convert.chain_state_from_numpy(jax.device_get(jstate))
-    pstats = convert.run_stats_from_numpy(jax.device_get(jstats))
+    pstate = convert.chain_state_from_numpy(jax.device_get(jstate),
+                                            device="cpu")
+    pstats = convert.run_stats_from_numpy(jax.device_get(jstats), device="cpu")
     fused = not sparse_model and not fixed
     if fused:  # the fused span's plain version, from the same state
         fstate, fstats = pstate, pstats

@@ -125,9 +125,11 @@ def test_run_iteration_matches_jax_in_lockstep(warm):
     cfg = CogapsParams(**prm).engine_config(*D.shape)
     hist = engine.derive_hist(cfg)
     consts_a, consts_p = engine.build_consts(cfg, *D.shape)
-    data = convert.device_data_from_numpy(jax.device_get(jeng.data))
-    pstate = convert.chain_state_from_numpy(jax.device_get(jstate))
-    pstats = convert.run_stats_from_numpy(jax.device_get(jstats))
+    data = convert.device_data_from_numpy(jax.device_get(jeng.data),
+                                          device="cpu")
+    pstate = convert.chain_state_from_numpy(jax.device_get(jstate),
+                                            device="cpu")
+    pstats = convert.run_stats_from_numpy(jax.device_get(jstats), device="cpu")
     assert_same(pstate, pstats, jstate, jstats)
     assert int(jstate.atoms_p.n) > 10
     assert int(jstate.atoms_a.n) > 10 or cfg.which_matrix_fixed == "A"
@@ -153,17 +155,19 @@ def test_run_iteration_matches_jax_in_lockstep(warm):
 
 def test_convert_round_trip(warm):
     _, _, _, jeng, _, jstate, jstats = warm
-    pstate = convert.chain_state_from_numpy(jax.device_get(jstate))
+    pstate = convert.chain_state_from_numpy(jax.device_get(jstate),
+                                            device="cpu")
     as_map = convert.to_numpy(pstate)
-    again = convert.chain_state_from_numpy(as_map)
+    again = convert.chain_state_from_numpy(as_map, device="cpu")
     for side in ("atoms_a", "atoms_p"):
         for f in ("mass", "elem", "n"):
             assert torch.equal(getattr(getattr(again, side), f),
                                getattr(getattr(pstate, side), f))
-    pstats = convert.run_stats_from_numpy(jax.device_get(jstats))
+    pstats = convert.run_stats_from_numpy(jax.device_get(jstats), device="cpu")
     total = int(jstats.upd_hi) * (1 << 30) + int(jstats.upd_lo)
     assert pstats.upd.dtype == torch.int64 and int(pstats.upd[0]) == total
-    data = convert.device_data_from_numpy(jax.device_get(jeng.data))
+    data = convert.device_data_from_numpy(jax.device_get(jeng.data),
+                                          device="cpu")
     assert data.D.shape == (1,) + tuple(jeng.data.D.shape)
     assert torch.equal(data.D_t[0], data.D[0].T)
 

@@ -309,9 +309,11 @@ def test_span_matches_jax_iterations(modsim):
     cfg = CogapsParams(**PARAMS).engine_config(*D.shape)
     hist = engine.derive_hist(cfg)
     consts_a, consts_p = engine.build_consts(cfg, *D.shape)
-    data = convert.device_data_from_numpy(jax.device_get(jeng.data))
-    pstate = convert.chain_state_from_numpy(jax.device_get(jstate))
-    pstats = convert.run_stats_from_numpy(jax.device_get(jstats))
+    data = convert.device_data_from_numpy(jax.device_get(jeng.data),
+                                          device="cpu")
+    pstate = convert.chain_state_from_numpy(jax.device_get(jstate),
+                                            device="cpu")
+    pstats = convert.run_stats_from_numpy(jax.device_get(jstats), device="cpu")
     draws = JaxSpanDraws(key, cfg)
     for phase, it0, n_it in SPANS:
         pstate, pstats = span.run_span_plain(cfg, consts_a, consts_p, hist,

@@ -296,9 +296,11 @@ def test_run_iteration_sparse_lockstep_with_jax(sparse_data):
                               sparse_table_mode="xla")
     hist = engine.derive_hist(cfg)
     consts_a, consts_p = engine.build_consts(cfg, *D.shape)
-    data = convert.sparse_data_from_numpy(jax.device_get(jeng.data))
-    pstate = convert.sparse_chain_state_from_numpy(jax.device_get(jstate))
-    pstats = convert.run_stats_from_numpy(jax.device_get(jstats))
+    data = convert.sparse_data_from_numpy(jax.device_get(jeng.data),
+                                          device="cpu")
+    pstate = convert.sparse_chain_state_from_numpy(jax.device_get(jstate),
+                                                   device="cpu")
+    pstats = convert.run_stats_from_numpy(jax.device_get(jstats), device="cpu")
     assert int(jstate.atoms_a.n) > 5 and int(jstate.atoms_p.n) > 5
     for phase, it in [(engine.EQUILIBRATION, WARMUP),
                       (engine.EQUILIBRATION, WARMUP + 1),
@@ -338,7 +340,7 @@ def test_sparse_data_converts_from_jax(sparse_data):
     jcfg = JParams(**PARAMS).engine_config(*D.shape)
     jeng = jsparse_engine.SparseGapsEngine(D, jcfg)
     jdata = jax.device_get(jeng.data)
-    data = convert.sparse_data_from_numpy(jdata)
+    data = convert.sparse_data_from_numpy(jdata, device="cpu")
     for ours, theirs in ((data.csr_a, jdata.ell_a), (data.csr_p, jdata.ell_p)):
         np.testing.assert_array_equal(ours.ell().idx.numpy(), theirs.idx)
         np.testing.assert_array_equal(ours.ell().val.numpy(), theirs.val)
