@@ -91,11 +91,14 @@ Phases:
               element within 2e-4, two K4 launches per iteration;
               updates/s, peak memory, set-up time;
   10 probes — cogaps_tpu_torch.probes' suite (python -m
-              cogaps_tpu_torch.probes): each of the eleven probe
-              functions F1-F11 at the probes' shapes and the port's, its
+              cogaps_tpu_torch.probes): first the launch floor (an empty
+              kernel of probe_mosaic.cu, timed as the cases are, and back
+              to back); then each of the eleven probe functions F1-F11 at
+              the probes' shapes and the port's (F3 at all five of PERF.md
+              §6's, exact; F7's sum at (8,128,256), within 1e-6), its
               kernel held to its plain version (exact, or within the
               function's stated tolerance) and timed beside its plain
-              version, its library call and its bound;
+              version, its library call, its bound and the floor;
   11 distributed — first K3 against its plain version on unequal gene
               subsets padded with invS2 = 0 (4990/5000/5005/5005 of a
               20000 x 100 matrix, 3 iterations: decision-exact, the
@@ -114,7 +117,14 @@ Phases:
               kernels once a sampler call; seconds, updates/s and
               launches of each stage (the result's
               diagnostics["stages"]), the sparse mode, k_out and peak
-              device memory;
+              device memory; and between the two, GWCoGAPS on the same
+              data at 200 + 200 a stage on 2 and then on 4 ranks that
+              share the card (parallel/launch.py, gloo; the subset chains
+              on the JAX rule's mesh, distributed.subset_mesh), each
+              rank's Amean, Asd, Pmean, Psd, meanChiSq and consensus
+              bit-equal to the same call in this process, the ranks'
+              summed K3 and K1 launches n times its own, each run's
+              seconds;
   12 checkpoints — CoGAPS on GIST (k=7, 1000 + 1000 iterations) with a
               checkpoint every 250 iterations into a temporary file,
               resumed from the file it leaves (sampling iteration 750)
@@ -1304,6 +1314,92 @@ def span_padded_check(D, device, n_warm=20, n_it=3, seed=5):
     return err
 
 
+def gw_arrays(res) -> dict:
+    """What phase 11 holds bit-equal across rank counts: the factors,
+    meanChiSq and the consensus of a GWCoGAPS result."""
+    return {"Amean": res.Amean, "Asd": res.Asd, "Pmean": res.Pmean,
+            "Psd": res.Psd, "meanChiSq": np.float64(res.mean_chi_sq),
+            "consensus": res.diagnostics["consensusPatterns"]}
+
+
+def rank_gw(rank, n, D, params, out):
+    """One of n ranks sharing the card over gloo, making phase 11's
+    GWCoGAPS call (params: CogapsParams fields); writes its arrays and its
+    stages' launches (summed over the ranks) to <out>.rank<rank>.npz."""
+    import torch
+    import cogaps_tpu_torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cogaps_tpu_torch.GWCoGAPS(D, cogaps_tpu_torch.CogapsParams(
+        **params), messages=False, device="cuda")
+    secs = time.perf_counter() - t0
+    stages = res.diagnostics["stages"]
+    np.savez(f"{out}.rank{rank}.npz", **gw_arrays(res),
+             span=[st["launches"]["span"] for st in stages],
+             sweep=[st["launches"]["sweep"] for st in stages])
+    log(f"  rank {rank} of {n} (gloo, the card shared): GWCoGAPS "
+        f"{secs:.3f} s, stages "
+        + ", ".join(f"{st['seconds']:.3f} s" for st in stages))
+
+
+def gw_across_ranks(D, card, n_it=200, seed=13):
+    """GWCoGAPS of D (four 5000-gene subsets, k=10, n_it + n_it a stage) on
+    2 and then on 4 ranks that share the card (parallel/launch.py, gloo:
+    the subset chains on the JAX rule's mesh, a rank a chain at 4), and in
+    this process at mesh=None: every rank's factors, meanChiSq and
+    consensus bit-equal to the one-process run's, and each stage's
+    launches of K3 and K1, summed over the ranks, n times the one-process
+    run's (each rank runs every iteration of its chains). Returns the
+    one-process run's launches by kernel."""
+    import tempfile
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.parallel import launch
+    params = dict(n_patterns=10, n_iterations=n_it, seed=seed, n_sets=4,
+                  output_frequency=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for n in (2, 4):
+            t0 = time.perf_counter()
+            launch.join(launch.start(rank_gw, n, D, params,
+                                     os.path.join(tmp, f"gw{n}")),
+                        timeout=600)
+            log(f"  GWCoGAPS 20000x100 k=10, {n_it}+{n_it} a stage, on {n} "
+                f"ranks sharing the card: {time.perf_counter() - t0:.1f} s "
+                f"from spawn to join; card: {card}")
+        counters = launch_counters()
+        for w in counters.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cogaps_tpu_torch.GWCoGAPS(D, cogaps_tpu_torch.CogapsParams(
+            **params), messages=False, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in counters.items()}
+        one = gw_arrays(res)
+        stages = res.diagnostics["stages"]
+        log(f"  the same call in this process (mesh=None): {secs:.3f} s, "
+            f"stages " + ", ".join(f"{st['seconds']:.3f} s" for st in stages)
+            + f", launches {launches}")
+        for n in (2, 4):
+            for rank in range(n):
+                with np.load(os.path.join(tmp, f"gw{n}.rank{rank}.npz")) as z:
+                    for k, v in one.items():
+                        if not np.array_equal(z[k], v):
+                            raise AssertionError(
+                                f"GWCoGAPS on {n} ranks, rank {rank}: {k} "
+                                f"differs from one process")
+                    for kernel in ("span", "sweep"):
+                        want = [n * st["launches"][kernel] for st in stages]
+                        if z[kernel].tolist() != want:
+                            raise AssertionError(
+                                f"{n} ranks launched {kernel} "
+                                f"{z[kernel].tolist()} times, not {want}")
+        log("  every rank of 2 and of 4 bit-equal to one process in Amean, "
+            "Asd, Pmean, Psd, meanChiSq and the consensus")
+    return launches
+
+
 def phase_distributed(device, card, seed=13):
     """GWCoGAPS on bulk data and scCoGAPS on single-cell data, each
     through its entry point on the card, four subsets each; each run
@@ -1389,7 +1485,10 @@ def phase_distributed(device, card, seed=13):
     if (stages[0]["launches"]["span"] < 2 * n_it // span_cuda.CHUNK
             or stages[1]["launches"]["sweep"] < 2 * n_it):
         raise AssertionError(f"GWCoGAPS launches {by_run['GWCoGAPS']}")
-    del D, res
+    del res
+    by_run["GWCoGAPS on one process, beside the ranks"] = [
+        gw_across_ranks(D, card)]
+    del D
 
     # single-cell: 40000 cells in four 10000-cell subsets, sparse model
     n_it = 300
@@ -2487,13 +2586,14 @@ def main() -> int:
                 "shape": row[0], **extra}
 
     # launches by main-path phase: the dense sweep (K1) in phases 4, 11
-    # (GWCoGAPS's fixed stage), 12, 14 (the per-call route) and 15 (the
+    # (GWCoGAPS's fixed stages), 12, 14 (the per-call route) and 15 (the
     # dense sharded engine); the same kernel on the sparse tables (K2) in
     # 7, 8, 11 (scCoGAPS), 13 (the CLI) and 15 (the sparse sharded
     # engine); K3 in 5, 11, 14 (the fused route) and 15 (the chains); K4
     # in 9, and in 15 where the sparse mode rule picks it
-    sweep_by = {"4": launches, "11": sum(st["sweep"] for st in
-                                         dist_by_run["GWCoGAPS"]),
+    sweep_by = {"4": launches, "11": sum(
+                    st["sweep"] for run, stages in dist_by_run.items()
+                    if run != "scCoGAPS" for st in stages),
                 "12": ckpt_launches["sweep"],
                 "14": oracle_launches["per-call"]["sweep"],
                 "15": sharded_launches.get("sweep", 0)}

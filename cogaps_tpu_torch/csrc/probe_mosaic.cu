@@ -51,10 +51,16 @@
 //                  warp shuffles and one shared array of warp totals, as
 //                  sweep_common.cuh::block_scan (in float32). Bytes.
 //   F3 first_wins  the count of earlier lanes of the chain holding the same
-//                  value: one block a chain, the lanes' values in shared
-//                  memory, lane j compares with lanes 0..j-1 (a broadcast
-//                  read). B(B-1)/2 compares a chain: operations bound it
-//                  at B = 1024.
+//                  value. B(B-1)/2 compares a chain would bound it by
+//                  operations at B = 1024, and a thread a lane comparing
+//                  with every earlier lane makes the last lane's 1,023
+//                  dependent compares the kernel's time. So nothing is
+//                  compared pairwise: one block a chain, a warp's equal
+//                  lanes grouped by __match_any_sync, each group counted
+//                  into its key's slot of a hash table in shared memory, a
+//                  byte a warp; a lane's count is the lanes of its group
+//                  below it plus the slot's bytes of the earlier warps.
+//                  O(1) steps a lane (probing aside) at any B.
 //   F4 claim_min   row form: claim[c,row] = the least lane holding row
 //                  (else B), one block a chain, the table set to B and then
 //                  atomicMin of the lane id, as K1 claims rows
@@ -67,10 +73,14 @@
 //                  "count" form adds sum(x) while i < x[0,0]; the "until"
 //                  form adds x while sum(a) < 100, a += 1. One block; the
 //                  sums are block reductions in a fixed order.
-//   F7 reduce3d    sum over the middle axis of x*x (a thread an output,
-//                  float64 products and sums rounded once, the plain
-//                  version's rule) and min over the minor axis (a warp an
-//                  output). Bytes.
+//   F7 reduce3d    sum over the middle axis of x*x (float64 products and
+//                  sums rounded once, the plain version's rule) and min
+//                  over the minor axis (a warp an output). Bytes. The sum
+//                  splits the middle axis over a block's row groups, four
+//                  16-byte loads in flight a thread, the groups' float64
+//                  partials added in a fixed order (shuffles, then the
+//                  warps in order): not one thread an output walking M
+//                  dependent loads and adds.
 //   F8 uniform     word 0 of Philox4x32-10 (sweep_common.cuh::philox) of
 //                  the counter (lane, row, 0, 0) under the key (seed, 0),
 //                  mapped to [0, 1) as ((w >> 9) | 0x3F800000) - 1, the
@@ -479,17 +489,98 @@ __global__ void prefix_kernel(int B, const float* __restrict__ x,
   if (l < B) out[(size_t)c * B + l] = v;
 }
 
-__global__ void first_wins_kernel(int B, const float* __restrict__ r,
+// ---- F3: a lane's value as a key whose bits are equal exactly where the
+// floats compare equal: -0 as +0, and a NaN (equal to nothing) as a NaN
+// pattern of its own lane, which no other key takes
+constexpr unsigned kNoKey = 0xffffffffu;  // a NaN pattern no key takes
+constexpr int kMinLogSlots = 6;
+
+__device__ __forceinline__ unsigned match_key(float v, int j) {
+  if (v != v) return 0x7fc00000u | (unsigned)j;
+  return v == 0.0f ? 0u : __float_as_uint(v);
+}
+
+__device__ __forceinline__ unsigned mix(unsigned k) {  // murmur3's finaliser
+  k ^= k >> 16;
+  k *= 0x85ebca6bu;
+  k ^= k >> 13;
+  k *= 0xc2b2ae35u;
+  return k ^ (k >> 16);
+}
+
+// One block a chain, a thread a lane. The warp's lanes of one key find
+// each other with __match_any_sync; its first lane claims the key's slot
+// of an open-addressing table in shared memory (2^log_slots >= 4B slots,
+// linear probing) and, after a barrier, writes the group's size into the
+// slot's byte for its warp (the slot's claimer zeroed its 32 bytes before
+// the barrier: only the key table is set up front). After a second
+// barrier a lane's count is the lanes of its group below it plus the
+// slot's bytes of the earlier warps: two 16-byte reads and eight byte sums,
+// whatever B. The table and its bytes are dynamic shared memory, 4 + 32
+// bytes a slot. Above a launch, its time is the grouping (__match_any_sync
+// in all 32 warps of one SM) and the inserts, more with more distinct
+// keys; spreading a chain's warps over 2-8 blocks (each then inserts the
+// earlier lanes' keys too), grouping by 32 ballots, or reading a slot
+// before its compare-and-swap were each slower on the H100 (PERF.md §6).
+__global__ void first_wins_kernel(int B, int log_slots,
+                                  const float* __restrict__ r,
                                   int* __restrict__ count) {
-  __shared__ float vals[cogaps::kMaxB];
-  const int c = blockIdx.x, j = threadIdx.x;
-  if (j < B) vals[j] = r[(size_t)c * B + j];
+  extern __shared__ uint4 fw_smem[];
+  const int slots = 1 << log_slots;
+  uint4* bytes = fw_smem;                             // (slots, 2): a byte a warp
+  unsigned* keys = (unsigned*)(fw_smem + 2 * slots);  // (slots)
+  const int c = blockIdx.x, j = threadIdx.x, w = j >> 5, lane = j & 31;
+  const bool in = j < B;
+  const float v = in ? r[(size_t)c * B + j] : 0.0f;
+  for (int s = j; s < slots; s += blockDim.x) keys[s] = kNoKey;
   __syncthreads();
-  if (j >= B) return;
-  const float v = vals[j];
-  int n = 0;
-  for (int l = 0; l < j; ++l) n += vals[l] == v;
+  const unsigned act = __ballot_sync(0xffffffffu, in);
+  unsigned group = 0u, slot = 0u;
+  int first = 0;
+  if (in) {
+    const unsigned key = match_key(v, j);
+    group = __match_any_sync(act, key);
+    first = __ffs(group) - 1;
+    if (lane == first) {
+      unsigned s = mix(key) >> (32 - log_slots), old;
+      while ((old = atomicCAS(&keys[s], kNoKey, key)) != kNoKey && old != key)
+        s = (s + 1u) & (unsigned)(slots - 1);
+      slot = s;
+      if (old == kNoKey)  // this lane claimed the slot
+        bytes[2 * s] = bytes[2 * s + 1] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __syncthreads();  // every claimed slot's bytes are zero
+  if (in) {
+    if (lane == first)
+      reinterpret_cast<unsigned char*>(bytes)[32 * slot + w] =
+          (unsigned char)__popc(group);
+    slot = __shfl_sync(act, slot, first);
+  }
+  __syncthreads();
+  if (!in) return;
+  int n = __popc(group & ((1u << lane) - 1u));
+  const uint4 lo = bytes[2 * slot], hi = bytes[2 * slot + 1];
+  const unsigned word[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {  // the bytes of warps 4q .. 4q+3 below w
+    const int b = min(max(w - 4 * q, 0), 4);
+    const unsigned keep = b == 4 ? 0xffffffffu : (1u << (8 * b)) - 1u;
+    n += (int)__dp4a(word[q] & keep, 0x01010101u, 0u);
+  }
   count[(size_t)c * B + j] = n;
+}
+
+// 2^log_slots slots, at least four times the lanes: at B = 1024 mostly
+// distinct keys probe measurably longer in a table of twice the lanes
+inline int first_wins_log_slots(int B) {
+  int log_slots = kMinLogSlots;
+  while ((1 << log_slots) < 4 * B) ++log_slots;
+  return log_slots;
+}
+
+inline size_t first_wins_smem(int log_slots) {
+  return (size_t)(1 << log_slots) * (2 * sizeof(uint4) + sizeof(unsigned));
 }
 
 // v is a row of [0, NR): integer-valued and in range
@@ -565,18 +656,70 @@ __global__ void while_sum_kernel(int form, int n, const float* __restrict__ x,
   }
 }
 
-__global__ void reduce_sum_kernel(int M, int L, const float* __restrict__ x,
-                                  float* __restrict__ out) {
-  const int c = blockIdx.y, j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= L) return;
-  const float* xc = x + (size_t)c * M * L + j;
-  double s = 0.0;
-  for (int i = 0; i < M; ++i) {
-    const double v = xc[(size_t)i * L];
-    s += v * v;
+// ---- F7 "sum". Block (strip, chain) of kReduceThreads: thread t is column
+// unit tx = t % TX (V columns, read 16 bytes at a time where V = 4) of the
+// strip and row group ty = t / TX, summing the rows ty, ty + TY, ... in
+// float64, kReduceRows loads in flight. A warp's row groups meet by
+// shuffles, the block's warps in shared memory in warp order: a fixed order,
+// so calls repeat bit for bit. Narrow strips (16 columns where V = 4) give
+// more blocks and fewer rows a thread: of the strip widths, depths and
+// block sizes tried on the H100, the quickest at the probes' shape and at
+// larger ones.
+constexpr int kReduceThreads = 256;
+constexpr int kReduceRows = 2;
+template <int V>
+constexpr int kReduceTX = V == 4 ? 4 : 32;
+
+template <int V>
+__global__ void __launch_bounds__(kReduceThreads)
+    reduce_sum_kernel(int M, int L, const float* __restrict__ x,
+                      float* __restrict__ out) {
+  constexpr int TX = kReduceTX<V>;
+  constexpr int TY = kReduceThreads / TX, NW = kReduceThreads / 32;
+  using T = typename Vec<V>::type;
+  __shared__ double warp_sums[NW][TX * V];
+  const int c = blockIdx.y, tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int col = (blockIdx.x * TX + tx) * V;
+  const bool in = col < L;
+  const float* xc = x + (size_t)c * M * L + (in ? col : 0);
+  double s[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) s[q] = 0.0;
+  for (int i0 = ty; i0 < M; i0 += kReduceRows * TY) {
+    T v[kReduceRows];
+#pragma unroll
+    for (int u = 0; u < kReduceRows; ++u) {  // the loads first
+      const int i = i0 + u * TY;
+      v[u] = in && i < M ? __ldg(reinterpret_cast<const T*>(
+                               xc + (size_t)i * L))
+                         : Vec<V>::zero();
+    }
+#pragma unroll
+    for (int u = 0; u < kReduceRows; ++u)
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const double d = Vec<V>::get(v[u], q);
+        s[q] = s[q] + d * d;
+      }
   }
-  out[(size_t)c * L + j] = (float)s;
+#pragma unroll
+  for (int off = TX; off < 32; off <<= 1)
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      s[q] = s[q] + __shfl_xor_sync(0xffffffffu, s[q], off);
+  if ((threadIdx.x & 31) < TX)
+#pragma unroll
+    for (int q = 0; q < V; ++q) warp_sums[threadIdx.x >> 5][tx * V + q] = s[q];
+  __syncthreads();
+  const int e = threadIdx.x, j = blockIdx.x * TX * V + e;
+  if (e < TX * V && j < L) {
+    double t = warp_sums[0][e];
+    for (int wp = 1; wp < NW; ++wp) t = t + warp_sums[wp][e];
+    out[(size_t)c * L + j] = (float)t;
+  }
 }
+
+__global__ void empty_kernel() {}
 
 __global__ void reduce_min_kernel(int rows, int L, const float* __restrict__ x,
                                   float* __restrict__ out) {
@@ -711,8 +854,16 @@ extern "C" int probe_prefix(int nch, int B, const float* x, float* out,
 extern "C" int probe_first_wins(int nch, int B, const float* r, int* count,
                                 void* stream) {
   if (nch < 1 || B < 1 || B > cogaps::kMaxB) return kBad;
-  first_wins_kernel<<<nch, (B + 31) / 32 * 32, 0, (cudaStream_t)stream>>>(
-      B, r, count);
+  const int log_slots = first_wins_log_slots(B);
+  const size_t smem = first_wins_smem(log_slots);
+  if (smem > 48 * 1024) {  // above the default: asked for by name
+    const cudaError_t err = cudaFuncSetAttribute(
+        first_wins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  first_wins_kernel<<<nch, (B + 31) / 32 * 32, smem,
+                      (cudaStream_t)stream>>>(B, log_slots, r, count);
   return launched();
 }
 
@@ -745,8 +896,16 @@ extern "C" int probe_reduce3d(int form, int nch, int M, int L, const float* x,
                               float* out, void* stream) {
   if (nch < 1 || nch > 65535 || M < 1 || L < 1) return kBad;
   if (form == 0) {
-    reduce_sum_kernel<<<dim3((L + 127) / 128, nch), 128, 0,
-                        (cudaStream_t)stream>>>(M, L, x, out);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (L % 4 == 0 && aligned16(x)) {
+      const int cols = kReduceTX<4> * 4;
+      reduce_sum_kernel<4><<<dim3((L + cols - 1) / cols, nch),
+                             kReduceThreads, 0, s>>>(M, L, x, out);
+    } else {
+      const int cols = kReduceTX<1>;
+      reduce_sum_kernel<1><<<dim3((L + cols - 1) / cols, nch),
+                             kReduceThreads, 0, s>>>(M, L, x, out);
+    }
   } else if (form == 1) {
     const int rows = nch * M;
     reduce_min_kernel<<<(rows + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
@@ -754,6 +913,12 @@ extern "C" int probe_reduce3d(int form, int nch, int M, int L, const float* x,
   } else {
     return kBad;
   }
+  return launched();
+}
+
+// No work: the time of a launch, the floor under every probe's time
+extern "C" int probe_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
   return launched();
 }
 

@@ -100,6 +100,23 @@ def tables(D, invS2, M, other_M) -> Tuple[DenseCache, DensePhase]:
     return rebuild_cache(D, invS2, M, other_M), make_phase(invS2, other_M)
 
 
+def tables_per_chain(D, invS2, M, other_M
+                     ) -> Tuple[DenseCache, DensePhase]:
+    """`tables`, a chain at a time (leading chain dimension): every
+    chain's products have one shape however many chains share the call.
+    cuBLAS picks its kernel, and so the order of a float32 sum, by the
+    batch count: one batched product rounded a chain's entries one way
+    beside three other chains and another way alone (an H100, 500 x 40
+    at k=5), where the distributed runs' subset chains must give the same
+    bits on any number of ranks (parallel/distributed.subset_engine)."""
+    parts = [tables(D[c], invS2[c], M[c], other_M[c])
+             for c in range(M.shape[0])]
+    return (DenseCache(Y=torch.stack([cache.Y for cache, _ in parts])),
+            DensePhase(SQ=torch.stack([ph.SQ for _, ph in parts]),
+                       Z=torch.stack([ph.Z for _, ph in parts]),
+                       col_nz=torch.stack([ph.col_nz for _, ph in parts])))
+
+
 def exact_tables(D, invS2, M, other_M) -> Tuple[DenseCache, DensePhase]:
     """The same tables under the rule of the fused-span kernel
     (csrc/span.cu): every entry is a float64 sum over the float32

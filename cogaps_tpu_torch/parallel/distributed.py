@@ -23,23 +23,36 @@ K3 where its gate holds, else the per-call sweep kernel K1), the sparse
 ones on sparse_engine.SparseMultichainEngine (K2 or K4, by
 resolve_sparse_mode). Subsets are padded to the largest one; every chain
 is keyed by the same seed, as the reference's forked workers all carry
-params@seed. The JAX package's device mesh (a subset chain per device
-group) is not ported: one card has nothing to shard the chains across.
+params@seed.
+
+Across ranks (a call made in every rank of a torch.distributed process
+group, parallel/multihost.py): the dense subset chains take the JAX
+package's device-mesh rule (cogaps_tpu/parallel/distributed.py:279-289),
+with ranks for devices. With nd = min(nSets, ranks) dividing nSets, the
+first nd ranks each run nSets / nd of the chains (subset_mesh) with no
+communication until the stage's end, when its statistics are gathered in
+chain order and broadcast to the ranks outside; else every rank runs all
+chains. Every rank then runs the consensus, stage 2 and the stitch on the
+same bits and returns the same CogapsResult: a chain's bits do not depend
+on which rank runs it, or beside how many others. The sparse subset
+chains take no mesh, as in the JAX package, and run whole on every rank.
 The consensus step is O(nSets^2 k^2) on the host. The result's
-diagnostics["stages"] hold each stage's seconds (its two phases),
-updates and launches of each kernel in KERNELS.
+diagnostics["stages"] hold each stage's seconds (its two phases, this
+rank's clock), updates and launches of each kernel in KERNELS (summed
+over the ranks where the chains have a mesh).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+from ..engine import EQUILIBRATION, SAMPLING, PhiloxRandom, run_iteration
 from ..io.coo import CooMatrix
 from ..models import dense, sparse
 from ..ops import atlas_cuda, span_cuda, sweep_cuda
@@ -47,6 +60,7 @@ from ..params import CogapsParams
 from ..result import CogapsResult, finalize_statistics, mean_chi_sq
 from ..sparse_engine import SparseMultichainEngine, stack_sparse_device_data
 from ..utils.logging import log_message
+from . import multihost
 from .clustering import corr_to_mean_pattern, pattern_match
 from .multichain import MultichainEngine, stack_device_data
 
@@ -137,6 +151,9 @@ def distributed_cogaps(D: np.ndarray, params: CogapsParams, uncertainty,
     """Run CoGAPS across data subsets on `device` and stitch the results
     back together (reference: R/DistributedCogaps.R:48-119)."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # the rank's own card under NCCL (multihost.initialize_distributed)
+        device = torch.device("cuda", torch.cuda.current_device())
     genome_wide = params.distributed == "genome-wide"
     n_total = D.shape[0] if genome_wide else D.shape[1]
     rng = np.random.default_rng(params.resolved_seed())
@@ -278,21 +295,75 @@ def _take(X: np.ndarray, s: np.ndarray, genome_wide: bool) -> np.ndarray:
     return X[s, :] if genome_wide else X[:, s]
 
 
-def _run_stage(eng, state, stats, seed: int):
-    """Both phases of every subset chain, each keyed by `seed`; returns
-    (stats on the host, seconds, launches of each of KERNELS)."""
-    rand = PhiloxRandom([seed] * eng.n_chains, eng.device)
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize(eng.device)
+OUTSIDE = "outside"  # subset_mesh's answer on a rank that runs no chain
+
+
+def subset_mesh(n_sets: int):
+    """The JAX package's rule for the subset chains' mesh
+    (cogaps_tpu/parallel/distributed.py:279-289), with the process group's
+    ranks for devices: with more than one rank and nd = min(n_sets, ranks)
+    dividing n_sets, a "chains" mesh over ranks 0 .. nd-1 (the whole group,
+    or a sub-group that every rank makes, in the same order) and OUTSIDE
+    on the ranks past it; else None, and every rank runs every chain."""
+    world = multihost.process_count()
+    nd = min(n_sets, world)
+    if world <= 1 or n_sets % nd:
+        return None
+    if nd == world:
+        return multihost.global_mesh("chains")
+    group = torch.distributed.new_group(list(range(nd)))
+    rank = multihost.process_index()
+    if rank >= nd:
+        return OUTSIDE
+    return multihost.ProcessMesh("chains", group, nd, rank,
+                                 torch.distributed.get_backend(group))
+
+
+def subset_engine(data, cfg, device, mesh=None) -> MultichainEngine:
+    """The engine of a stage's dense subset chains (those of `mesh` this
+    rank holds), its per-call tables built a chain at a time
+    (dense.tables_per_chain), so that a chain's bits follow neither its
+    rank nor how many chains share its calls. The fused span needs
+    nothing: its table sums are bit-equal to the plain tables at every
+    cluster size a chain count gives (tests/test_torch_cuda.py)."""
+    eng = MultichainEngine(data, cfg, device, mesh=mesh)
+    eng.iterate = functools.partial(run_iteration,
+                                    tables=dense.tables_per_chain)
+    return eng
+
+
+def _run_stage(eng, state, stats, seed: int, mesh=None, device="cpu"):
+    """Both phases of the subset chains `eng` holds, each keyed by `seed`;
+    returns (every chain's stats on the host, this rank's seconds, the
+    launches of each of KERNELS). With a mesh (subset_mesh) the chains'
+    stats are gathered in chain order over it and, where ranks lie
+    outside it (eng None there), broadcast to them from rank 0; the
+    launches are summed over the ranks in a tensor on `device`."""
     before = {n: w.launches for n, w in KERNELS.items()}
     t0 = time.perf_counter()
-    for phase in (EQUILIBRATION, SAMPLING):
-        state, stats = eng.run_phase(state, stats, rand, phase)
-    st = {f: getattr(stats, f).cpu().numpy()
-          for f in ("a_sum", "a_sumsq", "p_sum", "p_sumsq", "n_stat", "upd")}
+    st = None
+    if eng is not None:
+        rand = PhiloxRandom([seed] * eng.n_chains, eng.device)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        t0 = time.perf_counter()
+        for phase in (EQUILIBRATION, SAMPLING):
+            state, stats = eng.run_phase(state, stats, rand, phase)
+        chains = mesh if isinstance(mesh, multihost.ProcessMesh) else None
+        st = {f: multihost.all_gather_units(getattr(stats, f), chains)
+              .cpu().numpy() for f in ("a_sum", "a_sumsq", "p_sum",
+                                       "p_sumsq", "n_stat", "upd")}
+    if mesh is OUTSIDE or (mesh is not None
+                           and mesh.size < multihost.process_count()):
+        box = [st]
+        torch.distributed.broadcast_object_list(box, src=0)
+        st = box[0]
     elapsed = time.perf_counter() - t0
-    return st, elapsed, {n: w.launches - before[n]
-                         for n, w in KERNELS.items()}
+    launches = torch.tensor([w.launches - before[n]
+                             for n, w in KERNELS.items()], device=device)
+    if mesh is not None:
+        launches = multihost.sum_ints(launches, multihost.global_mesh())
+    return st, elapsed, dict(zip(KERNELS, launches.tolist()))
 
 
 def _subset_results(st, shapes, sets, genome_wide, gene_names,
@@ -344,12 +415,20 @@ def _run_subsets_multichain(D, unc, params: CogapsParams, sets,
     Gmax = max(g for g, _ in shapes)
     Smax = max(s for _, s in shapes)
     cfg = p.engine_config(Gmax, Smax)
-    data = stack_device_data(subDs, subUs, cfg, device)
-    eng = MultichainEngine(data, cfg, device)
-    del data
     seed = p.resolved_seed()
-    state = eng.init_state(_pad_fixed(fixed, Smax if genome_wide else Gmax))
-    st, elapsed, launches = _run_stage(eng, state, eng.init_stats(), seed)
+    mesh = subset_mesh(len(sets))
+    eng = state = stats = None
+    if mesh is not OUTSIDE:
+        # with a mesh, stacked on the host: the engine moves its chains
+        data = stack_device_data(subDs, subUs, cfg,
+                                 device if mesh is None else "cpu")
+        eng = subset_engine(data, cfg, device, mesh)
+        del data
+        state = eng.init_state(_pad_fixed(fixed,
+                                          Smax if genome_wide else Gmax))
+        stats = eng.init_stats()
+    st, elapsed, launches = _run_stage(eng, state, stats, seed, mesh,
+                                       device)
 
     def chisq(i, amean, pmean):
         if p.which_matrix_fixed != "N":

@@ -5,11 +5,13 @@ tools/probe_dma*.py. Each case runs one function at one shape — the
 probes' own shapes and the port's (F1 at K3's rebuild contraction, F9 at
 K4's partner tables, F2-F4 at K1's lane count, F8 at one fast-mode
 sweep's block of 16 chains) — and holds the kernel to its plain version:
-exact, or within the function's stated tolerance. It prints a line per
-case: kernel ms (median of 20 launches after a warm-up, each between CUDA
-events recorded behind a spin of the stream, so the host's enqueueing is
-not timed; the inputs stay in L2 between launches, except the DMA
-probes' tables of 512 MiB), plain ms and library ms (the same way,
+exact, or within the function's stated tolerance. It first prints the
+launch floor: the time of one launch of an empty kernel, timed as the
+cases are, and back to back. Then a line per case: kernel ms (median of
+20 launches after a warm-up, each between CUDA events recorded behind a
+spin of the stream, so the host's enqueueing is not timed; the inputs
+stay in L2 between launches, except the DMA probes' tables of 512 MiB)
+and its ratio to the floor, plain ms and library ms (the same way,
 median of 5 and 20), the bound (probes/__init__.bound_ms of the
 function's counts) and its share of the kernel's time, the largest
 |difference| from the plain version, and the plan F1 and F9's row gathers
@@ -430,19 +432,46 @@ def run_case(case, device, reps=20):
             "headline": case.headline, "plan": plan_of(case, args)}
 
 
+def launch_floor(device, reps=20, burst=200) -> dict:
+    """The time of one launch of probe_mosaic.cu's empty kernel: "ms" as
+    every case's kernel is timed (device_ms: the median of `reps` launches,
+    each alone between two events), and "back_to_back_ms", the events
+    around `burst` launches in a row over `burst`, enqueued while a spin
+    long enough for all of them holds the stream (the device's pace, not
+    the host's)."""
+    ms = device_ms(lambda: mosaic.empty(device), reps)
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(burst * SPIN_CYCLES // 20)  # ~50 us of spin a launch
+    start.record()
+    for _ in range(burst):
+        mosaic.empty(device)
+    stop.record()
+    stop.synchronize()
+    return {"ms": ms, "back_to_back_ms": start.elapsed_time(stop) / burst}
+
+
 def run_suite(device, log=print, reps=20) -> list:
-    """Every case on `device` (a CUDA device); a line per case through
-    `log`. Raises AssertionError, after the last case, if any kernel
-    disagreed with its plain version."""
+    """The launch floor, then every case on `device` (a CUDA device); a
+    line each through `log`, a case's time also over the floor's
+    ("over_floor"). Raises AssertionError, after the last case, if any
+    kernel disagreed with its plain version."""
     torch.backends.cuda.matmul.allow_tf32 = False
     records = []
+    floor = launch_floor(device, reps)
+    log(f"  empty kernel (the launch floor): {floor['ms']:.4f} ms a launch "
+        f"alone between events, {floor['back_to_back_ms']:.4f} ms a launch "
+        f"back to back")
     tables = (_probe_table(device), _probe2_table(device))
     for case in cases(tables):
         r = run_case(case, device, reps)
+        r["floor_ms"] = floor["ms"]
+        r["over_floor"] = r["ms"] / floor["ms"]
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         log(f"  {r['f']} {r['name']} {r['shape']} [{', '.join(r['sites'])}]:"
-            f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f" kernel {r['ms']:.4f} ms ({r['over_floor']:.2f}x the floor), "
+            f"plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}),"
             f" bound/kernel {r['share']:.4f}, max|diff| {r['max_abs_err']:.3g}"
             + (f"; plan: {r['plan']}" if r["plan"] else "")

@@ -51,12 +51,23 @@ _SIGNATURES = {
     "probe_while_sum": "iippp",
     "probe_reduce3d": "iiiippp",
     "probe_uniform": "iippp",
+    "probe_empty": "p",
 }
 
 
 def build() -> tuple:
     """Compile csrc/probe_mosaic.cu and load it: (library, report)."""
     return bind("probe_mosaic", _SIGNATURES)
+
+
+def empty(device) -> None:
+    """One launch of a kernel that does nothing, on the CUDA `device`: the
+    floor under every probe's time (probes/__main__.launch_floor)."""
+    with torch.cuda.device(device):
+        launch(empty, build()[0].probe_empty)
+
+
+empty.launches = 0
 
 
 def _lanes(name, B):

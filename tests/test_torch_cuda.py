@@ -44,7 +44,14 @@ the Python parsers do. The gene-sharded engines run their kernels as
 their plain versions run the same iterations (the dense engine's blocks
 and replicated P on K1, the sparse engine's P sampler on summed tables
 on K2: decision-exact, mass and M within 1e-5), and two ranks that share
-the card over gloo give the bits of one process (mesh=None)."""
+the card over gloo give the bits of one process (mesh=None). F3
+(first_wins, a shared-memory hash table a chain) equals its plain version
+at the probes' and the port's shapes and on NaN, signed zeros, one key
+and all-distinct keys; F7's sum is within 1e-6 of its plain version,
+with 16-byte and 4-byte loads; each counts its launches and repeats its
+bits. GWCoGAPS's subset chains on 2 ranks sharing the card (gloo), and
+on a card a rank (NCCL, where there are two cards or more), return the
+one-process result bit for bit."""
 
 import os
 import re
@@ -773,6 +780,18 @@ def test_span_rebuild_each_forced_cluster_size(cuda_device, monkeypatch, cl):
     assert_rebuild_equal(*rebuild_case(cuda_device, 1363, 9, 7, 3))
 
 
+@pytest.mark.parametrize("cl", [8, 4, 2, 1])
+def test_span_rebuild_gwcogaps_subsets_any_cluster_size(cuda_device,
+                                                        monkeypatch, cl):
+    """GWCoGAPS's free stage at 20000 x 100, k=10: four 5005-gene subset
+    chains, whose P side (100 rows, 5005 partners) splits its partner sums
+    over the cluster's CTAs. At each cluster size a rank's chain count
+    may give it, the tables are the plain version's bit for bit, so a
+    chain's bits do not follow how many chains share its launch."""
+    monkeypatch.setattr(span_cuda, "cluster_size", lambda *a: cl)
+    assert_rebuild_equal(*rebuild_case(cuda_device, 5005, 100, 10, 4))
+
+
 def test_span_kernel_is_deterministic(cuda_device):
     """No float atomics: two spans from one state give the same bits."""
     from cogaps_tpu_torch.engine import PhiloxRandom
@@ -1165,6 +1184,172 @@ def test_probe_wrappers_raise_on_card(cuda_device):
     bad = mosaic.bdot_plan(2, 10, 3, 8)._replace(tile_b=6)  # 6 % 4 != 0
     with pytest.raises(RuntimeError, match="bdot kernel launch failed"):
         mosaic.bdot(a, b, bad)
+
+
+def _mod113(nch, B):
+    return np.arange(nch * B, dtype=np.float32).reshape(nch, B) % 113.0
+
+
+def _first_wins_cases():
+    edge = np.float32([[np.nan, -0.0, 0.0, np.nan, 1.0, np.inf, -np.inf,
+                        np.inf, 1.0, -0.0] * 50])
+    return {
+        # the probes' shapes and the port's (PERF.md's F3 rows)
+        "1x1024-mod113": _mod113(1, 1024), "8x512-mod113": _mod113(8, 512),
+        "8x1024-mod113": _mod113(8, 1024),
+        "4x256-ints57": _ints(0, 57, (4, 256), 0),
+        "16x1024-rows1363": _ints(0, 1363, (16, 1024), 56),
+        # -0 equals +0, a NaN equals nothing; one key; all keys distinct;
+        # a part warp; one lane
+        "nan-zero-inf": edge, "one-key": np.ones((2, 1024), np.float32),
+        "distinct": np.arange(1024, dtype=np.float32)[None] * 0.5,
+        "3x77": _ints(0, 4, (3, 77), 1), "1x1": np.float32([[2.0]]),
+    }
+
+
+@pytest.mark.parametrize("case", ["1x1024-mod113", "8x512-mod113",
+                                  "8x1024-mod113", "4x256-ints57",
+                                  "16x1024-rows1363", "nan-zero-inf",
+                                  "one-key", "distinct", "3x77", "1x1"])
+def test_first_wins_matches_plain(cuda_device, case):
+    """F3, a lane's earlier equal lanes counted through a hash table in
+    shared memory: exactly the plain version's counts, one launch, and
+    the same bits again."""
+    from cogaps_tpu_torch.probes import mosaic
+    r = torch.as_tensor(_first_wins_cases()[case], device=cuda_device)
+    before = mosaic.first_wins.launches
+    got, again = mosaic.first_wins(r), mosaic.first_wins(r)
+    assert mosaic.first_wins.launches == before + 2
+    want = mosaic.first_wins_plain(r)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(again, want)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 256), (3, 77, 130), (1, 1, 1),
+                                   (5, 300, 4), (16, 2000, 100)])
+def test_reduce_sum_matches_plain(cuda_device, shape):
+    """F7's sum, the middle axis split over row groups and their float64
+    partials added in a fixed order: within 1e-6 of the plain version (16-
+    byte loads where L % 4 == 0, 4-byte ones at L = 130 and on an input 4
+    bytes past alignment), one launch each, the same bits again."""
+    from cogaps_tpu_torch.probes import mosaic
+    from cogaps_tpu_torch.probes.__main__ import within_rel
+    x = torch.as_tensor(_rand(shape, 70, 4.0), device=cuda_device)
+    flat = torch.as_tensor(_rand((x.numel() + 1,), 71, 4.0),
+                           device=cuda_device)
+    shifted = flat[1:].view(shape)
+    for arg in (x, shifted):
+        before = mosaic.reduce3d.launches
+        got, again = mosaic.reduce3d(arg, "sum"), mosaic.reduce3d(arg, "sum")
+        assert mosaic.reduce3d.launches == before + 2
+        want = mosaic.reduce3d_plain(arg, "sum")
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, again)
+        assert within_rel(1e-6)((arg,), got, want), float(
+            (got.double() - want.double()).abs().max())
+
+
+def test_gwcogaps_on_ranks_sharing_the_card_matches_one(cuda_device,
+                                                        tmp_path):
+    """GWCoGAPS with its four subset chains on 2 ranks that share the card
+    over gloo (distributed.subset_mesh; stats gathered through the host):
+    each rank returns the one-process result bit for bit, and each
+    stage's launches, summed over the ranks, are twice the one process's
+    (each rank runs every iteration of its chains)."""
+    import torch_ranks
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.parallel import launch
+    [D] = synthetic_dense(2000, 40, 5, 1, 9)
+    params = dict(n_patterns=5, n_iterations=60, seed=9, n_sets=4,
+                  output_frequency=0)
+    out = str(tmp_path / "gw")
+    launch.join(launch.start(torch_ranks.distributed_rank, 2, "GWCoGAPS", D,
+                             params, out, "cuda"), timeout=300)
+    one = torch_ranks.distributed_run("GWCoGAPS", D, params, "cuda")
+    assert one["launches"].sum() > 0
+    for rank in range(2):
+        with np.load(f"{out}.rank{rank}.npz") as z:
+            for k, v in one.items():
+                want = 2 * v if k == "launches" else v
+                np.testing.assert_array_equal(z[k], want, err_msg=k)
+
+
+@pytest.mark.parametrize("fixed", [False, True], ids=["free", "fixed-P"])
+def test_subset_chain_bits_do_not_follow_the_chains_beside_it(cuda_device,
+                                                              fixed):
+    """GWCoGAPS's stages at 2000 x 40, k=5, four 500-gene subset chains:
+    the free stage on the fused span (K3), the fixed one on the per-call
+    route (K1 and the tables' float32 products). Each chain run alone or
+    two at a time (a rank's share of the chain mesh) gives the bits it
+    gets beside the other three. A MultichainEngine's batched cuBLAS
+    products rounded a chain's fixed-stage tables otherwise when it ran
+    alone; distributed.subset_engine builds them a chain at a time
+    (dense.tables_per_chain)."""
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.params import CogapsParams
+    from cogaps_tpu_torch.parallel import distributed, multihost
+    from cogaps_tpu_torch.parallel.multichain import stack_device_data
+    [D] = synthetic_dense(2000, 40, 5, 1, 9)
+    subDs = [D[i::4] for i in range(4)]
+    consensus = (np.random.default_rng(0).gamma(2.0, 1.0, (40, 5))
+                 .astype(np.float32) if fixed else None)
+    p = distributed._stage_params(CogapsParams(
+        n_patterns=5, n_iterations=60, seed=9, output_frequency=0), True,
+        consensus)
+    cfg = p.engine_config(500, 40)
+
+    def run(mesh):
+        eng = distributed.subset_engine(
+            stack_device_data(subDs, None, cfg, "cpu"), cfg, cuda_device,
+            mesh)
+        assert eng._fused_ok() is not fixed
+        st, ss = eng.init_state(consensus), eng.init_stats()
+        rand = PhiloxRandom([9] * eng.n_chains, cuda_device)
+        for phase in (EQUILIBRATION, SAMPLING):
+            st, ss = eng.run_phase(st, ss, rand, phase)
+        return st, ss
+
+    st4, ss4 = run(None)
+    for size in (4, 2):
+        for r in range(size):
+            st, ss = run(multihost.ProcessMesh("chains", None, size, r,
+                                               "none"))
+            held = slice(r * 4 // size, (r + 1) * 4 // size)
+            for name, x, y in (("M_a", st.M_a, st4.M_a[held]),
+                               ("a_sum", ss.a_sum, ss4.a_sum[held]),
+                               ("a_sumsq", ss.a_sumsq, ss4.a_sumsq[held]),
+                               ("p_sum", ss.p_sum, ss4.p_sum[held]),
+                               ("upd", ss.upd, ss4.upd[held])):
+                assert torch.equal(x, y), (size, r, name,
+                                           int((x != y).sum()))
+
+
+def test_gwcogaps_nccl_ranks_on_their_own_cards_match_one(cuda_device,
+                                                          tmp_path):
+    """With a card a rank (NCCL; each rank on cuda:<rank>): GWCoGAPS's
+    subset chains on 2 or 4 ranks give the one-process result bit for
+    bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a card a rank: two cards or more")
+    import torch_ranks
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.parallel import launch
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    [D] = synthetic_dense(2000, 40, 5, 1, 9)
+    params = dict(n_patterns=5, n_iterations=60, seed=9, n_sets=4,
+                  output_frequency=0)
+    out = str(tmp_path / "gw")
+    launch.join(launch.start(torch_ranks.distributed_rank, n, "GWCoGAPS", D,
+                             params, out, "cuda", backend="nccl"),
+                timeout=300)
+    one = torch_ranks.distributed_run("GWCoGAPS", D, params, "cuda")
+    for rank in range(n):
+        with np.load(f"{out}.rank{rank}.npz") as z:
+            for k in ("Amean", "Asd", "Pmean", "Psd", "meanChiSq",
+                      "consensus", "updates"):
+                np.testing.assert_array_equal(z[k], one[k], err_msg=k)
 
 
 def test_chains_of_one_seed_draw_alike(cuda_device):

@@ -1,6 +1,7 @@
 """The ranks of the multi-process CPU tests (test_torch_sharded.py,
-test_torch_sparse_sharded.py, test_torch_multihost.py), and the runs they
-share with the one-process side.
+test_torch_sparse_sharded.py, test_torch_multihost.py,
+test_torch_distributed_ranks.py), and the runs they share with the
+one-process side.
 
 Each rank is a process spawned by cogaps_tpu_torch.parallel.launch and
 joined in a gloo group; it runs one engine over the group's mesh and
@@ -132,3 +133,35 @@ def assert_replicas_equal(out) -> int:
         for z in zs[1:]:
             np.testing.assert_array_equal(z[k], zs[0][k], err_msg=k)
     return len(keys)
+
+
+def distributed_run(entry, D, params, device="cpu") -> dict:
+    """GWCoGAPS or scCoGAPS (`entry`, by name) of D under `params` (a dict
+    of CogapsParams fields) on this process's group, or alone: the
+    result's factors, meanChiSq and consensus, and each stage's updates
+    and launches, as arrays."""
+    import cogaps_tpu_torch
+    res = getattr(cogaps_tpu_torch, entry)(D, CogapsParams(**params),
+                                           messages=False, device=device)
+    stages = res.diagnostics["stages"]
+    return {"Amean": res.Amean, "Asd": res.Asd, "Pmean": res.Pmean,
+            "Psd": res.Psd, "meanChiSq": np.float64(res.mean_chi_sq),
+            "consensus": res.diagnostics["consensusPatterns"],
+            "updates": np.asarray([st["updates"] for st in stages]),
+            "launches": np.asarray([[st["launches"][k]
+                                     for k in sorted(st["launches"])]
+                                    for st in stages])}
+
+
+def distributed_rank(rank, n, entry, D, params, out, device="cpu"):
+    """One rank of a GWCoGAPS or scCoGAPS call made in every rank of the
+    group (distributed_run), on one thread, as the test process runs;
+    writes its arrays to <out>.rank<rank>.npz. Fails if the rank loaded
+    jax."""
+    import torch
+    torch.set_num_threads(1)
+    np.savez(f"{out}.rank{rank}.npz",
+             **distributed_run(entry, D, params, device))
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+    if loaded:
+        raise AssertionError(f"rank {rank} loaded {loaded}")
