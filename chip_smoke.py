@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 kernels from cogaps_tpu_torch/csrc/ (sweep.cu, atlas.cu, span.cu,
-probe_mosaic.cu and probe_dma.cu, one nvcc each, started together),
+tables.cu, probe_mosaic.cu and probe_dma.cu, one nvcc each, started
+together),
 holds each against its plain PyTorch version on the card, drives the
 port's dense main path through ``CoGAPS()`` and the multi-chain
 throughput harness on GIST (the fused span, and the per-call route on
@@ -23,7 +24,7 @@ result.
 
 Phases:
   1 device  — name and power limit (nvidia-smi);
-  2 build   — nvcc builds of the five kernel sources, with ptxas's
+  2 build   — nvcc builds of the six kernel sources, with ptxas's
               reports, and the native parser's (native/fastparse.cpp by
               the host's C++ compiler, io/native.py), all at once;
   3 kernels — kernel vs plain version on CUDA tensors, in exact mode (the
@@ -63,19 +64,32 @@ Phases:
               span, per chunk and per iteration, the kernel's time with
               every budget 0 (no sweeps), and ptxas's registers and
               spills of span_kernel and rebuild_kernel;
+              the per-call tables kernel (csrc/tables.cu, through
+              models/dense.tables) at GIST x1 and x16, 4 x 5000 x 2000
+              k=10, 16 x 20000 x 100 k=10 and one 2500 x 2000 block of
+              20000 x 2000 k=10, each sampler A and P, from random
+              inputs: every entry of Y, SQ and Z within 1e-5 of its
+              summed |terms| of the float64 tables rounded once
+              (dense.exact_tables) and no worse than twice the plain
+              cuBLAS tables' own worst error, col_nz equal, one launch a
+              call; ms a call by events, its device time, the plain
+              cuBLAS tables' (its plain version and the library
+              yardstick) both ways, the bound (tables_cuda.tables_counts)
+              and the kernel's plan and registers;
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda,
               debug_checks=True): meanChiSq below 2x the golden GIST
               value, the kernel launched at least twice per iteration of
-              each phase, and utils/debug.check_state passed after each
-              phase;
+              each phase, the tables kernel exactly twice an iteration,
+              and utils/debug.check_state passed after each phase;
   5 throughput — run_throughput on GIST, 16 chains, 2000 iterations (the
               fused span: K3 launched, the per-call sweep kernel not),
               then the per-call route on the same data and seeds
-              (ChainEngine.run_phase): the same gate for each; updates/s
-              of each;
+              (ChainEngine.run_phase, the tables kernel twice an
+              iteration): the same gate for each; updates/s of each;
   6 realistic — 4 chains of a synthetic 5000 x 2000 matrix (k=10), 100
               iterations per phase: a finite, falling chi^2 history;
-              updates/s and peak device memory;
+              updates/s, peak device memory, tables launches (two an
+              iteration);
   7 sparse  — the iteration time of each sparse mode (dense, ell, xla)
               from one state of a 2000 x 10000 k=10 matrix with 87%
               structural zeros, then CoGAPS(sparse_optimization=True,
@@ -93,7 +107,10 @@ Phases:
   10 probes — cogaps_tpu_torch.probes' suite (python -m
               cogaps_tpu_torch.probes): first the launch floor (an empty
               kernel of probe_mosaic.cu, timed as the cases are, and back
-              to back); then each of the eleven probe functions F1-F11 at
+              to back) and the dependent-load floor (one lane's chain of
+              16 and of 80 dependent 4-byte loads over the 512 MiB table,
+              against which F9's 16 and 80 dependent passes are stated);
+              then each of the eleven probe functions F1-F11 at
               the probes' shapes and the port's (F3 at all five of PERF.md
               §6's, exact; F7's sum at (8,128,256), within 1e-6), its
               kernel held to its plain version (exact, or within the
@@ -102,7 +119,8 @@ Phases:
   11 distributed — first K3 against its plain version on unequal gene
               subsets padded with invS2 = 0 (4990/5000/5005/5005 of a
               20000 x 100 matrix, 3 iterations: decision-exact, the
-              padded rows changing nothing); then GWCoGAPS on
+              padded rows changing nothing) and one 50-iteration K3 launch
+              there timed against span_bound_ms; then GWCoGAPS on
               synthetic_dense(20000, 100, 10) (bulk RNA-seq: four
               5000-gene subsets, k=10, 500 + 500 iterations a stage,
               output_frequency 0) and scCoGAPS on synthetic_sparse(2000,
@@ -116,7 +134,9 @@ Phases:
               stage K1 once an iteration, scCoGAPS's stages the sparse
               kernels once a sampler call; seconds, updates/s and
               launches of each stage (the result's
-              diagnostics["stages"]), the sparse mode, k_out and peak
+              diagnostics["stages"]; the tables kernel once an iteration of
+              GWCoGAPS's fixed stage, never in scCoGAPS), the sparse mode,
+              k_out and peak
               device memory; and between the two, GWCoGAPS on the same
               data at 200 + 200 a stage on 2 and then on 4 ranks that
               share the card (parallel/launch.py, gloo; the subset chains
@@ -168,12 +188,17 @@ Phases:
               checkpoint written by 2 ranks at sampling iteration 10;
               (d) synthetic_sparse(2000, 10000, 10), n_shards=4, 5 + 5,
               on 2 ranks; (e) 16 GIST chains (the fused span), 100 + 100,
-              on 2 ranks, their checkpoint after equilibration. Then,
+              on 2 ranks, their checkpoint after equilibration; and with
+              (b) the per-call route with a chain mesh: 8 chains of
+              synthetic_dense(2000, 200, 10) (200 samples, above the fused
+              route's 128; a chi^2 history every 5), 30 + 30, on 2 and 4
+              ranks, the tables kernel twice an iteration. Then,
               with the card to itself: (a) ShardedGapsEngine on
               synthetic_dense(20000, 2000, 10), n_blocks=8, mesh=None,
               200 + 200: a finite, falling chi^2 history, the trimmed
               shape, P's atom masses on M_p within 0.01 x max(1, max
-              M_p), K1 launched exactly twice an iteration; (c)
+              M_p), K1 and the tables kernel launched exactly twice an
+              iteration (the rank's blocks the chains of one call); (c)
               SparseShardedEngine on synthetic_coo(30000, 50000, 0.02),
               k=50, n_shards=4, mesh=None, 40 + 40: a finite, falling
               chi^2, P's drift as in (a), the mode the rule chose,
@@ -184,15 +209,16 @@ Phases:
               updates/s, peak memory and launches, and with its update
               calls of one more iteration held against their plain
               versions; then (b), (d) and (e) on one rank and the two
-              resumes on 1: every leaf of state and statistics bit-equal
-              to the ranks' runs.
+              resumes on 1: every leaf of state and statistics
+              bit-equal to the ranks' runs.
 
 The last line is {"ok": true, "device": {...}}; the one before it is the
 card's name and power limit; before that, one JSON line describing each
 kernel of the path ("ms" by CUDA events around back-to-back calls; for
 K1 and K2 also "device_ms", the kernel's own device time by
 torch.profiler: their calls are short enough that the events time the
-wrapper's host work too; "launches" summed over the main-path phases
+wrapper's host work too; for the tables kernel "device_ms" is the
+stream's ms a call, the host held out of the way; "launches" summed over the main-path phases
 that run the kernel, "launches_by_phase" each phase's count).
 """
 
@@ -1164,6 +1190,140 @@ def phase_span(device, report, reps=5, n_chains=16, seed=21):
                                    "rebuild_ms_per_iter": tables_ms})
 
 
+# ----------------------------------------------------------------------
+# phase 3: the per-call tables kernel
+# ----------------------------------------------------------------------
+TABLES_CASES = (  # (name, rows R, partners m, k, chains): both samplers
+    ("GIST A x1", 1363, 9, 7, 1), ("GIST P x1", 9, 1363, 7, 1),
+    ("GIST A x16", 1363, 9, 7, 16), ("GIST P x16", 9, 1363, 7, 16),
+    ("5000x2000 A x4", 5000, 2000, 10, 4),
+    ("5000x2000 P x4", 2000, 5000, 10, 4),
+    ("20000x100 A x16", 20000, 100, 10, 16),
+    ("20000x100 P x16", 100, 20000, 10, 16),
+    ("20000x2000 block A", 2500, 2000, 10, 1),
+    ("20000x2000 block P", 2000, 2500, 10, 1))
+TABLES_HEADLINE = "5000x2000 A x4"
+
+
+def tables_inputs(R, m, k, nch, seed, device):
+    """One sampler's float32 inputs for nch chains, made on the card: D
+    with a fifth zeros, invS2 = 1 / max(0.1 D, 0.1)^2, M with 30% zeros,
+    the partner factor with an empty last column."""
+    import torch
+    g = torch.Generator(device).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    D = 20.0 * u(nch, R, m) ** 2
+    D = torch.where(u(nch, R, m) < 0.2, torch.zeros_like(D), D)
+    inv = 1.0 / torch.clamp(0.1 * D, min=0.1) ** 2
+    M = torch.where(u(nch, R, k) < 0.3, torch.zeros(()), 2.0 * u(nch, R, k))
+    O = 2.0 * u(nch, m, k)
+    O[:, :, -1] = 0.0
+    return D, inv, M, O
+
+
+def tables_errors(got, exact, terms):
+    """The largest |table - exact| over each entry's summed |terms| (Y, SQ
+    and Z together), and whether every entry is within 1e-5 of them."""
+    worst, ok = 0.0, True
+    for x, e, t in zip(got, exact, terms):
+        d = (x.double() - e.double()).abs()
+        ok = ok and bool((d <= 1e-5 * t).all())
+        pos = t > 0
+        if pos.any():
+            worst = max(worst, float((d[pos] / t[pos]).max()))
+    return worst, ok
+
+
+def tables_terms(D, inv, M, O):
+    """Each entry's sum of |terms| in float64: Y's of (|D| + |M| |O|^T)
+    invS2 |O| (Y cancels), SQ's and Z's of invS2 |O_c O_c'|."""
+    D, inv, M, O = (x.double().abs() for x in (D, inv, M, O))
+    k = O.shape[-1]
+    Y = ((D + M @ O.transpose(-1, -2)) * inv) @ O
+    OO = (O.unsqueeze(-1) * O.unsqueeze(-2)).flatten(-2)
+    Z = (inv @ OO).reshape(inv.shape[:-2] + (inv.shape[-2] * k, k))
+    return Y, inv @ (O * O), Z
+
+
+def phase_tables(device, report, card, reps=20):
+    """The per-call tables kernel at TABLES_CASES against the float64
+    tables rounded once and its plain cuBLAS version; per case the
+    kernel's ms by events around back-to-back calls (the host's pace
+    where it is slower) and its device ms, the stream's ms a call with
+    the host held out of the way (stream_ms: torch.profiler's events
+    of this kernel were found short of its launches, reading under the
+    bound), with the host's ms to enqueue a call; the same two of the
+    plain tables; the bound, the plan. Returns (rows {name: (shape, ms,
+    plain_ms, bound, by, device_ms, plain_device_ms)}, the largest
+    |kernel - plain| entry)."""
+    import torch
+    from cogaps_tpu_torch.models import dense
+    from cogaps_tpu_torch.ops import cuda_build, tables_cuda
+    from cogaps_tpu_torch.probes import bound_ms
+    n_sm = cuda_build.sm_count(device.index or 0)
+    rows, max_err, bad = {}, 0.0, []
+    for i, (name, R, m, k, nch) in enumerate(TABLES_CASES):
+        args = tables_inputs(R, m, k, nch, 100 + i, device)
+        before = tables_cuda.dense_tables.launches
+        cache, phase = dense.tables(*args)
+        launched = tables_cuda.dense_tables.launches - before
+        pc, pp = dense.tables_plain(*args)
+        ec, ep = dense.exact_tables(*args)
+        terms = tables_terms(*args)
+        err_k, ok = tables_errors((cache.Y, phase.SQ, phase.Z),
+                                  (ec.Y, ep.SQ, ep.Z), terms)
+        err_p, _ = tables_errors((pc.Y, pp.SQ, pp.Z), (ec.Y, ep.SQ, ep.Z),
+                                 terms)
+        diff = max(float((a - b).abs().max()) for a, b in (
+            (cache.Y, pc.Y), (phase.SQ, pp.SQ), (phase.Z, pp.Z)))
+        max_err = max(max_err, diff)
+        ok = (ok and err_k <= 2 * err_p and launched == 1
+              and torch.equal(phase.col_nz, ep.col_nz))
+        del pc, pp, ec, ep, terms, cache, phase
+        ms = time_calls(lambda: dense.tables(*args), reps)
+        dev, host = stream_ms(lambda: dense.tables(*args))
+        plain_ms = time_calls(lambda: dense.tables_plain(*args), reps)
+        plain_dev, _ = stream_ms(lambda: dense.tables_plain(*args))
+        bound, by = bound_ms(*tables_cuda.tables_counts(R, m, k, nch))
+        plan = tables_cuda.tables_plan(R, m, k, n_sm)
+        rows[name] = (f"{nch} x ({R},{m}) k={k}", ms, plain_ms, bound, by,
+                      dev, plain_dev)
+        log(f"  tables {name} ({nch} x {R}x{m}, k={k}): kernel {ms:.4f} ms "
+            f"(device {dev:.4f}, the host's {host:.4f}), plain cuBLAS "
+            f"tables {plain_ms:.4f} ms (device {plain_dev:.4f}), bound "
+            f"{bound:.4f} ms ({by}), "
+            f"bound/device {bound / dev:.3f}; worst |error|/terms against "
+            f"the float64 tables {err_k:.3g} (cuBLAS {err_p:.3g}), "
+            f"max|kernel - cuBLAS| {diff:.3g}; plan "
+            + (f"rows_kernel<{k}>" if plan.PQ == 0 else
+               f"quads_kernel<{plan.PQ}> G={plan.G}")
+            + f" RT={plan.RT} S={plan.S} CH={plan.CH} L={plan.L}, "
+            f"{plan.blocks} blocks a chain, {plan.smem} B shared"
+            + ("" if ok else "  MISMATCH"))
+        if not ok:
+            bad.append(name)
+        del args
+    for a, p in (("5000x2000 A x4", "5000x2000 P x4"),
+                 ("20000x100 A x16", "20000x100 P x16")):
+        log(f"  an iteration's tables at {a[:-5]}, both samplers: kernel "
+            f"device {rows[a][5] + rows[p][5]:.4f} ms, cuBLAS tables device"
+            f" {rows[a][6] + rows[p][6]:.4f} ms; card: {card}")
+    regs = {f"rows_kernel<{q}>": ptxas_of(report, f"rows_kernelILi{q}E")
+            for q in range(1, tables_cuda.ROWS_MAX_K + 1)}
+    regs.update({f"quads_kernel<{q}>": ptxas_of(report, f"quads_kernelILi{q}E")
+                 for q in tables_cuda.QUADS})
+    log(f"  tables kernels' ptxas (registers, bytes of spill stores): "
+        f"{regs}")
+    if bad:
+        raise AssertionError(f"the tables kernel disagrees with the float64"
+                             f" tables or launched otherwise than once: "
+                             f"{bad}")
+    return rows, max_err
+
+
 def ptxas_of(report, kernel):
     """(registers, bytes of spill stores) that ptxas reported for the
     entry function whose name holds `kernel`."""
@@ -1181,7 +1341,8 @@ def ptxas_of(report, kernel):
 def build_all():
     """nvcc for every source at once; returns {name: (seconds, report)}."""
     from concurrent.futures import ThreadPoolExecutor
-    from cogaps_tpu_torch.ops import atlas_cuda, span_cuda, sweep_cuda
+    from cogaps_tpu_torch.ops import (atlas_cuda, span_cuda, sweep_cuda,
+                                      tables_cuda)
     from cogaps_tpu_torch.probes import dma, mosaic
 
     def timed(fn):
@@ -1189,10 +1350,11 @@ def build_all():
         _, report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         futs = {"sweep": pool.submit(timed, sweep_cuda.build),
                 "atlas": pool.submit(timed, atlas_cuda.build),
                 "span": pool.submit(timed, span_cuda.build),
+                "tables": pool.submit(timed, tables_cuda.build),
                 "probe_mosaic": pool.submit(timed, mosaic.build),
                 "probe_dma": pool.submit(timed, dma.build),
                 "fastparse": pool.submit(timed, build_native)}
@@ -1252,11 +1414,12 @@ def falling(hist):
 # phase 11: distributed runs (GWCoGAPS, scCoGAPS)
 # ----------------------------------------------------------------------
 def launch_counters():
-    """The wrappers whose launch counts phases 11 and 12 read."""
-    from cogaps_tpu_torch.ops import atlas_cuda, span_cuda, sweep_cuda
-    return {"sweep": sweep_cuda.run_updates_multi,
-            "span": span_cuda.run_span,
-            "atlas": atlas_cuda.run_updates_atlas_multi}
+    """The wrappers whose launch counts phases 11-15 read: the kernels a
+    distributed stage records (parallel/distributed.KERNELS) and the
+    per-call tables kernel."""
+    from cogaps_tpu_torch.ops import tables_cuda
+    from cogaps_tpu_torch.parallel.distributed import KERNELS
+    return {**KERNELS, "dense_tables": tables_cuda.dense_tables}
 
 
 def chisq_fit(D, A, P, S, device):
@@ -1311,7 +1474,23 @@ def span_padded_check(D, device, n_warm=20, n_it=3, seed=5):
     if problems:
         raise AssertionError(f"K3 and its plain version disagree on padded "
                              f"subsets: {problems}")
-    return err
+    # one launch of a stage's chunk at the subset shape, against its bound
+    state, stats = out_p
+    n_chunk = span_cuda.CHUNK
+    args = args[:6] + (n_warm + n_it, n_chunk, state, stats)
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = span_cuda.run_span(*args, rand())
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    bound, by = span_bound_ms(5005, D.shape[1], 10, 4, n_chunk,
+                              (state, stats), out, False)
+    log(f"  K3 at the subset shape (4 x 5005x100, k=10), one {n_chunk}-"
+        f"iteration launch from iteration {n_warm + n_it}: {ms:.3f} ms, "
+        f"bound {bound:.4f} ms ({by}), bound/kernel {bound / ms:.5f}")
+    return err, bound, by
 
 
 def gw_arrays(res) -> dict:
@@ -1415,6 +1594,7 @@ def phase_distributed(device, card, seed=13):
                                                 synthetic_sparse)
     from cogaps_tpu_torch.models import dense
     from cogaps_tpu_torch.ops import span_cuda
+    from cogaps_tpu_torch.parallel.distributed import KERNELS
     from cogaps_tpu_torch.sparse_engine import resolve_sparse_mode
     counters = launch_counters()
 
@@ -1432,10 +1612,10 @@ def phase_distributed(device, card, seed=13):
         stages = res.diagnostics["stages"]
         if len(stages) != 2 or any(
                 sum(st["launches"][n] for st in stages) != launches[n]
-                for n in counters):
+                for n in KERNELS):
             raise AssertionError(f"stage launches {stages} do not add up "
                                  f"to the run's {launches}")
-        return res, t_run, stages
+        return res, t_run, stages, launches["dense_tables"]
 
     def report(what, res, t_run, n_it, modes, base):
         stages = res.diagnostics["stages"]
@@ -1455,19 +1635,29 @@ def phase_distributed(device, card, seed=13):
     # genome-wide bulk RNA-seq: 20000 genes in four 5000-gene subsets
     n_it = 500
     [D] = synthetic_dense(20000, 100, 10, 1, seed)
-    err = span_padded_check(D, device)
+    err, k3_bound, k3_by = span_padded_check(D, device)
     genes = [f"g{i}" for i in range(D.shape[0])]
     params = cogaps_tpu_torch.CogapsParams(
         n_patterns=10, n_iterations=n_it, seed=seed, n_sets=4,
         output_frequency=0)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    res, t_run, stages = drive(cogaps_tpu_torch.GWCoGAPS, D, params,
-                               gene_names=genes)
+    res, t_run, stages, gw_tables = drive(cogaps_tpu_torch.GWCoGAPS, D,
+                                          params, gene_names=genes)
     report("[11 distributed] GWCoGAPS 20000x100 k=10", res, t_run, n_it,
            "dense model (stage 1 fused span K3, stage 2 per-call K1)",
            base)
     by_run["GWCoGAPS"] = [st["launches"] for st in stages]
+    free = stages[0]
+    k3_ms = free["seconds"] * 1e3 / free["launches"]["span"]
+    log(f"  GWCoGAPS stage 1: {k3_ms:.3f} ms a K3 launch "
+        f"({free['launches']['span']} launches in {free['seconds']:.3f} s), "
+        f"bound {k3_bound:.4f} ms ({k3_by}) a launch at the subset shape; "
+        f"tables kernel launches {gw_tables} (stage 2, A only)")
+    if gw_tables != 2 * n_it:
+        raise AssertionError(f"GWCoGAPS launched the tables kernel "
+                             f"{gw_tables} times, not once an iteration of "
+                             f"its fixed stage")
     consensus = res.diagnostics["consensusPatterns"]
     fit, zero = chisq_fit(D, res.Amean, consensus,
                           dense.default_uncertainty(D), device)
@@ -1486,8 +1676,8 @@ def phase_distributed(device, card, seed=13):
             or stages[1]["launches"]["sweep"] < 2 * n_it):
         raise AssertionError(f"GWCoGAPS launches {by_run['GWCoGAPS']}")
     del res
-    by_run["GWCoGAPS on one process, beside the ranks"] = [
-        gw_across_ranks(D, card)]
+    beside = gw_across_ranks(D, card)
+    by_run["GWCoGAPS on one process, beside the ranks"] = [beside]
     del D
 
     # single-cell: 40000 cells in four 10000-cell subsets, sparse model
@@ -1500,8 +1690,8 @@ def phase_distributed(device, card, seed=13):
     mode = resolve_sparse_mode(4, 2000, 10000, 10, device)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    res, t_run, stages = drive(cogaps_tpu_torch.scCoGAPS, D, params,
-                               sample_names=cells)
+    res, t_run, stages, sc_tables = drive(cogaps_tpu_torch.scCoGAPS, D,
+                                          params, sample_names=cells)
     report(f"scCoGAPS 2000x40000 k=10 ({(D == 0).mean():.4f} zeros)",
            res, t_run, n_it, f"sparse model, mode {mode}", base)
     by_run["scCoGAPS"] = [st["launches"] for st in stages]
@@ -1523,9 +1713,12 @@ def phase_distributed(device, card, seed=13):
     for st, n in zip(stages, calls):
         if st["launches"]["sweep"] + st["launches"]["atlas"] < n:
             raise AssertionError(f"scCoGAPS launches {by_run['scCoGAPS']}")
+    if sc_tables:
+        raise AssertionError(f"scCoGAPS launched the dense tables kernel "
+                             f"{sc_tables} times")
     total = {n: sum(st[n] for runs in by_run.values() for st in runs)
-             for n in counters}
-    return total, by_run, err
+             for n in KERNELS}
+    return total, by_run, err, gw_tables + beside["dense_tables"]
 
 
 # ----------------------------------------------------------------------
@@ -1578,6 +1771,9 @@ def phase_checkpoint(device, n_it=1000, every=250):
             raise AssertionError(f"{what} run: meanChiSq differs")
     if launches["sweep"] < 2 * 2 * n_it * 2 + 2 * every:
         raise AssertionError(f"only {launches} launches")
+    if launches["dense_tables"] != launches["sweep"]:
+        raise AssertionError(f"launches {launches}: not one tables launch "
+                             f"a sampler call")
     return launches
 
 
@@ -1699,7 +1895,8 @@ def phase_cli(D, card, n_it=500, seed=13):
         # two K2 launches an iteration, each one of the sparse model's
         # "dense"-mode update calls, and no other kernel
         want = 2 * 2 * n_it
-        if (launches != {"sweep": want, "span": 0, "atlas": 0}
+        if (launches != {"sweep": want, "span": 0, "atlas": 0,
+                         "dense_tables": 0}
                 or dict(table_calls) != {"dense": want}):
             raise AssertionError(f"launches {launches} and sparse update "
                                  f"calls {dict(table_calls)} for {n_it} + "
@@ -1859,7 +2056,8 @@ def phase_oracle(device, card, n_it=600, seeds=(0, 1, 2, 3)):
                     f"{band:.0%} of the oracle's {ref[i]:.2f}")
     k1, k3 = launches["per-call"], launches["fused"]
     if not (k1["sweep"] > 0 and k1["span"] == 0 and k3["span"] > 0
-            and k3["sweep"] == 0):
+            and k3["sweep"] == 0 and k1["dense_tables"] == k1["sweep"]
+            and k3["dense_tables"] == 0):
         raise AssertionError(f"routes launched {launches}")
 
     eng, st, _, rand = ends["per-call"]
@@ -1889,7 +2087,8 @@ def sharded_specs():
     from cogaps_tpu_torch.parallel.multichain import CHAIN_SPEC
     from cogaps_tpu_torch.parallel.sharded import STATE_SPEC, STATS_SPEC
     return {"dense": (STATE_SPEC, STATS_SPEC),
-            "sparse": (STATE_SPEC, STATS_SPEC), "chains": CHAIN_SPEC}
+            "sparse": (STATE_SPEC, STATS_SPEC), "chains": CHAIN_SPEC,
+            "percall": CHAIN_SPEC}
 
 
 def job_engine(kind, n_it, mesh, device):
@@ -1898,7 +2097,9 @@ def job_engine(kind, n_it, mesh, device):
     n_blocks = 8; "sparse", SparseShardedEngine on synthetic_sparse(2000,
     10000, 10) with n_shards = 4; "chains", MultichainEngine of 16 GIST
     chains (k=7, output_frequency 0: the fused span), chain c seeded
-    17 + c."""
+    17 + c; "percall", MultichainEngine of 8 chains of
+    synthetic_dense(2000, 200, 10) (200 samples and a chi^2 history every
+    5: the per-call route), chain c seeded 18 + c."""
     import cogaps_tpu_torch
     from cogaps_tpu_torch.bench_harness import (synthetic_dense,
                                                 synthetic_sparse)
@@ -1927,6 +2128,15 @@ def job_engine(kind, n_it, mesh, device):
         return (SparseShardedEngine(coo, cfg, mesh=mesh, n_shards=4,
                                     device=device),
                 ShardedRandom(16, device), 16)
+    if kind == "percall":
+        [D] = synthetic_dense(2000, 200, 10, 1, 18)
+        cfg = P(n_patterns=10, n_iterations=n_it, seed=18,
+                output_frequency=5).engine_config(*D.shape)
+        eng = MultichainEngine(stack_device_data([D] * 8, None, cfg, "cpu"),
+                               cfg, device, mesh=mesh)
+        seeds = [18 + c for c in range(8)]
+        return (eng, PhiloxRandom([seeds[c] for c in eng.chains], device),
+                np.asarray(seeds))
     D = np.load(GIST_NPZ)["D"].astype(np.float32)
     cfg = P(n_patterns=7, n_iterations=n_it, seed=17,
             output_frequency=0).engine_config(*D.shape)
@@ -1975,7 +2185,8 @@ def rank_card(rank, n, jobs):
     iterations, out, save) on the group's mesh."""
     from cogaps_tpu_torch.parallel import multihost
     for kind, n_it, out, save in jobs:
-        mesh = multihost.global_mesh("chains" if kind == "chains"
+        mesh = multihost.global_mesh("chains" if kind in ("chains",
+                                                          "percall")
                                      else "genes")
         secs = run_job(kind, n_it, out, mesh, save=save)[3]
         log(f"  rank {rank} of {n} ({mesh.backend}, the card shared): "
@@ -2144,8 +2355,10 @@ def phase_sharded(device, card, n_full=200, n_atlas=40):
         groups = [launch.start(rank_card, 2, [
             ("dense", 20, p("d2"), (p("dmid"), SAMPLING, 10)),
             ("sparse", 5, p("s2"), None),
-            ("chains", 100, p("c2"), (p("cmid"), EQUILIBRATION, 100))]),
-            launch.start(rank_card, 4, [("dense", 20, p("d4"), None)])]
+            ("chains", 100, p("c2"), (p("cmid"), EQUILIBRATION, 100)),
+            ("percall", 30, p("q2"), None)]),
+            launch.start(rank_card, 4, [("dense", 20, p("d4"), None),
+                                        ("percall", 30, p("q4"), None)])]
         try:
             for g in groups:
                 launch.join(g, timeout=600)
@@ -2175,9 +2388,9 @@ def phase_sharded(device, card, n_full=200, n_atlas=40):
                                  "or P drifted")
         if eng.trim(st.M_a.cpu().numpy()).shape != (20000, 10):
             raise AssertionError("trimmed A has the wrong shape")
-        if got != {"sweep": 2 * 2 * n_full}:
-            raise AssertionError(f"launches {got}, expected K1 twice an "
-                                 f"iteration")
+        if got != {"sweep": 2 * 2 * n_full, "dense_tables": 2 * 2 * n_full}:
+            raise AssertionError(f"launches {got}, expected K1 and the "
+                                 f"tables kernel twice an iteration")
         errs = {"sweep": max(unit_checks("15 (a)", eng, st, eng.blocks, 15,
                                          n_full))}
         del eng, st, ss
@@ -2237,7 +2450,8 @@ def phase_sharded(device, card, n_full=200, n_atlas=40):
         # (b), (d), (e) on one rank, and the resumes from 2 ranks' files
         one = {}
         for part, kind, n_it in (("(b)", "dense", 20), ("(d)", "sparse", 5),
-                                 ("(e)", "chains", 100)):
+                                 ("(e)", "chains", 100),
+                                 ("(b)", "percall", 30)):
             (_, _, ss, secs), got, held = counted(
                 kind, lambda: run_job(kind, n_it, p(kind[0] + "1")))
             one[kind] = got
@@ -2246,6 +2460,10 @@ def phase_sharded(device, card, n_full=200, n_atlas=40):
         if not (one["chains"].get("span") and not one["chains"].get("sweep")):
             raise AssertionError(f"the chains left the fused span: "
                                  f"{one['chains']}")
+        if one["percall"] != {"sweep": 2 * 2 * 30, "dense_tables": 2 * 2 * 30}:
+            raise AssertionError(f"the per-call chains launched "
+                                 f"{one['percall']}, not K1 and the tables "
+                                 f"kernel twice an iteration")
         for kind, n_it, resume, out in (("dense", 20, "dmid", "dr"),
                                         ("chains", 100, "cmid", "cr")):
             counted(kind, lambda: run_job(kind, n_it, p(out),
@@ -2255,7 +2473,9 @@ def phase_sharded(device, card, n_full=200, n_atlas=40):
                   ("dense", "d1", "dr", "resumed on 1 from 2 ranks"),
                   ("sparse", "s1", "s2", "2 ranks"),
                   ("chains", "c1", "c2", "2 ranks"),
-                  ("chains", "c1", "cr", "resumed on 1 from 2 ranks")]
+                  ("chains", "c1", "cr", "resumed on 1 from 2 ranks"),
+                  ("percall", "p1", "q2", "2 ranks"),
+                  ("percall", "p1", "q4", "4 ranks")]
         for kind, a, b, what in checks:
             n = same_bits(kind, p(a), p(b), f"{kind}, {what}")
             log(f"  {kind}: mesh=None == {what}, all {n} leaves bit-equal")
@@ -2273,7 +2493,8 @@ def main() -> int:
         log("no CUDA device: torch.cuda.is_available() is false")
         return 3
     import cogaps_tpu_torch
-    from cogaps_tpu_torch.ops import atlas_cuda, span_cuda, sweep_cuda
+    from cogaps_tpu_torch.ops import (atlas_cuda, span_cuda, sweep_cuda,
+                                      tables_cuda)
 
     device = torch.device("cuda")
     card = nvidia_smi()
@@ -2287,7 +2508,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     builds = build_all()
-    log(f"[2 build] the five kernel sources and the native parser built "
+    log(f"[2 build] the six kernel sources and the native parser built "
         f"and loaded in "
         f"{time.perf_counter() - t0:.1f} s (" + ", ".join(
             f"{name} {sec:.1f} s" for name, (sec, _) in builds.items()) + ")")
@@ -2321,9 +2542,10 @@ def main() -> int:
     atlas_times, atlas_err = phase_atlas_kernel(device, atlas.side_a,
                                                 atlas.side_p)
     span_times, span_err, span_extra = phase_span(device, builds["span"][1])
+    dense_rows, dense_err = phase_tables(device, builds["tables"][1], card)
     log(f"[3 kernels] K1, K2, K3 == plain versions, K4 within its per-call "
-        f"contract, at the main-path shapes ({time.perf_counter() - t0:.1f}"
-        f" s)")
+        f"contract, the tables kernel within its tolerance, at the "
+        f"main-path shapes ({time.perf_counter() - t0:.1f} s)")
 
     # 4. CoGAPS() on GIST: the main path, with its debug checks
     from cogaps_tpu_torch import api
@@ -2338,22 +2560,27 @@ def main() -> int:
     n_it = 2000
     t0 = time.perf_counter()
     sweep_cuda.run_updates_multi.launches = 0
+    tables_cuda.dense_tables.launches = 0
     res = cogaps_tpu_torch.CoGAPS(GIST_CSV, n_patterns=7,
                                   n_iterations=n_it, seed=42,
                                   messages=False, debug_checks=True,
                                   device="cuda")
     launches = sweep_cuda.run_updates_multi.launches
+    dense_by = {"4": tables_cuda.dense_tables.launches}
     elapsed = time.perf_counter() - t0
     mcs = res.mean_chi_sq
     log(f"[4 CoGAPS] GIST k=7 {n_it} iterations: meanChiSq {mcs:.1f} "
         f"(gate < {2 * golden:.1f}), totalUpdates "
         f"{res.diagnostics['totalUpdates']}, {elapsed:.2f} s, kernel "
-        f"launches {launches}; debug_checks: check_state passed after "
-        f"{len(checked)} phases")
+        f"launches {launches}, tables kernel {dense_by['4']}; debug_checks:"
+        f" check_state passed after {len(checked)} phases")
     if not np.isfinite(mcs) or mcs >= 2.0 * golden:
         raise AssertionError(f"CoGAPS did not converge: {mcs}")
     if launches < 2 * 2 * n_it:
         raise AssertionError(f"only {launches} kernel launches")
+    if dense_by["4"] != 2 * 2 * n_it:
+        raise AssertionError(f"{dense_by['4']} tables launches, not two an "
+                             f"iteration")
     if len(checked) != 2:
         raise AssertionError(f"check_state ran {len(checked)} times")
 
@@ -2374,16 +2601,23 @@ def main() -> int:
     span_launches = span_cuda.run_span.launches
     fused_sweeps = sweep_cuda.run_updates_multi.launches
     eng, rand = throughput_engine(D, params, 16, None, device)
+    tables_cuda.dense_tables.launches = 0
     r_call = time_run(eng, rand, D, None,
                       functools.partial(ChainEngine.run_phase, eng))
+    dense_by["5"] = tables_cuda.dense_tables.launches
     for route, x in (("fused span (K3)", r), ("per-call", r_call)):
         log(f"[5 throughput] GIST k=7, 16 chains, 2000 iterations, {route}:"
             f" {x['updates_per_second']:.1f} updates/s "
             f"({x['total_updates']} updates in {x['elapsed_s']:.3f} s), "
             f"meanChiSq {x['mean_chi_sq']:.1f} (gate < {2 * golden:.1f})")
     log(f"  K3 launches {span_launches}, sweep-kernel launches in the fused"
-        f" run {fused_sweeps}; card: {card}; phase "
+        f" run {fused_sweeps}, tables launches in the per-call run "
+        f"{dense_by['5']}; card: {card}; phase "
         f"{time.perf_counter() - t0:.1f} s")
+    n_run = 2000 + min(eng.config.dispatch_iters, 2000)  # with warm-up
+    if dense_by["5"] != 2 * 2 * n_run:
+        raise AssertionError(f"{dense_by['5']} tables launches in the "
+                             f"per-call run, not two an iteration")
     if max(r["mean_chi_sq"], r_call["mean_chi_sq"]) >= 2.0 * golden:
         raise AssertionError("throughput run did not converge")
     if span_launches < 2 * 2000 // span_cuda.CHUNK or fused_sweeps:
@@ -2406,20 +2640,25 @@ def main() -> int:
     state, stats = eng.init_state(), eng.init_stats()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    tables_cuda.dense_tables.launches = 0
     for ph in (EQUILIBRATION, SAMPLING):
         state, stats = eng.run_phase(state, stats, rand, ph)
     hist = stats.chisq_hist.cpu().numpy()  # waits for the device
     t2 = time.perf_counter()
+    dense_by["6"] = tables_cuda.dense_tables.launches
     ups = int(stats.upd.sum()) / (t2 - t1)
     log(f"[6 realistic] 4 chains x 5000x2000, k=10, 100+100 iterations:"
         f" {ups:.1f} updates/s, {t2 - t1:.2f} s (+{t1 - t0:.2f} s set-up),"
         f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; atoms A {state.atoms_a.n.tolist()} P "
-        f"{state.atoms_p.n.tolist()}")
+        f"{state.atoms_p.n.tolist()}; tables launches {dense_by['6']}")
     for c in range(4):
         log(f"  chain {c} chi^2 history {np.round(hist[c], 1).tolist()}")
     if not np.isfinite(hist).all() or not (hist[:, -1] < hist[:, 0]).all():
         raise AssertionError("chi^2 history is not finite and falling")
+    if dense_by["6"] != 2 * 2 * 100:
+        raise AssertionError(f"{dense_by['6']} tables launches, not two an "
+                             f"iteration")
 
     # 7. the sparse model through CoGAPS()
     from cogaps_tpu_torch.sparse_engine import resolve_sparse_mode
@@ -2553,13 +2792,15 @@ def main() -> int:
 
     # 11. distributed runs through GWCoGAPS() and scCoGAPS()
     t0 = time.perf_counter()
-    dist_launches, dist_by_run, padded_err = phase_distributed(device, card)
+    dist_launches, dist_by_run, padded_err, dense_by["11"] = (
+        phase_distributed(device, card))
     log(f"  launches by run and stage {json.dumps(dist_by_run)}; phase "
         f"{time.perf_counter() - t0:.1f} s")
 
     # 12. checkpoints
     t0 = time.perf_counter()
     ckpt_launches = phase_checkpoint(device)
+    dense_by["12"] = ckpt_launches["dense_tables"]
     log(f"  phase {time.perf_counter() - t0:.1f} s")
 
     # 13. the command line on one scCoGAPS worker's single-cell subset
@@ -2571,11 +2812,13 @@ def main() -> int:
     t0 = time.perf_counter()
     oracle_launches, oracle_k1_err, oracle_k3_err = phase_oracle(device,
                                                                  card)
+    dense_by["14"] = oracle_launches["per-call"]["dense_tables"]
     log(f"  phase {time.perf_counter() - t0:.1f} s")
 
     # 15. gene-sharded chains and chain-sharded runs
     t0 = time.perf_counter()
     sharded_launches, sharded_errs = phase_sharded(device, card)
+    dense_by["15"] = sharded_launches.get("dense_tables", 0)
     log(f"  phase {time.perf_counter() - t0:.1f} s")
 
     def entry(name, source, replaces, launches, err, row, **extra):
@@ -2631,6 +2874,13 @@ def main() -> int:
               "cogaps_tpu/ops/pallas_iter.py:161", 0,
               max(span_err, padded_err, oracle_k3_err),
               span_times) | by_phase(span_by),
+        # no Pallas counterpart: the JAX package's XLA dots of an update
+        # call's tables
+        entry("dense_tables", "cogaps_tpu_torch/csrc/tables.cu",
+              "cogaps_tpu/models/dense.py:108", 0, dense_err,
+              dense_rows[TABLES_HEADLINE], device_ms=dense_rows[
+                  TABLES_HEADLINE][5], library_ms=dense_rows[
+                      TABLES_HEADLINE][2]) | by_phase(dense_by),
     ] + probe_suite.kernel_entries(probe_records, probe_launches)}
     if min(e["launches"] for e in kernel_line["kernels"]) <= 0:
         raise AssertionError("a kernel of the path was never launched")

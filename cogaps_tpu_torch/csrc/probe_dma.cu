@@ -38,6 +38,11 @@
 //                      one HBM round trip. Each warp also follows chain
 //                      0's column 0, one 4-byte load beside its own row's,
 //                      so buf[0, 0] needs no wait across blocks.
+//   dependent_loads    the floor under gather_passes, not a TPU site: one
+//                      lane's chain of n dependent 4-byte loads of column
+//                      0, cur = floor(cur * 0.5 + tbl[cur, 0]) % NB from
+//                      cur = idx[0] (gather_passes' index rule), out = cur.
+//                      A pass can be no quicker than one such load.
 //   F9 gather_batched  out[c, q, j] = tbl[c, idx[c, j], q]: probe_mosaic5's
 //                      gather into the (K, B) layout (K = 1 is its flat
 //                      table). A thread an output, j fastest.
@@ -217,6 +222,19 @@ __global__ void gather_passes_kernel(int NB, int K, int B, int R,
   if (lane == 0) out[j] = cur + last00;
 }
 
+__global__ void dependent_loads_kernel(int NB, int K, int n,
+                                       const float* __restrict__ tbl,
+                                       const float* __restrict__ idx,
+                                       float* __restrict__ out) {
+  float cur = idx[0];
+  for (int p = 0; p < n; ++p) {
+    const long long row = (long long)cur;
+    const float v = row >= 0 && row < NB ? tbl[(size_t)row * K] : nan_f();
+    cur = fmodf(floorf(cur * 0.5f + v), (float)NB);
+  }
+  out[0] = cur;
+}
+
 __global__ void gather_batched_kernel(int nch, int T, int K, int B,
                                       const float* __restrict__ tbl,
                                       const float* __restrict__ idx,
@@ -282,6 +300,15 @@ extern "C" int probe_gather_passes(int NB, int K, int B, int R,
     return kBad;
   gather_passes_kernel<<<(B + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
       NB, K, B, R, tbl, idx, buf, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_dependent_loads(int NB, int K, int n, const float* tbl,
+                                     const float* idx, float* out,
+                                     void* stream) {
+  if (NB < 1 || K < 1 || n < 1) return kBad;
+  dependent_loads_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(NB, K, n, tbl,
+                                                            idx, out);
   return (int)cudaGetLastError();
 }
 

@@ -62,12 +62,18 @@
 //                  below it plus the slot's bytes of the earlier warps.
 //                  O(1) steps a lane (probing aside) at any B.
 //   F4 claim_min   row form: claim[c,row] = the least lane holding row
-//                  (else B), one block a chain, the table set to B and then
-//                  atomicMin of the lane id, as K1 claims rows
-//                  (sweep_common.cuh::sweep_chain); lane form: hit[c,lane]
-//                  = lane if the lane's value is a row in [0, NR) (else B),
-//                  the closed form of the TPU's min over an (NR, B) one-hot.
-//                  Bytes.
+//                  (else B), as K1 claims rows (sweep_common.cuh::
+//                  sweep_chain). The rows of a chain are split over up
+//                  to four blocks (probes/mosaic.claim_plan); a block
+//                  sets its rows' claims to B in shared memory, scans its
+//                  chain's B lanes (its first four a thread loaded before
+//                  the table is set), takes a shared-memory atomicMin of
+//                  the lane id for each lane whose row is in its range,
+//                  and writes its rows out once, coalesced (one block a
+//                  chain with the table in device memory sent every
+//                  claim to L2; PERF.md section 6 times both designs). Lane form: hit[c,lane] = lane if the lane's
+//                  value is a row in [0, NR) (else B), the closed form of
+//                  the TPU's min over an (NR, B) one-hot. Bytes.
 //   F5 elem_chain  n times x = x * 1.0001 + 0.001, a thread an element.
 //   F6 while_sum   a loop whose trip count is read from device memory: the
 //                  "count" form adds sum(x) while i < x[0,0]; the "until"
@@ -588,23 +594,51 @@ __device__ __forceinline__ bool is_row(float v, int NR) {
   return v >= 0.0f && v < (float)NR && v == floorf(v);
 }
 
-__global__ void claim_min_kernel(int form, int B, int NR,
-                                 const float* __restrict__ r,
-                                 int* __restrict__ out) {
+// row form: blockIdx.x takes rows [x rows, (x + 1) rows) of chain
+// blockIdx.y; a thread's first kClaimLanes lanes are loaded before the
+// table is set, so their latency overlaps it
+constexpr int kClaimLanes = 4;
+
+__global__ void __launch_bounds__(cogaps::kMaxB)
+    claim_rows_kernel(int B, int NR, int rows, const float* __restrict__ r,
+                      int* __restrict__ out) {
+  extern __shared__ int claim[];
+  const int c = blockIdx.y, lo = blockIdx.x * rows;
+  const int n = min(rows, NR - lo);
+  const float* rc = r + (size_t)c * B;
+  float v[kClaimLanes];
+#pragma unroll
+  for (int j = 0; j < kClaimLanes; ++j) {
+    const int l = threadIdx.x + j * blockDim.x;
+    v[j] = l < B ? rc[l] : -1.0f;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) claim[i] = B;
+  __syncthreads();  // the table is set before any claim
+  auto take = [&](float x, int l) {
+    if (is_row(x, NR)) {
+      const int row = (int)x - lo;
+      if (row >= 0 && row < n) atomicMin(&claim[row], l);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kClaimLanes; ++j)
+    take(v[j], threadIdx.x + j * blockDim.x);
+  for (int l = threadIdx.x + kClaimLanes * blockDim.x; l < B;
+       l += blockDim.x)
+    take(rc[l], l);
+  __syncthreads();
+  int* oc = out + (size_t)c * NR + lo;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) oc[i] = claim[i];
+}
+
+// lane form
+__global__ void claim_lanes_kernel(int B, int NR,
+                                   const float* __restrict__ r,
+                                   int* __restrict__ out) {
   const int c = blockIdx.x;
   const float* rc = r + (size_t)c * B;
-  if (form == 0) {
-    int* claim = out + (size_t)c * NR;
-    for (int row = threadIdx.x; row < NR; row += blockDim.x) claim[row] = B;
-    __syncthreads();  // the table is set before any claim
-    for (int l = threadIdx.x; l < B; l += blockDim.x) {
-      const float v = rc[l];
-      if (is_row(v, NR)) atomicMin(&claim[(int)v], l);
-    }
-  } else {
-    for (int l = threadIdx.x; l < B; l += blockDim.x)
-      out[(size_t)c * B + l] = is_row(rc[l], NR) ? l : B;
-  }
+  for (int l = threadIdx.x; l < B; l += blockDim.x)
+    out[(size_t)c * B + l] = is_row(rc[l], NR) ? l : B;
 }
 
 __global__ void elem_chain_kernel(int n, int n_ops,
@@ -748,6 +782,7 @@ __global__ void uniform_kernel(int rows, int lanes,
 inline int launched() { return (int)cudaGetLastError(); }
 
 constexpr int kBad = (int)cudaErrorInvalidValue;
+constexpr int kClaimRows = 12288;  // probes/mosaic.CLAIM_ROWS: 48 KB
 
 template <int K>
 cudaError_t skinny_launch(dim3 grid, cudaStream_t s, int vec, int T, int B,
@@ -867,12 +902,25 @@ extern "C" int probe_first_wins(int nch, int B, const float* r, int* count,
   return launched();
 }
 
-extern "C" int probe_claim_min(int form, int nch, int B, int NR,
-                               const float* r, int* out, void* stream) {
-  if (nch < 1 || B < 1 || NR < 1 || (form != 0 && form != 1)) return kBad;
-  const int threads = B < cogaps::kMaxB ? (B + 31) / 32 * 32 : cogaps::kMaxB;
-  claim_min_kernel<<<nch, threads, 0, (cudaStream_t)stream>>>(form, B, NR, r,
-                                                              out);
+// rows, threads: the row form's rows and threads a block
+// (probes/mosaic.claim_plan), at most kClaimRows and kMaxB
+extern "C" int probe_claim_min(int form, int nch, int B, int NR, int rows,
+                               int threads, const float* r, int* out,
+                               void* stream) {
+  if (nch < 1 || nch > 65535 || B < 1 || NR < 1 || (form != 0 && form != 1))
+    return kBad;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (form == 1) {
+    const int lanes = B < cogaps::kMaxB ? (B + 31) / 32 * 32 : cogaps::kMaxB;
+    claim_lanes_kernel<<<nch, lanes, 0, s>>>(B, NR, r, out);
+    return launched();
+  }
+  if (rows < 1 || rows > kClaimRows || threads < 32 || threads % 32 ||
+      threads > cogaps::kMaxB)
+    return kBad;
+  const dim3 grid((NR + rows - 1) / rows, nch);
+  claim_rows_kernel<<<grid, threads, rows * sizeof(int), s>>>(B, NR, rows, r,
+                                                             out);
   return launched();
 }
 

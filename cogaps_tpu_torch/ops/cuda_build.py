@@ -73,3 +73,10 @@ def check(name, t, dtype, shape, device):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index`."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

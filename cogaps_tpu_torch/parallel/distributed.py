@@ -45,14 +45,13 @@ over the ranks where the chains have a mesh).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..engine import EQUILIBRATION, SAMPLING, PhiloxRandom, run_iteration
+from ..engine import EQUILIBRATION, SAMPLING, PhiloxRandom
 from ..io.coo import CooMatrix
 from ..models import dense, sparse
 from ..ops import atlas_cuda, span_cuda, sweep_cuda
@@ -321,15 +320,13 @@ def subset_mesh(n_sets: int):
 
 def subset_engine(data, cfg, device, mesh=None) -> MultichainEngine:
     """The engine of a stage's dense subset chains (those of `mesh` this
-    rank holds), its per-call tables built a chain at a time
-    (dense.tables_per_chain), so that a chain's bits follow neither its
-    rank nor how many chains share its calls. The fused span needs
-    nothing: its table sums are bit-equal to the plain tables at every
-    cluster size a chain count gives (tests/test_torch_cuda.py)."""
-    eng = MultichainEngine(data, cfg, device, mesh=mesh)
-    eng.iterate = functools.partial(run_iteration,
-                                    tables=dense.tables_per_chain)
-    return eng
+    rank holds). A chain's bits follow neither its rank nor how many
+    chains share its calls: on the per-call route the tables kernel sums
+    each chain's tables in an order of its shape alone
+    (ops/tables_cuda.py), and on the fused span the table sums are
+    bit-equal to the plain tables at every cluster size a chain count
+    gives (tests/test_torch_cuda.py)."""
+    return MultichainEngine(data, cfg, device, mesh=mesh)
 
 
 def _run_stage(eng, state, stats, seed: int, mesh=None, device="cpu"):

@@ -7,9 +7,10 @@ DETERMINISM CONTRACT (the analog of the reference's thread-count
 invariance, tests/testthat/test_seed_consistency.R:36-68): the unit of
 A-side parallelism is a ROW BLOCK, not a rank. Every stream is keyed by
 (seed, phase, iteration, BLOCK ID), every A-side atom table and proposal
-batch is block-local, every per-block product has the same shape on
-every rank count (a product per block, never one batched over the
-rank's blocks), and every cross-block float reduction (the P sampler's
+batch is block-local, every per-block table has the same sums on every
+rank count (the rank's blocks are the chains of one models/dense.tables
+call, which sums a chain in an order of its own shape alone), and every
+cross-block float reduction (the P sampler's
 SQ/Z/Y tables, chi^2) is an all_gather of per-block partials added in
 block order (multihost.ordered_sum). Ranks merely hold contiguous groups
 of blocks, so THE SAME SEED GIVES BITWISE THE SAME TRAJECTORY ON 1, 2,
@@ -23,7 +24,8 @@ of blocks, so THE SAME SEED GIVES BITWISE THE SAME TRAJECTORY ON 1, 2,
   stay within the block (a valid blocked kernel mixture; the reference's
   distributed mode restricts them to the subset the same way).
 * P sampler — replicated: each block's partial tables are
-  dense.tables(D_b^T, invS2_b^T, M_p, M_a_b), summed in block order; then
+  dense.tables(D_b^T, invS2_b^T, M_p, M_a_b) (the blocks the chains of one
+  call), summed in block order; then
   one K1 launch, identical on every rank (the kernel is deterministic
   for equal inputs).
 * integer counters cross ranks by an integer sum (exact in any order).
@@ -334,17 +336,13 @@ class ShardedGapsEngine(UnitChain):
     def a_call(self, state: ChainState, n_a, temp, key) -> tuple:
         """The arguments of the A sampler's one K1 call, the rank's blocks
         as its chains: each block's tables from its rows against the
-        replicated P (a product per block)."""
-        M_p = state.M_p[0]
-        caches, phases = zip(*[
-            dense.tables(self.D[j], self.invS2[j], state.M_a[j], M_p)
-            for j in range(len(self.blocks))])
-        phase = dense.DensePhase(
-            SQ=torch.stack([p.SQ for p in phases]),
-            Z=torch.stack([p.Z for p in phases]),
-            col_nz=torch.stack([p.col_nz for p in phases]))
-        return (state.atoms_a, state.M_a, torch.stack([c.Y for c in caches]),
-                phase, temp, n_a, self.consts_a, self.mass_a, key)
+        replicated P, the blocks the chains of one tables call."""
+        cache, phase = dense.tables(self.D, self.invS2, state.M_a,
+                                    state.M_p)
+        phase = phase._replace(col_nz=phase.col_nz.expand(
+            len(self.blocks), -1).contiguous())
+        return (state.atoms_a, state.M_a, cache.Y, phase, temp, n_a,
+                self.consts_a, self.mass_a, key)
 
     def update_a(self, state: ChainState, n_a, temp, key):
         atoms, M, _, done, ns, cnt = run_updates_multi(
@@ -356,17 +354,17 @@ class ShardedGapsEngine(UnitChain):
         leading dimension of 1: each block's partial
         dense.tables(D_b^T, invS2_b^T, M_p, M_a_b), added in block order;
         col_nz from the max over every block."""
-        parts = [dense.tables(self.D_t[j], self.invS2_t[j], M_p[0], M_a[j])
+        cache, phase = dense.tables(self.D_t, self.invS2_t, M_p, M_a)
+        parts = [(cache.Y[j], phase.SQ[j], phase.Z[j])
                  for j in range(len(self.blocks))]
         col_max = multihost.max_all(M_a.amax(dim=(0, 1)), self.mesh)
 
-        def total(get):
-            return multihost.ordered_sum([get(c, p) for c, p in parts],
+        def total(i):
+            return multihost.ordered_sum([part[i] for part in parts],
                                          self.mesh)[None]
 
-        Y = total(lambda c, p: c.Y)
-        phase = dense.DensePhase(SQ=total(lambda c, p: p.SQ),
-                                 Z=total(lambda c, p: p.Z),
+        Y = total(0)
+        phase = dense.DensePhase(SQ=total(1), Z=total(2),
                                  col_nz=(col_max > 0.0)[None])
         return Y, phase
 

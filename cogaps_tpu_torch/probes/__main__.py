@@ -7,7 +7,10 @@ K4's partner tables, F2-F4 at K1's lane count, F8 at one fast-mode
 sweep's block of 16 chains) — and holds the kernel to its plain version:
 exact, or within the function's stated tolerance. It first prints the
 launch floor: the time of one launch of an empty kernel, timed as the
-cases are, and back to back. Then a line per case: kernel ms (median of
+cases are, and back to back; and the dependent-load floor: one lane's
+chain of 16 and of 80 dependent 4-byte loads over the 512 MiB table
+(dma.dependent_loads), which gather_passes' 16 and 80 passes are set
+against. Then a line per case: kernel ms (median of
 20 launches after a warm-up, each between CUDA events recorded behind a
 spin of the stream, so the host's enqueueing is not timed; the inputs
 stay in L2 between launches, except the DMA probes' tables of 512 MiB)
@@ -71,6 +74,8 @@ class Case:
     tol: Optional[Callable] = None  # (args, kernel out, plain out) -> bool;
     #                                 None: equal
     headline: bool = False  # the function's row in chip_smoke's kernels line
+    passes: Optional[int] = None  # gather_passes' R: set against the
+    #                               dependent-load floor of R loads
 
 
 def within_terms(terms_fn, rtol=1e-5):
@@ -259,7 +264,8 @@ def cases(tables) -> list:
             "F9", f"256 rows of (2^20,128), {R} dependent passes",
             [f"{D2}:68"],
             lambda dev, R=R: (tbl2, *_to(dev, _probe_idx(256, len(tbl2))), R),
-            d.gather_passes, d.gather_passes_plain, d.gather_passes_counts))
+            d.gather_passes, d.gather_passes_plain, d.gather_passes_counts,
+            passes=R))
     out.append(Case(
         "F9", "(4,1363,16) rows at (4,256) into (4,16,256)", [f"{M5}:27"],
         lambda dev: _to(dev, (np.random.default_rng(0).standard_normal(
@@ -451,10 +457,27 @@ def launch_floor(device, reps=20, burst=200) -> dict:
     return {"ms": ms, "back_to_back_ms": start.elapsed_time(stop) / burst}
 
 
+def dependent_floor(device, tbl, n_loads, reps=20) -> dict:
+    """One lane's chain of n_loads dependent 4-byte loads over the 512 MiB
+    table `tbl` (dma.dependent_loads, gather_passes' index rule), timed as
+    every case's kernel is: the least a chain of n_loads dependent passes
+    can take. Raises AssertionError if the kernel and its plain version
+    disagree."""
+    (idx,) = _to(device, _probe_idx(1, len(tbl)))
+    got = dma.dependent_loads(tbl, idx, n_loads)
+    want = dma.dependent_loads_plain(tbl, idx, n_loads)
+    if not torch.equal(got, want):
+        raise AssertionError(f"dependent_loads({n_loads}) disagrees with its"
+                             f" plain version: {got} against {want}")
+    return {"ms": device_ms(lambda: dma.dependent_loads(tbl, idx, n_loads),
+                            reps), "loads": n_loads}
+
+
 def run_suite(device, log=print, reps=20) -> list:
-    """The launch floor, then every case on `device` (a CUDA device); a
-    line each through `log`, a case's time also over the floor's
-    ("over_floor"). Raises AssertionError, after the last case, if any
+    """The launch floor and the dependent-load floor, then every case on
+    `device` (a CUDA device); a line each through `log`, a case's time
+    also over the floor's ("over_floor"; gather_passes' over the
+    dependent-load floor of as many loads, "dependent_floor_ms"). Raises AssertionError, after the last case, if any
     kernel disagreed with its plain version."""
     torch.backends.cuda.matmul.allow_tf32 = False
     records = []
@@ -463,14 +486,24 @@ def run_suite(device, log=print, reps=20) -> list:
         f"alone between events, {floor['back_to_back_ms']:.4f} ms a launch "
         f"back to back")
     tables = (_probe_table(device), _probe2_table(device))
+    chains = {n: dependent_floor(device, tables[1], n, reps)
+              for n in (16, 80)}
+    log("  dependent-load floor (one lane's chain of 4-byte loads over the "
+        "512 MiB table): " + ", ".join(
+            f"{n} loads {c['ms']:.4f} ms ({c['ms'] / n * 1e3:.3f} us a load)"
+            for n, c in chains.items()))
     for case in cases(tables):
         r = run_case(case, device, reps)
         r["floor_ms"] = floor["ms"]
         r["over_floor"] = r["ms"] / floor["ms"]
+        if case.passes:
+            r["dependent_floor_ms"] = chains[case.passes]["ms"]
+            r["over_floor"] = r["ms"] / r["dependent_floor_ms"]
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         log(f"  {r['f']} {r['name']} {r['shape']} [{', '.join(r['sites'])}]:"
-            f" kernel {r['ms']:.4f} ms ({r['over_floor']:.2f}x the floor), "
+            f" kernel {r['ms']:.4f} ms ({r['over_floor']:.2f}x the "
+            f"{'dependent-load ' if case.passes else ''}floor), "
             f"plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}),"
             f" bound/kernel {r['share']:.4f}, max|diff| {r['max_abs_err']:.3g}"

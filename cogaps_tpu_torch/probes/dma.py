@@ -7,6 +7,8 @@ The TPU sites (tools/, file:line of the pallas_call):
       gather_passes   probe_dma2.py:68 (R dependent gather passes)
       gather_batched  probe_mosaic5.py:27 (k_gather, and k_gred's flat table
                       as K = 1)
+      dependent_loads no TPU site: the dependent-load floor under
+                      gather_passes
   F10 scatter_slots   probe_mosaic5.py:27 (k_scatter)
   F11 strided_sum     probe_dma.py:85 (p2a), 112 (p2b)
 
@@ -32,6 +34,7 @@ F32 = torch.float32
 _SIGNATURES = {
     "probe_gather_rows": "iiiiippppp",
     "probe_gather_passes": "iiiippppp",
+    "probe_dependent_loads": "iiipppp",
     "probe_gather_batched": "iiiipppp",
     "probe_scatter_slots": "iiipppp",
     "probe_strided_sum": "iiffppp",
@@ -200,6 +203,35 @@ def gather_passes_counts(tbl, idx, n_passes):
         cur = torch.floor(cur * 0.5 + tbl[cur.long(), 0]) % NB
     rows = _distinct(torch.cat(named))
     return 4 * (rows * K + B + B * K + B), 4 * n_passes * B
+
+
+def dependent_loads_plain(tbl, idx, n_loads):
+    NB = tbl.shape[0]
+    cur = idx[:1]
+    for _ in range(n_loads):
+        cur = torch.floor(cur * 0.5 + tbl[cur.long(), 0]) % NB
+    return cur
+
+
+def dependent_loads(tbl: torch.Tensor, idx: torch.Tensor,
+                    n_loads: int) -> torch.Tensor:
+    """The dependent-load floor under gather_passes (no TPU site): one
+    lane follows n_loads dependent loads of the (NB, K) float32 table's
+    column 0 from cur = idx[0], cur = floor(cur * 0.5 + tbl[cur, 0]) % NB
+    (gather_passes' index rule). Returns cur, (1,)."""
+    NB, K = _table(tbl)
+    check("idx", idx, F32, (idx.shape[0],), tbl.device)
+    if n_loads < 1:
+        raise ValueError(f"n_loads must be positive, not {n_loads}")
+    if not on_card(tbl):
+        return dependent_loads_plain(tbl, idx, n_loads)
+    out = torch.empty((1,), dtype=F32, device=tbl.device)
+    launch(dependent_loads, build()[0].probe_dependent_loads, NB, K,
+           n_loads, tbl.data_ptr(), idx.data_ptr(), out.data_ptr())
+    return out
+
+
+dependent_loads.launches = 0
 
 
 def gather_batched_plain(tbl, idx):

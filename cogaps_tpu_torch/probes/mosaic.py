@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import rng
-from ..ops.cuda_build import check
+from ..ops.cuda_build import check, sm_count
 from . import bind, launch, on_card
 
 F32 = torch.float32
@@ -46,7 +46,7 @@ _SIGNATURES = {
     "probe_bdot": "iiiiiiiiippppp",
     "probe_prefix": "iippp",
     "probe_first_wins": "iippp",
-    "probe_claim_min": "iiiippp",
+    "probe_claim_min": "iiiiiippp",
     "probe_elem_chain": "iippp",
     "probe_while_sum": "iippp",
     "probe_reduce3d": "iiiippp",
@@ -174,11 +174,6 @@ def bdot_plan(NCH: int, T: int, K: int, B: int, n_sm: int = 132) -> BdotPlan:
                     (splits, NCH, K, B) if splits > 1 else None)
 
 
-@functools.cache
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _aligned(t):
     """t, or a copy of it in new (16-byte aligned) memory."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -300,6 +295,43 @@ def claim_min_plain(r, n_rows, form):
     return hit.amin(dim=2 if form == "row" else 1)
 
 
+CLAIM_ROWS = 12288  # csrc/probe_mosaic.cu's kClaimRows: 48 KB of claims
+# a row-form block's most threads (four lanes a thread) and a chain's most
+# blocks: on an NVIDIA H100 80GB HBM3 at 700 W, at (16,1024) and (8,512),
+# NR=1363, 512 threads and 2 to 4 blocks a chain were the quickest of
+# 256/512/1024 threads and 1, 2, 4, 8 blocks or enough to fill the SMs
+# (0.0056 against 0.0058-0.0062 ms a launch)
+CLAIM_THREADS = 512
+CLAIM_BLOCKS = 4
+
+
+class ClaimPlan(NamedTuple):
+    """The row form's split: `blocks` blocks a chain of `rows` rows each
+    (the last shorter) and `threads` threads, `smem` bytes of claims a
+    block."""
+    blocks: int
+    rows: int
+    threads: int
+    smem: int
+
+    def ranges(self, n_rows: int) -> list:
+        """The rows [lo, hi) of each block of a chain."""
+        return [(b * self.rows, min((b + 1) * self.rows, n_rows))
+                for b in range(self.blocks)]
+
+
+@functools.lru_cache(maxsize=256)
+def claim_plan(NCH: int, B: int, n_rows: int, n_sm: int) -> ClaimPlan:
+    """How the row form splits each chain's n_rows rows over blocks: as
+    many as fill the n_sm SMs with the NCH chains, at most CLAIM_BLOCKS
+    and at least as many as keep a block to CLAIM_ROWS rows."""
+    want = max(1, min(n_rows, -(-n_sm // NCH), CLAIM_BLOCKS))
+    rows = min(-(-n_rows // want), CLAIM_ROWS)
+    threads = min(CLAIM_THREADS, 32 * -(-B // 32))
+    return ClaimPlan(blocks=-(-n_rows // rows), rows=rows, threads=threads,
+                     smem=4 * rows)
+
+
 def claim_min(r: torch.Tensor, n_rows: int, form: str) -> torch.Tensor:
     """Row form: claim[c, row] = the least lane of chain c whose value is
     `row`, else B (NCH, n_rows), the claim table of K1's conflict rule;
@@ -315,8 +347,10 @@ def claim_min(r: torch.Tensor, n_rows: int, form: str) -> torch.Tensor:
         return claim_min_plain(r, n_rows, form)
     out = torch.empty((NCH, n_rows if form == "row" else B),
                       dtype=torch.int32, device=r.device)
+    plan = claim_plan(NCH, B, n_rows, sm_count(r.device.index or 0))
     launch(claim_min, build()[0].probe_claim_min, CLAIM_FORMS.index(form),
-           NCH, B, n_rows, r.data_ptr(), out.data_ptr())
+           NCH, B, n_rows, plan.rows, plan.threads, r.data_ptr(),
+           out.data_ptr())
     return out
 
 

@@ -17,7 +17,8 @@ sampling iterations twice from that copy:
    wall ms per iteration;
 2. under torch.profiler with CUDA activity: the device's busy time (the
    union of the intervals of its kernels, copies and sets), split by
-   class (sweep kernel, span kernel, matmuls, copies, other kernels).
+   class (sweep kernel, span kernel, tables kernel, matmuls, copies,
+   other kernels).
 
 Both runs start from the same state with the same random streams, so the
 device does the same work in each (the update counts are printed side by
@@ -58,6 +59,8 @@ def kernel_class(name: str) -> str:
         return "sweep_kernel"
     if re.search(r"\bspan_kernel\(", name):
         return "span_kernel"
+    if re.search(r"\b(rows|quads)_kernel<\d+>\(", name):  # csrc/tables.cu
+        return "tables_kernel"
     if _MATMUL.search(name):
         return "matmuls"
     if name.startswith(("Memcpy", "Memset")):
@@ -165,6 +168,11 @@ def main() -> None:
         ("10000x100 k=10, 16 chains", synthetic_dense(10000, 100, 10, 16, 46),
          10, 40, 10, ROUTES[::2]),
         ("20000x100 k=10, 16 chains", synthetic_dense(20000, 100, 10, 16, 45),
+         10, 40, 10, ROUTES[::2]),
+        # the gate at a few chains (GWCoGAPS's four subsets)
+        ("6000x100 k=10, 4 chains", synthetic_dense(6000, 100, 10, 4, 48),
+         10, 40, 10, ROUTES[::2]),
+        ("10000x100 k=10, 4 chains", synthetic_dense(10000, 100, 10, 4, 49),
          10, 40, 10, ROUTES[::2]),
     ]
     for name, Ds, k, n_iterations, window, routes in configs:

@@ -1,7 +1,8 @@
 """Per-call times of the sweep kernels on one CUDA card, for comparing two
 checkouts of the package in one run.
 
-    python3 kernel_times.py [--root DIR] [--placements] [--out FILE]
+    python3 kernel_times.py [--root DIR] [--placements | --profile |
+                             --golden N] [--out FILE]
 
 times the cogaps_tpu_torch package found in DIR (default: the checkout
 holding this file), built from DIR's sources, on the cases of
@@ -31,6 +32,21 @@ under other placements of the chains' state than smem_plan's
 left out), on the same cases and on the A samplers of 10000 x 100 and
 20000 x 100 k=10 with 16 chains: sweep_kernel's device ms and the
 stream's ms a call of each.
+
+With --profile it runs instead the per-call route's iterations of
+profile_iter (DIR's cogaps_tpu_torch.profile_iter.profile_config, on
+PROFILE_CONFIGS from this checkout): wall ms, device busy ms and its
+share, device operations an iteration and the busy time by class, at
+GIST x1 and x16, 4 x 5000 x 2000 k=10, and 16 and 4 chains of 6000,
+10000 (and, at 16, 20000) x 100 k=10.
+
+With --golden N it runs instead tests/test_torch_cuda.py's GIST golden
+pattern recovery (CoGAPS on data/gist.npz, k=3, 1500 iterations, the
+per-call route) at seeds 0 .. N-1, each with the per-call tables of the
+tables kernel and with the plain cuBLAS tables (models/dense.tables_plain
+on the card): each run's meanChiSq, its late chi^2 plateau and the
+correlation of each recovered P pattern with the reference's
+(best_perm_corr), beside that test's bands.
 
 To compare a change with its parent on one card, unpack the parent
 (`git archive`) into a git-ignored directory and run this script on
@@ -177,6 +193,97 @@ def atlas_times(cs, device, reps=5):
     return out
 
 
+# (name, (rows, samples, k, chains, seed) or None for GIST, k, iterations,
+# timed window): profile_iter's per-call configurations
+PROFILE_CONFIGS = (
+    ("GIST k=7, 1 chain", (None, 1), 7, 2000, 100),
+    ("GIST k=7, 16 chains", (None, 16), 7, 2000, 100),
+    ("5000x2000 k=10, 4 chains", (5000, 2000, 10, 4, 42), 10, 100, 30),
+    ("6000x100 k=10, 16 chains", (6000, 100, 10, 16, 47), 10, 40, 10),
+    ("10000x100 k=10, 16 chains", (10000, 100, 10, 16, 46), 10, 40, 10),
+    ("20000x100 k=10, 16 chains", (20000, 100, 10, 16, 45), 10, 40, 10),
+    ("6000x100 k=10, 4 chains", (6000, 100, 10, 4, 48), 10, 40, 10),
+    ("10000x100 k=10, 4 chains", (10000, 100, 10, 4, 49), 10, 40, 10))
+
+
+def profile_times(device) -> list:
+    """profile_iter's per-call rows of PROFILE_CONFIGS, by the package
+    found on the path."""
+    from cogaps_tpu_torch import profile_iter
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.io import parsers
+    gist = parsers.read_matrix(os.path.join(HERE, "data", "GIST.csv"))[0]
+    rows = []
+    for name, data, k, n_it, window in PROFILE_CONFIGS:
+        Ds = ([gist] * data[1] if data[0] is None
+              else synthetic_dense(*data))
+        rows.append(profile_iter.profile_config(name, Ds, k, n_it, window,
+                                                device, "per-call"))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def golden_runs(device, n_seeds) -> list:
+    """The GIST golden recovery at seeds 0 .. n_seeds-1, by the tables
+    kernel and by the plain cuBLAS tables (see the module's docstring)."""
+    import numpy as np
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.models import dense
+    from cogaps_tpu_torch.ops import tables_cuda
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_cuda import best_perm_corr
+    z = np.load(os.path.join(HERE, "data", "gist.npz"))
+    golden_p = np.asarray(z["golden_Pmean"])
+    golden_eq = float(np.mean(np.asarray(z["golden_chisqHistory"])[2:]))
+    golden_mcs = float(np.asarray(z["golden_meanChiSq"]).reshape(-1)[0])
+    kernel = tables_cuda.dense_tables
+
+    def plain(D, invS2, M, other):
+        cache, phase = dense.tables_plain(D, invS2, M, other)
+        return cache.Y, phase.SQ, phase.Z, phase.col_nz
+
+    rows = []
+    for seed in range(n_seeds):
+        for name, fn in (("kernel", kernel), ("cuBLAS", plain)):
+            tables_cuda.dense_tables = fn
+            try:
+                res = cogaps_tpu_torch.CoGAPS(
+                    np.asarray(z["D"]), n_patterns=golden_p.shape[1],
+                    n_iterations=1500, seed=seed, messages=False,
+                    output_frequency=250, device=device)
+            finally:
+                tables_cuda.dense_tables = kernel
+            hist = res.diagnostics["chisqHistory"]
+            cors = best_perm_corr(res.Pmean, golden_p)
+            rows.append({"seed": seed, "tables": name,
+                         "plateau_over_golden": float(np.mean(
+                             hist[3 * len(hist) // 4:])) / golden_eq,
+                         "mcs_over_golden": res.mean_chi_sq / golden_mcs,
+                         "cors": [float(c) for c in cors],
+                         "passes": bool(np.median(cors) > 0.8
+                                        and (cors > 0.5).all())})
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def build_kernels():
+    """The root's sweep, span and atlas kernels, built at once: {name:
+    (seconds, ptxas report)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from cogaps_tpu_torch.ops import atlas_cuda, span_cuda, sweep_cuda
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        report = fn()[1]
+        return time.perf_counter() - t0, report
+
+    with ThreadPoolExecutor(3) as pool:
+        futs = {"sweep": pool.submit(timed, sweep_cuda.build),
+                "atlas": pool.submit(timed, atlas_cuda.build),
+                "span": pool.submit(timed, span_cuda.build)}
+        return {name: f.result() for name, f in futs.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
@@ -184,6 +291,11 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="JSON file to write")
     ap.add_argument("--placements", action="store_true",
                     help="time K1/K2 under other placements instead")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile the per-call route's iterations instead")
+    ap.add_argument("--golden", type=int, default=0, metavar="N",
+                    help="GIST golden recovery at N seeds, kernel and "
+                         "cuBLAS tables, instead")
     args = ap.parse_args()
     import chip_smoke as cs  # this checkout's, before DIR goes on the path
     root = os.path.abspath(args.root)
@@ -200,7 +312,15 @@ def main() -> int:
     from cogaps_tpu_torch.bench_harness import synthetic_sparse
     device = torch.device("cuda")
     t0 = time.perf_counter()
-    builds = cs.build_all()
+    if args.profile or args.golden:
+        record = {"root": root, "card": cs.nvidia_smi()}
+        if args.profile:
+            record["profile"] = profile_times(device)
+        else:
+            record["golden"] = golden_runs(device, args.golden)
+        record["seconds"] = time.perf_counter() - t0
+        return write(record, args.out)
+    builds = build_kernels()
     record = {"root": root, "card": cs.nvidia_smi(),
               "build_s": time.perf_counter() - t0,
               "sweep_ptxas": cs.sweep_classes(builds["sweep"][1]),
@@ -215,12 +335,15 @@ def main() -> int:
         record["span_kernel_ms_per_iter"] = span_time(cs, device)
         record["atlas"] = atlas_times(cs, device)
     record["seconds"] = time.perf_counter() - t0
+    return write(record, args.out)
+
+
+def write(record, out) -> int:
     line = json.dumps(record)
     print(line, flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write(line + "\n")
     return 0
 

@@ -51,7 +51,19 @@ and all-distinct keys; F7's sum is within 1e-6 of its plain version,
 with 16-byte and 4-byte loads; each counts its launches and repeats its
 bits. GWCoGAPS's subset chains on 2 ranks sharing the card (gloo), and
 on a card a rank (NCCL, where there are two cards or more), return the
-one-process result bit for bit."""
+one-process result bit for bit. The per-call tables kernel
+(csrc/tables.cu, through models/dense.tables) is within 1e-5 of each
+entry's summed |terms| of the float64 tables rounded once and no worse
+than twice the plain cuBLAS tables' own worst error, on inputs with
+zeros in D, padded invS2 = 0 rows and an empty partner column, at GIST,
+the subset shapes, 5000 x 2000, 20000 x 100 and k = 1 to 50 (both of its
+kernels); a chain's tables are the same bits alone, as one of 4 and as
+one of 16; and a chain mesh's per-call runs, through subset_engine and
+through MultichainEngine(..., mesh=...) made directly, give each chain
+the bits it gets beside the others, one tables launch a sampled factor
+an iteration. F4's row form is exact at NR = 1, 50, 1363 and B = 1, 100,
+1024 with NaN and out-of-range lanes; the dependent-load floor's chain
+equals its plain version."""
 
 import os
 import re
@@ -1275,40 +1287,52 @@ def test_gwcogaps_on_ranks_sharing_the_card_matches_one(cuda_device,
                 np.testing.assert_array_equal(z[k], want, err_msg=k)
 
 
-@pytest.mark.parametrize("fixed", [False, True], ids=["free", "fixed-P"])
+@pytest.mark.parametrize("fixed,direct,every", [
+    (False, False, 0), (True, False, 0), (True, True, 0), (False, True, 10)],
+    ids=["free", "fixed-P", "fixed-P-engine", "free-chi2-engine"])
 def test_subset_chain_bits_do_not_follow_the_chains_beside_it(cuda_device,
-                                                              fixed):
+                                                              fixed, direct,
+                                                              every):
     """GWCoGAPS's stages at 2000 x 40, k=5, four 500-gene subset chains:
     the free stage on the fused span (K3), the fixed one on the per-call
-    route (K1 and the tables' float32 products). Each chain run alone or
-    two at a time (a rank's share of the chain mesh) gives the bits it
-    gets beside the other three. A MultichainEngine's batched cuBLAS
-    products rounded a chain's fixed-stage tables otherwise when it ran
-    alone; distributed.subset_engine builds them a chain at a time
-    (dense.tables_per_chain)."""
+    route (K1 and the tables kernel). Each chain run alone or two at a
+    time (a rank's share of the chain mesh) gives the bits it gets beside
+    the other three, through distributed.subset_engine and through a
+    MultichainEngine(..., mesh=ProcessMesh(...)) made directly, on the
+    fixed stage and on the free stage with a chi^2 history (per-call, both
+    samplers). Batched cuBLAS table products rounded a chain's tables
+    otherwise when it ran alone; csrc/tables.cu sums each chain in an
+    order of its shape alone. The per-call runs launch the tables kernel
+    exactly once a sampled factor an iteration."""
     from cogaps_tpu_torch.bench_harness import synthetic_dense
     from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.ops import tables_cuda
     from cogaps_tpu_torch.params import CogapsParams
     from cogaps_tpu_torch.parallel import distributed, multihost
-    from cogaps_tpu_torch.parallel.multichain import stack_device_data
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
     [D] = synthetic_dense(2000, 40, 5, 1, 9)
     subDs = [D[i::4] for i in range(4)]
     consensus = (np.random.default_rng(0).gamma(2.0, 1.0, (40, 5))
                  .astype(np.float32) if fixed else None)
     p = distributed._stage_params(CogapsParams(
-        n_patterns=5, n_iterations=60, seed=9, output_frequency=0), True,
-        consensus)
+        n_patterns=5, n_iterations=60, seed=9, output_frequency=every),
+        True, consensus)
     cfg = p.engine_config(500, 40)
+    per_call = fixed or every > 0
 
     def run(mesh):
-        eng = distributed.subset_engine(
-            stack_device_data(subDs, None, cfg, "cpu"), cfg, cuda_device,
-            mesh)
-        assert eng._fused_ok() is not fixed
+        data = stack_device_data(subDs, None, cfg, "cpu")
+        eng = (MultichainEngine(data, cfg, cuda_device, mesh=mesh) if direct
+               else distributed.subset_engine(data, cfg, cuda_device, mesh))
+        assert eng._fused_ok() is not per_call
         st, ss = eng.init_state(consensus), eng.init_stats()
         rand = PhiloxRandom([9] * eng.n_chains, cuda_device)
+        before = tables_cuda.dense_tables.launches
         for phase in (EQUILIBRATION, SAMPLING):
             st, ss = eng.run_phase(st, ss, rand, phase)
+        launched = tables_cuda.dense_tables.launches - before
+        assert launched == (2 * 60 * (1 if fixed else 2) if per_call else 0)
         return st, ss
 
     st4, ss4 = run(None)
@@ -1318,12 +1342,193 @@ def test_subset_chain_bits_do_not_follow_the_chains_beside_it(cuda_device,
                                                "none"))
             held = slice(r * 4 // size, (r + 1) * 4 // size)
             for name, x, y in (("M_a", st.M_a, st4.M_a[held]),
+                               ("M_p", st.M_p, st4.M_p[held]),
                                ("a_sum", ss.a_sum, ss4.a_sum[held]),
                                ("a_sumsq", ss.a_sumsq, ss4.a_sumsq[held]),
                                ("p_sum", ss.p_sum, ss4.p_sum[held]),
+                               ("chisq", ss.chisq_hist,
+                                ss4.chisq_hist[held]),
                                ("upd", ss.upd, ss4.upd[held])):
                 assert torch.equal(x, y), (size, r, name,
                                            int((x != y).sum()))
+
+
+def _tables_case(device, R, m, k, nch, seed):
+    """float32 inputs of nch chains of one sampler's tables: D with zeros
+    and a few large entries, invS2 = 0 on the last rows (a padded subset),
+    M sparse, the partner factor with an empty last column."""
+    rs = np.random.default_rng(seed)
+    D = rs.gamma(2.0, 2.0, (nch, R, m)).astype(np.float32)
+    D[rs.random(D.shape) < 0.2] = 0.0
+    D[rs.random(D.shape) < 0.001] *= 1000.0
+    inv = (1.0 / np.maximum(0.1 * D, 0.1) ** 2).astype(np.float32)
+    inv[:, -max(1, R // 10):, :] = 0.0
+    M = rs.gamma(1.0, 1.0, (nch, R, k)).astype(np.float32)
+    M[rs.random(M.shape) < 0.3] = 0.0
+    O = rs.gamma(2.0, 1.0, (nch, m, k)).astype(np.float32)
+    O[:, :, -1] = 0.0
+    return [torch.as_tensor(x, device=device) for x in (D, inv, M, O)]
+
+
+def _tables_terms(D, inv, M, O):
+    """Each table entry's sum of |terms| in float64: Y's of (|D| + |M|
+    |O|^T) invS2 |O| (Y cancels), SQ's and Z's of invS2 |O_c O_c'|."""
+    D, inv, M, O = (x.double().abs() for x in (D, inv, M, O))
+    k = O.shape[-1]
+    Y = ((D + M @ O.transpose(-1, -2)) * inv) @ O
+    OO = (O.unsqueeze(-1) * O.unsqueeze(-2)).flatten(-2)
+    Z = (inv @ OO).reshape(inv.shape[:-2] + (inv.shape[-2] * k, k))
+    return Y, inv @ (O * O), Z
+
+
+def _tables_errors(got, exact, terms):
+    """The largest |table - exact| / terms over Y, SQ and Z, and whether
+    every entry is within 1e-5 of its terms."""
+    worst, ok = 0.0, True
+    for x, e, t in zip(got, exact, terms):
+        d = (x.double() - e.double()).abs()
+        ok = ok and bool((d <= 1e-5 * t).all())
+        pos = t > 0
+        if pos.any():
+            worst = max(worst, float((d[pos] / t[pos]).max()))
+        ok = ok and bool((d[~pos] == 0).all())
+    return worst, ok
+
+
+TABLES_SHAPES = {  # (R, m, k, nch)
+    "gist-A-x1": (1363, 9, 7, 1), "gist-P-x1": (9, 1363, 7, 1),
+    "gist-A-x16": (1363, 9, 7, 16), "gist-P-x16": (9, 1363, 7, 16),
+    "subsets-A": (500, 40, 5, 4), "subsets-P": (40, 500, 5, 4),
+    "5000x2000-A": (5000, 2000, 10, 4), "5000x2000-P": (2000, 5000, 10, 4),
+    "20000x100-P-x2": (100, 20000, 10, 2),
+    "k1": (300, 777, 1, 3), "k12-split": (200, 3000, 12, 2),
+    "k13": (500, 700, 13, 2), "k25": (300, 777, 25, 2),
+    "k50": (40, 300, 50, 2), "m1": (50, 1, 3, 2), "one-row": (1, 4000, 10, 3)}
+
+
+@pytest.mark.parametrize("shape", list(TABLES_SHAPES.values()),
+                         ids=list(TABLES_SHAPES))
+def test_tables_kernel_matches_plain(cuda_device, shape):
+    """dense.tables on the card (the tables kernel, one launch) against
+    exact_tables (float64 sums rounded once): every entry of Y, SQ and Z
+    within 1e-5 of its summed |terms|, no worse than twice the plain cuBLAS
+    tables' own worst error on the same inputs (m > 1), col_nz equal, SQ
+    Z's diagonal and Z symmetric; the same bits again."""
+    from cogaps_tpu_torch.ops import tables_cuda
+    R, m, k, nch = shape
+    args = _tables_case(cuda_device, R, m, k, nch, seed=R + m + k)
+    before = tables_cuda.dense_tables.launches
+    cache, phase = dense.tables(*args)
+    assert tables_cuda.dense_tables.launches == before + 1
+    again_c, again_p = dense.tables(*args)
+    pc, pp = dense.tables_plain(*args)
+    ec, ep = dense.exact_tables(*args)
+    terms = _tables_terms(*args)
+    torch.cuda.synchronize()
+    got = (cache.Y, phase.SQ, phase.Z)
+    err_k, ok = _tables_errors(got, (ec.Y, ep.SQ, ep.Z), terms)
+    err_p, _ = _tables_errors((pc.Y, pp.SQ, pp.Z), (ec.Y, ep.SQ, ep.Z), terms)
+    assert ok, (err_k, err_p)
+    if m > 1:
+        assert err_k <= 2 * err_p, (err_k, err_p)
+    assert torch.equal(phase.col_nz, ep.col_nz)
+    assert not phase.col_nz[..., -1].any()
+    Z4 = phase.Z.reshape(nch, R, k, k)
+    assert torch.equal(Z4, Z4.transpose(-1, -2))
+    assert torch.equal(phase.SQ, torch.diagonal(Z4, dim1=-2, dim2=-1))
+    for x, y in zip(got + (phase.col_nz,),
+                    (again_c.Y, again_p.SQ, again_p.Z, again_p.col_nz)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", [(500, 40, 5), (40, 500, 5),
+                                   (100, 20000, 10), (1363, 9, 7)],
+                         ids=["subsets-A", "subsets-P", "20000x100-P",
+                              "gist-A"])
+def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
+                                                          shape):
+    """A chain's tables are the same bits alone, as one of 4 and as one of
+    16 (first, middle and last index), and with a partner factor shared
+    by every chain (a leading dimension of one)."""
+    R, m, k = shape
+    D, inv, M, O = _tables_case(cuda_device, R, m, k, 16, seed=7)
+
+    def tables_of(idx, shared=False):
+        other = O[:1] if shared else O[idx]
+        cache, phase = dense.tables(D[idx], inv[idx], M[idx], other)
+        return cache.Y, phase.SQ, phase.Z, phase.col_nz
+
+    every = tables_of(list(range(16)))
+    shared = tables_of(list(range(16)), shared=True)
+    for c in (0, 7, 15):
+        four = [c] + [x for x in range(16) if x != c][:3]
+        for pos in (0, 2, 3):
+            group = four[1:pos + 1] + [c] + four[pos + 1:]
+            got = tables_of(group)
+            for x, y in zip(got, every):
+                assert torch.equal(x[pos], y[c]), (c, pos)
+        for x, y in zip(tables_of([c]), every):
+            assert torch.equal(x[0], y[c]), c
+    alone = tables_of([0], shared=True)
+    for x, y in zip(alone, shared):
+        assert torch.equal(x[0], y[0])
+
+
+def test_tables_kernel_checks_inputs(cuda_device):
+    from cogaps_tpu_torch.ops import tables_cuda
+    D, inv, M, O = _tables_case(cuda_device, 30, 20, 4, 2, seed=1)
+    with pytest.raises(ValueError, match="no tables"):
+        dense.tables(D.double(), inv.double(), M.double(), O.double())
+    with pytest.raises(ValueError, match="no tables"):
+        dense.tables(D, inv, M, O.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        tables_cuda.dense_tables(D, inv, M[:, :10], O)
+    with pytest.raises(ValueError, match="contiguous"):
+        tables_cuda.dense_tables(D.transpose(1, 2).contiguous().transpose(
+            1, 2), inv, M, O)
+    with pytest.raises(ValueError, match="leading shape"):
+        tables_cuda.dense_tables(D, inv, M, torch.cat([O, O]))
+
+
+@pytest.mark.parametrize("NR", [1, 50, 1363])
+@pytest.mark.parametrize("B", [1, 100, 1024])
+def test_claim_rows_split_over_blocks_is_exact(cuda_device, NR, B):
+    """F4's row form, each chain's rows split over blocks that claim in
+    shared memory: exactly the plain version's table, with NaN, negative,
+    fractional and out-of-range values among the lanes, at 1, 3 and 16
+    chains; the lane form too."""
+    from cogaps_tpu_torch.probes import mosaic
+    for nch in (1, 3, 16):
+        rs = np.random.default_rng(NR * B + nch)
+        r = rs.integers(0, NR, (nch, B)).astype(np.float32)
+        junk = rs.random((nch, B))
+        r[junk < 0.05] = np.nan
+        r[(junk >= 0.05) & (junk < 0.1)] = NR + 3.0
+        r[(junk >= 0.1) & (junk < 0.13)] = -1.0
+        r[(junk >= 0.13) & (junk < 0.15)] = 0.5
+        x = torch.as_tensor(r, device=cuda_device)
+        for form in ("row", "lane"):
+            before = mosaic.claim_min.launches
+            got = mosaic.claim_min(x, NR, form)
+            assert mosaic.claim_min.launches == before + 1
+            want = mosaic.claim_min_plain(x, NR, form)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, want), (
+                nch, form)
+
+
+@pytest.mark.parametrize("n", [1, 16, 80])
+def test_dependent_loads_match_plain(cuda_device, n):
+    """The dependent-load floor's chain equals its plain version."""
+    from cogaps_tpu_torch.probes import dma
+    nb, K = 1 << 16, 8
+    tbl = torch.arange(nb, dtype=torch.float32, device=cuda_device)[:, None]
+    tbl = tbl.expand(nb, K).contiguous()
+    idx = torch.tensor([12345.0, 7.0], device=cuda_device)
+    before = dma.dependent_loads.launches
+    got = dma.dependent_loads(tbl, idx, n)
+    assert dma.dependent_loads.launches == before + 1
+    assert torch.equal(got, dma.dependent_loads_plain(tbl, idx, n))
 
 
 def test_gwcogaps_nccl_ranks_on_their_own_cards_match_one(cuda_device,

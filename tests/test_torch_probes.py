@@ -148,6 +148,17 @@ def test_gather_passes_match_probe_dma2(interpret, monkeypatch, n_passes):
     assert np.array_equal(buf.numpy(), rows)
 
 
+@pytest.mark.parametrize("n", [1, 16, 80])
+def test_dependent_loads_follow_one_lane_of_gather_passes(n):
+    """The dependent-load floor's chain is gather_passes' index rule on
+    lane 0: its result is that lane's index after n passes."""
+    tbl = t(np.arange(2048, dtype=F32)[:, None] + np.zeros((1, 8), F32))
+    idx = t(np.float32([1234, 7, 99]))
+    got = dma.dependent_loads(tbl, idx, n)
+    out, buf = dma.gather_passes(tbl, idx[:1], n)
+    assert got.shape == (1,) and torch.equal(got, out - buf[0, 0])
+
+
 def test_probe_mosaic_main_in_interpret_mode(interpret, capsys):
     """probe_mosaic.py's main() with every kernel in interpret mode: its
     printed results against F6 (9216), F7 (512 and 5.0) and F3 (113 of
@@ -420,6 +431,7 @@ def wrapper_calls():
         (dma.gather_rows, (tbl, t(np.float32([3, 0, 49])))),
         (dma.gather_block, (tbl, torch.tensor([40], dtype=torch.int32), 8)),
         (dma.gather_passes, (tbl, t(np.float32([3, 0, 49])), 2)),
+        (dma.dependent_loads, (tbl, t(np.float32([3, 0])), 2)),
         (dma.gather_batched, (t(rand((2, 10, 3), 6)),
                               t(np.float32([[1, 9], [0, 0]])))),
         (dma.scatter_slots, (t(rand((2, 3), 7)),

@@ -28,6 +28,10 @@ def test_busy_ns_is_the_union(intervals, expected):
      "float *, const float *, const float *)", "sweep_kernel"),
     ("void (anonymous namespace)::sweep_kernel<1024>(cogaps::SweepArgs, "
      "float *, const float *, const float *)", "sweep_kernel"),
+    ("void (anonymous namespace)::rows_kernel<10>((anonymous namespace)"
+     "::Args)", "tables_kernel"),
+    ("void (anonymous namespace)::quads_kernel<17>((anonymous namespace)"
+     "::Args)", "tables_kernel"),
     ("void gemmSN_NN_kernel<float, 128, 2, 4, 8, 5, 4, false>", "matmuls"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x32", "matmuls"),
     ("cutlass_80_simt_sgemm_128x64_8x5_nn_align1", "matmuls"),
