@@ -13,7 +13,11 @@ here for float32 CUDA tensors and to the plain version for CPU tensors.
 Two kernels, as ``tables_plan`` says: rows_kernel<k> for k <= 12, a
 thread a row with all its accumulators in registers, and quads_kernel<PQ>
 beyond, each thread PQ quads of a row's accumulators, G threads a row.
-Every float32 entry of a chain is summed in an order that ``tables_plan``
+quads_kernel computes every k, but forced at k=10 it took 2.0-3.6x
+rows_kernel's time at 4 x 5000 x 2000 and 16 x 20000 x 100 (NVIDIA H100
+80GB HBM3, 700 W; kernel_times.py --quads): it reads M's row and the
+partner's products from shared memory where rows_kernel keeps them in
+registers. Every float32 entry of a chain is summed in an order that ``tables_plan``
 fixes from (R, m, k) and the card's SM count alone, never from the number
 of chains in the call or a chain's index: a chain's tables are the same
 bits alone and beside any number of other chains, which batched cuBLAS

@@ -8,13 +8,14 @@ invariance, tests/testthat/test_seed_consistency.R:36-68): the unit of
 A-side parallelism is a ROW BLOCK, not a rank. Every stream is keyed by
 (seed, phase, iteration, BLOCK ID), every A-side atom table and proposal
 batch is block-local, every per-block table has the same sums on every
-rank count (the rank's blocks are the chains of one models/dense.tables
-call, which sums a chain in an order of its own shape alone), and every
-cross-block float reduction (the P sampler's
-SQ/Z/Y tables, chi^2) is an all_gather of per-block partials added in
-block order (multihost.ordered_sum). Ranks merely hold contiguous groups
-of blocks, so THE SAME SEED GIVES BITWISE THE SAME TRAJECTORY ON 1, 2,
-4, ... n_blocks RANKS.
+rank count (block_tables: on the card the rank's blocks are the chains
+of one models/dense.tables call, whose kernel sums a chain in an order
+of its own shape alone; on the CPU a call per block, since a batched
+CPU product may sum by the batch count), and every cross-block float
+reduction (the P sampler's SQ/Z/Y tables, chi^2) is an all_gather of
+per-block partials added in block order (multihost.ordered_sum). Ranks
+merely hold contiguous groups of blocks, so THE SAME SEED GIVES BITWISE
+THE SAME TRAJECTORY ON 1, 2, 4, ... n_blocks RANKS.
 
 * A sampler — the rank's blocks are the chains of one launch of the
   sweep kernel (ops/sweep_cuda.run_updates_multi, K1): block b samples
@@ -24,10 +25,9 @@ of blocks, so THE SAME SEED GIVES BITWISE THE SAME TRAJECTORY ON 1, 2,
   stay within the block (a valid blocked kernel mixture; the reference's
   distributed mode restricts them to the subset the same way).
 * P sampler — replicated: each block's partial tables are
-  dense.tables(D_b^T, invS2_b^T, M_p, M_a_b) (the blocks the chains of one
-  call), summed in block order; then
-  one K1 launch, identical on every rank (the kernel is deterministic
-  for equal inputs).
+  dense.tables(D_b^T, invS2_b^T, M_p, M_a_b) (block_tables), summed in
+  block order; then one K1 launch, identical on every rank (the kernel
+  is deterministic for equal inputs).
 * integer counters cross ranks by an integer sum (exact in any order).
 
 Random streams (ShardedRandom): unit u's sweeps draw Philox4x32-10 under
@@ -198,6 +198,21 @@ def checkpoint_extra(path_prefix: str) -> dict:
         return {k[6:]: int(z[k]) for k in z.files if k.startswith("extra_")}
 
 
+def block_tables(D, invS2, M, other):
+    """dense.tables of each block of a rank, (DenseCache, DensePhase) with
+    the blocks as the leading dimension; M and other have the blocks' or
+    a leading dimension of one. On the card one call (the kernel's plan
+    takes no chain count); on the CPU a call per block, each the same
+    product on every rank count."""
+    if D.device.type == "cuda":
+        return dense.tables(D, invS2, M, other)
+    caches, phases = zip(*[
+        dense.tables(D[j], invS2[j], M[j % M.shape[0]],
+                     other[j % other.shape[0]]) for j in range(D.shape[0])])
+    return (dense.DenseCache(Y=torch.stack([c.Y for c in caches])),
+            dense.DensePhase(*(torch.stack(x) for x in zip(*phases))))
+
+
 class UnitChain:
     """What the gene-sharded engines share: one chain whose A side is
     cut into units (row blocks or gene shards), the replicated P
@@ -337,7 +352,7 @@ class ShardedGapsEngine(UnitChain):
         """The arguments of the A sampler's one K1 call, the rank's blocks
         as its chains: each block's tables from its rows against the
         replicated P, the blocks the chains of one tables call."""
-        cache, phase = dense.tables(self.D, self.invS2, state.M_a,
+        cache, phase = block_tables(self.D, self.invS2, state.M_a,
                                     state.M_p)
         phase = phase._replace(col_nz=phase.col_nz.expand(
             len(self.blocks), -1).contiguous())
@@ -354,7 +369,7 @@ class ShardedGapsEngine(UnitChain):
         leading dimension of 1: each block's partial
         dense.tables(D_b^T, invS2_b^T, M_p, M_a_b), added in block order;
         col_nz from the max over every block."""
-        cache, phase = dense.tables(self.D_t, self.invS2_t, M_p, M_a)
+        cache, phase = block_tables(self.D_t, self.invS2_t, M_p, M_a)
         parts = [(cache.Y[j], phase.SQ[j], phase.Z[j])
                  for j in range(len(self.blocks))]
         col_max = multihost.max_all(M_a.amax(dim=(0, 1)), self.mesh)

@@ -2,7 +2,7 @@
 checkouts of the package in one run.
 
     python3 kernel_times.py [--root DIR] [--placements | --profile |
-                             --golden N] [--out FILE]
+                             --golden N | --quads | --chisq] [--out FILE]
 
 times the cogaps_tpu_torch package found in DIR (default: the checkout
 holding this file), built from DIR's sources, on the cases of
@@ -44,9 +44,29 @@ With --golden N it runs instead tests/test_torch_cuda.py's GIST golden
 pattern recovery (CoGAPS on data/gist.npz, k=3, 1500 iterations, the
 per-call route) at seeds 0 .. N-1, each with the per-call tables of the
 tables kernel and with the plain cuBLAS tables (models/dense.tables_plain
-on the card): each run's meanChiSq, its late chi^2 plateau and the
+on the card): each run's meanChiSq, its late chi^2 plateau, the
 correlation of each recovered P pattern with the reference's
-(best_perm_corr), beside that test's bands.
+(best_perm_corr) and whether it meets every band of that test; then,
+per tables, the pass rate, the quantiles of each pattern's correlation,
+of the weakest one, of the plateau and of meanChiSq, and between the
+two, Fisher's exact test of the pass rates and Mann-Whitney U tests of
+the distributions (scipy.stats).
+
+With --quads it times instead the tables kernel's two forms at k=10 on
+chip_smoke's 4 x 5000 x 2000 and 16 x 20000 x 100 cases, A and P:
+rows_kernel<10> (ops/tables_cuda.tables_plan's choice) and
+quads_kernel<PQ> (its plan for k above ROWS_MAX_K, forced), in turns
+(rows, quads, quads, rows): the stream's ms a call, events' ms, the
+plan and the worst error against the float64 tables.
+
+With --chisq it times instead the dense chi^2 (models/dense.
+chisq_from_state): per call at 16 x 20000 x 100 k=10, 4 x 5000 x 2000
+k=10 and GIST x16, by DIR's package and by two written here (one
+batched product and sum over the chains; every step a chain at a time),
+with the number of chains whose chi^2 differs in bits from the same
+chain's alone; and whole per-call runs (ChainEngine.run_phase, 250
+equilibration iterations) at 16 x 20000 x 100 and GIST x16 with a chi^2
+every 5 and every 250 iterations and with none.
 
 To compare a change with its parent on one card, unpack the parent
 (`git archive`) into a git-ignored directory and run this script on
@@ -255,15 +275,190 @@ def golden_runs(device, n_seeds) -> list:
                 tables_cuda.dense_tables = kernel
             hist = res.diagnostics["chisqHistory"]
             cors = best_perm_corr(res.Pmean, golden_p)
+            plateau = float(np.mean(hist[3 * len(hist) // 4:])) / golden_eq
+            mcs = res.mean_chi_sq / golden_mcs
             rows.append({"seed": seed, "tables": name,
-                         "plateau_over_golden": float(np.mean(
-                             hist[3 * len(hist) // 4:])) / golden_eq,
-                         "mcs_over_golden": res.mean_chi_sq / golden_mcs,
+                         "plateau_over_golden": plateau,
+                         "mcs_over_golden": mcs,
                          "cors": [float(c) for c in cors],
-                         "passes": bool(np.median(cors) > 0.8
+                         "passes": bool(plateau < 1.15 and mcs < 1.4
+                                        and np.median(cors) > 0.8
                                         and (cors > 0.5).all())})
             print(json.dumps(rows[-1]), flush=True)
     return rows
+
+
+def golden_summary(rows) -> dict:
+    """Per tables: the pass rate and quantiles; between them, Fisher's
+    exact test of the pass rates and Mann-Whitney U tests (two-sided)."""
+    import numpy as np
+    from scipy import stats
+    qs = (0.05, 0.25, 0.5, 0.75)
+    by = {}
+    for name in ("kernel", "cuBLAS"):
+        rs = [r for r in rows if r["tables"] == name]
+        cors = np.array([r["cors"] for r in rs])
+        by[name] = {
+            "runs": len(rs), "passes": sum(r["passes"] for r in rs),
+            "cors": cors, "weakest": cors.min(axis=1),
+            "plateau": np.array([r["plateau_over_golden"] for r in rs]),
+            "mcs": np.array([r["mcs_over_golden"] for r in rs])}
+    out = {name: {"runs": b["runs"], "passes": b["passes"],
+                  "pass_rate": b["passes"] / max(b["runs"], 1),
+                  **{f"pattern{i}_quantiles": np.quantile(
+                      b["cors"][:, i], qs).tolist()
+                     for i in range(b["cors"].shape[1])},
+                  **{f"{key}_quantiles": np.quantile(b[key], qs).tolist()
+                     for key in ("weakest", "plateau", "mcs")}}
+           for name, b in by.items()}
+    k, c = by["kernel"], by["cuBLAS"]
+    out["quantiles_at"] = list(qs)
+    out["fisher_p_pass_rate"] = float(stats.fisher_exact(
+        [[k["passes"], k["runs"] - k["passes"]],
+         [c["passes"], c["runs"] - c["passes"]]])[1])
+    out["mannwhitney_p"] = {
+        key: float(stats.mannwhitneyu(k[key], c[key])[1])
+        for key in ("weakest", "plateau", "mcs")}
+    out["mannwhitney_p"].update({
+        f"pattern{i}": float(stats.mannwhitneyu(k["cors"][:, i],
+                                                c["cors"][:, i])[1])
+        for i in range(k["cors"].shape[1])})
+    return out
+
+
+QUADS_CASES = ("5000x2000 A x4", "5000x2000 P x4", "20000x100 A x16",
+               "20000x100 P x16")
+
+
+def quads_times(cs, device) -> list:
+    """rows_kernel<10> against the forced quads_kernel plan (see the
+    module's docstring)."""
+    import torch
+    from cogaps_tpu_torch.models import dense
+    from cogaps_tpu_torch.ops import cuda_build, tables_cuda
+    n_sm = cuda_build.sm_count(device.index or 0)
+    rows_max = tables_cuda.ROWS_MAX_K
+    out = []
+    for i, (name, R, m, k, nch) in enumerate(cs.TABLES_CASES):
+        if name not in QUADS_CASES:
+            continue
+        args = cs.tables_inputs(R, m, k, nch, 100 + i, device)
+        ec, ep = dense.exact_tables(*args)
+        terms = cs.tables_terms(*args)
+        got = {}
+        for form in ("rows", "quads", "quads", "rows"):
+            tables_cuda.ROWS_MAX_K = rows_max if form == "rows" else 0
+            tables_cuda.tables_plan.cache_clear()
+            try:
+                plan = tables_cuda.tables_plan(R, m, k, n_sm)
+                Y, SQ, Z, _ = tables_cuda.dense_tables(*args)
+                err, ok = cs.tables_errors((Y, SQ, Z), (ec.Y, ep.SQ, ep.Z),
+                                           terms)
+                got.setdefault(form, (Y, SQ, Z))
+                dev, host = cs.stream_ms(
+                    lambda: tables_cuda.dense_tables(*args))
+                ev = cs.time_calls(lambda: tables_cuda.dense_tables(*args),
+                                   20)
+            finally:
+                tables_cuda.ROWS_MAX_K = rows_max
+                tables_cuda.tables_plan.cache_clear()
+            out.append({"case": name, "form": form, "stream_ms": dev,
+                        "host_ms": host, "events_ms": ev,
+                        "worst_error": err, "within_1e-5": ok,
+                        "plan": plan._asdict()})
+            print(json.dumps(out[-1]), flush=True)
+        out.append({"case": name, "max_abs_rows_minus_quads": max(
+            float((a - b).abs().max())
+            for a, b in zip(got["rows"], got["quads"]))})
+        del args, ec, ep, terms, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def chisq_batched(D, invS2, M_a, M_p):
+    """chi^2 by one product and one sum batched over the chains."""
+    import torch
+    R = (D - torch.matmul(M_a, M_p.transpose(-1, -2))) * invS2
+    return torch.where(invS2 > 0, R * R / invS2,
+                       torch.zeros_like(R)).sum(dim=(-2, -1))
+
+
+def chisq_looped(D, invS2, M_a, M_p):
+    """chi^2 with every step a chain at a time."""
+    import torch
+    return torch.stack([chisq_batched(D[c], invS2[c], M_a[c], M_p[c])
+                        for c in range(M_a.shape[0])])
+
+
+CHISQ_CALLS = (("20000x100 k=10, 16 chains", 20000, 100, 10, 16),
+               ("5000x2000 k=10, 4 chains", 5000, 2000, 10, 4),
+               ("GIST shape k=7, 16 chains", 1363, 9, 7, 16))
+CHISQ_RUNS = (("20000x100 k=10, 16 chains", (20000, 100, 10, 16, 45), 10),
+              ("GIST k=7, 16 chains", (None, 16), 7))
+
+
+def chisq_times(cs, device, n_it=250) -> dict:
+    """chi^2 a call by three versions, and whole runs with a chi^2
+    history (see the module's docstring)."""
+    import functools
+    import torch
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, ChainEngine,
+                                         PhiloxRandom)
+    from cogaps_tpu_torch.io import parsers
+    from cogaps_tpu_torch.models import dense
+    from cogaps_tpu_torch.params import CogapsParams
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    calls = []
+    for i, (name, R, m, k, nch) in enumerate(CHISQ_CALLS):
+        D, inv, M_a, _ = cs.tables_inputs(R, m, k, nch, 300 + i, device)
+        M_p = cs.tables_inputs(m, 1, k, nch, 400 + i, device)[2]
+        for what, fn in (("package", dense.chisq_from_state),
+                         ("batched", chisq_batched),
+                         ("looped", chisq_looped)):
+            every = fn(D, inv, M_a, M_p)
+            differ = sum(not torch.equal(
+                every[c], fn(D[c:c + 1], inv[c:c + 1], M_a[c:c + 1],
+                             M_p[c:c + 1])[0]) for c in range(nch))
+            # two calls a batch: a call may enqueue a few hundred
+            # launches, and a full launch queue holds the host back
+            dev, host = cs.stream_ms(lambda: fn(D, inv, M_a, M_p), reps=2)
+            ev = cs.time_calls(lambda: fn(D, inv, M_a, M_p), 20)
+            calls.append({"case": name, "chisq": what, "stream_ms": dev,
+                          "host_ms": host, "events_ms": ev,
+                          "chains_differing_from_alone": differ,
+                          "chains": nch})
+            print(json.dumps(calls[-1]), flush=True)
+        del D, inv, M_a, M_p
+    gist = parsers.read_matrix(os.path.join(HERE, "data", "GIST.csv"))[0]
+    runs = []
+    for name, data, k in CHISQ_RUNS:
+        Ds = ([gist] * data[1] if data[0] is None
+              else synthetic_dense(*data))
+        for every in (0, 5, 250, 5, 0):
+            params = CogapsParams(n_patterns=k, n_iterations=n_it, seed=7,
+                                  output_frequency=every)
+            cfg = params.engine_config(*Ds[0].shape)
+            eng = MultichainEngine(stack_device_data(Ds, None, cfg, device),
+                                   cfg, device)
+            run_phase = functools.partial(ChainEngine.run_phase, eng)
+            rand = PhiloxRandom([7 + c for c in range(len(Ds))], device)
+            st, ss = eng.init_state(), eng.init_stats()
+            st, ss = run_phase(st, ss, rand, EQUILIBRATION, 0, 10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, ss = run_phase(st, ss, rand, EQUILIBRATION, 10, n_it)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append({"config": name, "output_frequency": every,
+                         "iterations": n_it - 10,
+                         "wall_ms_per_iter": wall * 1e3 / (n_it - 10),
+                         "chisq_evaluations": 0 if every == 0 else
+                         n_it // every - 10 // every})
+            print(json.dumps(runs[-1]), flush=True)
+            del eng, st, ss
+    return {"calls": calls, "runs": runs}
 
 
 def build_kernels():
@@ -296,6 +491,12 @@ def main() -> int:
     ap.add_argument("--golden", type=int, default=0, metavar="N",
                     help="GIST golden recovery at N seeds, kernel and "
                          "cuBLAS tables, instead")
+    ap.add_argument("--quads", action="store_true",
+                    help="time rows_kernel against quads_kernel at k=10 "
+                         "instead")
+    ap.add_argument("--chisq", action="store_true",
+                    help="time chi^2 calls and runs with a chi^2 history "
+                         "instead")
     args = ap.parse_args()
     import chip_smoke as cs  # this checkout's, before DIR goes on the path
     root = os.path.abspath(args.root)
@@ -312,12 +513,17 @@ def main() -> int:
     from cogaps_tpu_torch.bench_harness import synthetic_sparse
     device = torch.device("cuda")
     t0 = time.perf_counter()
-    if args.profile or args.golden:
+    if args.profile or args.golden or args.quads or args.chisq:
         record = {"root": root, "card": cs.nvidia_smi()}
         if args.profile:
             record["profile"] = profile_times(device)
-        else:
+        elif args.golden:
             record["golden"] = golden_runs(device, args.golden)
+            record["golden_summary"] = golden_summary(record["golden"])
+        elif args.quads:
+            record["quads"] = quads_times(cs, device)
+        else:
+            record["chisq"] = chisq_times(cs, device)
         record["seconds"] = time.perf_counter() - t0
         return write(record, args.out)
     builds = build_kernels()

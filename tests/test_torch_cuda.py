@@ -1408,7 +1408,7 @@ TABLES_SHAPES = {  # (R, m, k, nch)
 
 @pytest.mark.parametrize("shape", list(TABLES_SHAPES.values()),
                          ids=list(TABLES_SHAPES))
-def test_tables_kernel_matches_plain(cuda_device, shape):
+def test_dense_tables_kernel_matches_plain(cuda_device, shape):
     """dense.tables on the card (the tables kernel, one launch) against
     exact_tables (float64 sums rounded once): every entry of Y, SQ and Z
     within 1e-5 of its summed |terms|, no worse than twice the plain cuBLAS
@@ -1448,8 +1448,9 @@ def test_tables_kernel_matches_plain(cuda_device, shape):
 def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
                                                           shape):
     """A chain's tables are the same bits alone, as one of 4 and as one of
-    16 (first, middle and last index), and with a partner factor shared
-    by every chain (a leading dimension of one)."""
+    16 (first, middle and last index), as a slice of the 16 (a view at
+    its offset in them), and with a partner factor shared by every chain
+    (a leading dimension of one)."""
     R, m, k = shape
     D, inv, M, O = _tables_case(cuda_device, R, m, k, 16, seed=7)
 
@@ -1469,9 +1470,33 @@ def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
                 assert torch.equal(x[pos], y[c]), (c, pos)
         for x, y in zip(tables_of([c]), every):
             assert torch.equal(x[0], y[c]), c
+        for x, y in zip(tables_of(slice(c, c + 1)), every):
+            assert torch.equal(x[0], y[c]), c
     alone = tables_of([0], shared=True)
     for x, y in zip(alone, shared):
         assert torch.equal(x[0], y[0])
+
+
+@pytest.mark.parametrize("shape", [(500, 40, 5), (1363, 9, 7),
+                                   (2000, 100, 10)],
+                         ids=["subsets", "gist", "2000x100"])
+def test_chisq_bits_do_not_follow_the_chain_count(cuda_device, shape):
+    """A chain's chi^2 (dense.chisq_from_state) is the same bits alone, as
+    one of 4 and as one of 16, and with the data shared by every chain."""
+    R, m, k = shape
+    D, inv, M_a, _ = _tables_case(cuda_device, R, m, k, 16, seed=11)
+    M_p = _tables_case(cuda_device, m, 1, k, 16, seed=12)[2]
+    every = dense.chisq_from_state(D, inv, M_a, M_p)
+    shared = dense.chisq_from_state(D[0], inv[0], M_a, M_p)
+    for c in (0, 7, 15):
+        group = [c] + [x for x in range(16) if x != c][:3]
+        four = dense.chisq_from_state(D[group], inv[group], M_a[group],
+                                      M_p[group])
+        assert torch.equal(four[0], every[c]), c
+        alone = dense.chisq_from_state(D[c], inv[c], M_a[c], M_p[c])
+        assert torch.equal(alone, every[c]), c
+        assert torch.equal(shared[c], dense.chisq_from_state(
+            D[0], inv[0], M_a[c], M_p[c])), c
 
 
 def test_tables_kernel_checks_inputs(cuda_device):

@@ -88,6 +88,35 @@ def test_rebuild_cache_and_chisq_match_jax(tables):
     assert abs(jc - exact) <= 1e-4 * exact
 
 
+@pytest.mark.parametrize("lead", ["chains", "shared-data", "shared-P",
+                                  "one-chain"])
+def test_chisq_of_chains_is_each_chain_alone(tables, lead):
+    """With a leading chain dimension on any of its arguments, each
+    chain's chi^2 is the bits of that chain's chi^2 computed alone, and
+    within 1e-4 of the JAX package's chi^2 of that chain."""
+    D, inv, M, O, _ = tables
+    rs = np.random.default_rng(5)
+    n = 1 if lead == "one-chain" else 3
+    Ms = np.stack([M * rs.gamma(4.0, 0.25, M.shape).astype(np.float32)
+                   for _ in range(n)])
+    Os = np.stack([O * rs.gamma(4.0, 0.25, O.shape).astype(np.float32)
+                   for _ in range(n)])
+    Ds, invs = np.stack([D] * n), np.stack([inv] * n)
+    if lead == "shared-data":
+        Ds, invs = D, inv
+    if lead == "shared-P":
+        Os = Os[:1]
+    got = dense.chisq_from_state(t(Ds), t(invs), t(Ms), t(Os))
+    assert got.shape == (n,)
+    for c in range(n):
+        Oc = Os[min(c, len(Os) - 1)]
+        alone = dense.chisq_from_state(t(D), t(inv), t(Ms[c]), t(Oc))
+        assert torch.equal(got[c], alone), c
+        jc = float(jdense.chisq_from_state(*(jnp.asarray(x) for x in (
+            D, inv, Ms[c], Oc))))
+        assert abs(float(got[c]) - jc) <= 1e-4 * abs(jc)
+
+
 def test_alpha_batch_and_apply_updates_match_jax(tables):
     """Given the same tables, the gathers, pair terms and row updates are
     the same float operations on both sides."""
