@@ -66,8 +66,10 @@ Phases:
               spills of span_kernel and rebuild_kernel;
               the per-call tables kernel (csrc/tables.cu, through
               models/dense.tables) at GIST x1 and x16, 4 x 5000 x 2000
-              k=10, 16 x 20000 x 100 k=10 and one 2500 x 2000 block of
-              20000 x 2000 k=10, each sampler A and P, from random
+              k=10, 16 x 20000 x 100 k=10, one 2500 x 2000 block of
+              20000 x 2000 k=10, phase 11's 4 x 5005 x 100 k=10 subsets
+              and phase 14's modsim 25 x 20 k=3, each sampler A and P,
+              from random
               inputs: every entry of Y, SQ and Z within 1e-5 of its
               summed |terms| of the float64 tables rounded once
               (dense.exact_tables) and no worse than twice the plain
@@ -75,7 +77,9 @@ Phases:
               call; ms a call by events, its device time, the plain
               cuBLAS tables' (its plain version and the library
               yardstick) both ways, the bound (tables_cuda.tables_counts)
-              and the kernel's plan and registers;
+              and the kernel's plan (its form: mma_kernel's tensor-core
+              or short-row form, rows_kernel or quads_kernel) and
+              ptxas's registers and spills;
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda,
               debug_checks=True): meanChiSq below 2x the golden GIST
               value, the kernel launched at least twice per iteration of
@@ -1201,7 +1205,10 @@ TABLES_CASES = (  # (name, rows R, partners m, k, chains): both samplers
     ("20000x100 A x16", 20000, 100, 10, 16),
     ("20000x100 P x16", 100, 20000, 10, 16),
     ("20000x2000 block A", 2500, 2000, 10, 1),
-    ("20000x2000 block P", 2000, 2500, 10, 1))
+    ("20000x2000 block P", 2000, 2500, 10, 1),
+    ("phase 11 subsets A x4", 5005, 100, 10, 4),
+    ("phase 11 subsets P x4", 100, 5005, 10, 4),
+    ("modsim A", 25, 20, 3, 1), ("modsim P", 20, 25, 3, 1))
 TABLES_HEADLINE = "5000x2000 A x4"
 
 
@@ -1297,10 +1304,8 @@ def phase_tables(device, report, card, reps=20):
             f"{bound:.4f} ms ({by}), "
             f"bound/device {bound / dev:.3f}; worst |error|/terms against "
             f"the float64 tables {err_k:.3g} (cuBLAS {err_p:.3g}), "
-            f"max|kernel - cuBLAS| {diff:.3g}; plan "
-            + (f"rows_kernel<{k}>" if plan.PQ == 0 else
-               f"quads_kernel<{plan.PQ}> G={plan.G}")
-            + f" RT={plan.RT} S={plan.S} CH={plan.CH} L={plan.L}, "
+            f"max|kernel - cuBLAS| {diff:.3g}; plan {tables_form(plan)}"
+            f" RT={plan.RT} S={plan.S} CH={plan.CH} L={plan.L}, "
             f"{plan.blocks} blocks a chain, {plan.smem} B shared"
             + ("" if ok else "  MISMATCH"))
         if not ok:
@@ -1311,7 +1316,8 @@ def phase_tables(device, report, card, reps=20):
         log(f"  an iteration's tables at {a[:-5]}, both samplers: kernel "
             f"device {rows[a][5] + rows[p][5]:.4f} ms, cuBLAS tables device"
             f" {rows[a][6] + rows[p][6]:.4f} ms; card: {card}")
-    regs = {f"rows_kernel<{q}>": ptxas_of(report, f"rows_kernelILi{q}E")
+    regs = {f"{kind}_kernel<{q}>": ptxas_of(report, f"{kind}_kernelILi{q}E")
+            for kind in ("mma", "rows")
             for q in range(1, tables_cuda.ROWS_MAX_K + 1)}
     regs.update({f"quads_kernel<{q}>": ptxas_of(report, f"quads_kernelILi{q}E")
                  for q in tables_cuda.QUADS})
@@ -1322,6 +1328,16 @@ def phase_tables(device, report, card, reps=20):
                              f" tables or launched otherwise than once: "
                              f"{bad}")
     return rows, max_err
+
+
+def tables_form(plan):
+    """The tables kernel a plan runs, as phase 3 prints it."""
+    if plan.form in ("mma", "short"):
+        return (f"{plan.form}: mma_kernel<{plan.k}> RW={plan.RW} "
+                f"KW={plan.KW}")
+    if plan.form == "rows":
+        return f"rows: rows_kernel<{plan.k}>"
+    return f"quads: quads_kernel<{plan.PQ}> G={plan.G}"
 
 
 def ptxas_of(report, kernel):

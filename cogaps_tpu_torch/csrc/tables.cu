@@ -9,7 +9,8 @@
 // float64 rule. For one sampler (rows r < R, partners i < m, data X and
 // weights W (R, m), factor M (R, k), partner factor O (m, k)), per chain:
 //   Y[r,c]    = sum_i (X[r,i] - M[r,:].O[i,:]) W[r,i] O[i,c]
-//   Z[r,c,c'] = sum_i W[r,i] O[i,c] O[i,c']     (c <= c'; mirrored)
+//   Z[r,c,c'] = sum_i W[r,i] Q[i,(c,c')],  Q[i,(c,c')] = O[i,c] O[i,c']
+//               (c <= c'; mirrored)
 //   SQ[r,c]   = Z[r,c,c],   col_nz[c] = max_i O[i,c] > 0
 // in float32, as models/dense.tables_plain forms them.
 //
@@ -19,38 +20,62 @@
 // its kernel, and with it a float32 sum's order, by the batch count. The
 // grid is (row tiles x accumulator tiles, contraction splits, chains): more
 // chains add blocks and change no block's work. A block covers RT rows of
-// one chain and the partners of one fixed chunk of the contraction, in
-// sub-tiles of L partners staged in shared memory by cp.async, the next
-// sub-tile in flight while the block works on this one: X and W
-// (coalesced rows) and O's rows. Each thread keeps its row's accumulators
-// in registers, the Y entries and Z's upper triangle, and forms the
-// residual once a partner (fmaf over c ascending). Two kernels, as the plan
-// says:
-//   - rows_kernel<K> (k <= 12, more rows than half a block): a thread a
-//     row, K + K(K+1)/2 float accumulators (65 at k=10), the partner's
-//     row in registers; per partner t O_c for Y and (W O_c) O_c' for Z,
-//     one fmaf each, with five shared-memory loads;
-//   - quads_kernel<PQ> (any k, or few rows): after O's rows, a row of
-//     "columns" a partner, [O_c | O_c O_c'], formed once a partner and
-//     block, and each thread PQ quads of them (float4 accumulators), G
-//     threads sharing a row where its quads exceed PQ or the rows are too
-//     few to fill the block; one fmaf a column, a 16-byte broadcast load
-//     for four. Above G = 32 (k > ~35) the accumulators are tiled over
-//     blocks too, each forming the residual again.
+// one chain and the partners of one fixed chunk of the contraction, staged
+// in shared memory while the block works on earlier ones. Three kernels,
+// as the plan says:
+//   - mma_kernel<K> (k <= 12, m >= 64, R >= 2): the products on the
+//     tensor cores in TF32 with the 3xTF32 split (x = big + small, both
+//     TF32 by cvt.rna; small.big + big.small + big.big), which keeps
+//     float32 accuracy: (X W) O, and Z = W Q; then Y = (X W) O - M Z row
+//     by row (sum_i (M O^T)[r,i] W[r,i] O[i,c] = sum_c' M[r,c'] Z[r,c',c]),
+//     so that no thread forms the residual. Four warps a block: the
+//     tensor-core form (R > 32) is one warpgroup of 64 rows on wgmma
+//     (B from shared memory by descriptor), the short-row form (R <= 32)
+//     16 or 32 rows with the partners split over 4 or 2 warps on
+//     mma.sync m16n8k8, added in warp order. A ring of three stages of
+//     L partners holds X, W and O's rows: in the tensor-core form one
+//     thread fills a stage with two TMA tensor copies (zeros past m and
+//     R) and a bulk copy of O's rows, counted on the slot's mbarrier;
+//     else every thread by cp.async. Per stage each warp forms its
+//     n-blocks of [O | Q] for the stage's partners, split into TF32
+//     halves, as core matrices of 8 columns x 4 partners (what ldmatrix
+//     and wgmma read); partners sit permuted inside each group of 16
+//     (partner 4t + e at place 4e + t), so that a thread's float4 of X
+//     and W is its two k-steps' A fragments. A group's six products a
+//     product start from zero and are then added to the accumulators in
+//     float32 round-to-nearest, so long sums round as fmaf chains do.
+//     The block's sums are staged in shared memory for coalesced writes.
+//   - rows_kernel<K> (k <= 12, the rest): a thread a row, K + K(K+1)/2
+//     float accumulators, the partner's row in registers; per partner
+//     t O_c for Y and (W O_c) O_c' for Z, one fmaf each;
+//   - quads_kernel<PQ> (k > 12): after O's rows, a row of "columns" a
+//     partner, [O_c | O_c O_c'], formed once a partner and block, and each
+//     thread PQ quads of them (float4 accumulators), G threads sharing a
+//     row where its quads exceed PQ or the rows are too few to fill the
+//     block; one fmaf a column, a 16-byte broadcast load for four. Above G
+//     = 32 (k > ~35) the accumulators are tiled over blocks too, each
+//     forming the residual again.
 // A contraction split into S chunks writes its partials, and the last
 // block of its (chain, tile) to finish (an integer counter, left 0) adds
-// them in split order, 0 to S - 1; no float atomics, so two runs give the
+// them in split order, 0 to S - 1 (mma_kernel: every thread a few
+// entries, many loads in flight); no float atomics, so two runs give the
 // same bits.
 //
-// What bounds it on the H100: bytes. D and W are read once, 8 bytes an
-// element, against 2 + 4k + k(k+1) float32 operations (152 at k=10: 19
-// operations a byte against the card's 67e12 / 3.35e12 = 20): at 4 x 5000
-// x 2000 k=10 both samplers move 0.64 GB: ~0.19 ms at the 3.35 TB/s of
-// the H100 SXM data sheet. The design keeps it one pass over D and W, the
-// staging of the next sub-tile behind the work on this one; the
-// instructions around each fmaf (shared-memory loads, the quads'
-// selects) and the blocks a card holds at once are what is left.
+// What bounds it on the H100: bytes. X and W are read once, 8 bytes an
+// element, against 2 + 4k + k(k+1) float32 operations (152 at k=10: 19 a
+// byte against the CUDA cores' 67e12 / 3.35e12 = 20, so rows_kernel could
+// meet its bound only with the FMA pipe and HBM both at peak). mma_kernel
+// puts 130 of the 152 on the tensor cores (three TF32 products each,
+// against 495e12 dense TF32; mma.sync's TF32 products measured ~80e12 a
+// second here, wgmma's are the card's full rate) and drops the residual's
+// 2k, which leaves the CUDA cores the products X W, the splits and the
+// adds of a group's sums: the card's bytes stay the bound. At 4 x 5000 x
+// 2000 k=10 both samplers move 0.64 GB: ~0.19 ms at the 3.35 TB/s of the
+// H100 SXM data sheet. What is left is each stage's forming of [O | Q]
+// (per 64 rows), the per-stage barriers, and with short rows the partials
+// of the splits.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +84,8 @@ namespace {
 constexpr int kThreads = 128;  // ops/tables_cuda.THREADS
 constexpr int kY = 0xFFFF;     // a column code's partner for a Y column
 constexpr int kRowsMaxK = 12;  // ops/tables_cuda.ROWS_MAX_K
+constexpr int kStages = 3;     // ops/tables_cuda.STAGES: mma_kernel's ring
+constexpr int kMmaWarps = kThreads / 32;  // ops/tables_cuda.MMA_WARPS
 
 struct Args {
   const float* D;
@@ -75,7 +102,16 @@ struct Args {
   int* counters;  // (chains, tiles) blocks done, left 0 by the last
   int R, m, k, qy, npairs;
   int G, RT, TQ, acc_tiles, S, CH, L, smq;
-  int vec;  // X and W rows in 16-byte pieces: m % 4 == 0, aligned
+  int RW;   // mma_kernel's row warps
+  int vec;  // X and W rows in 16-byte pieces: m % 4 == 0, aligned (1),
+            // and O's rows too, mma_kernel's tensor copies (2)
+};
+
+// mma_kernel's parameters: with vec 2, X's and W's (m, R, chains) maps for
+// the copy engine (TMA), kept out of the other kernels' launches
+struct MmaArgs {
+  Args a;
+  CUtensorMap mapD, mapW;
 };
 
 // (c, c') of pair p of the upper triangle c <= c' < k, row-major
@@ -478,9 +514,852 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int& smem_set, const Args& a, int nch, int smem,
-           cudaStream_t stream) {
+// ---------------------------------------------------------------------
+// mma_kernel<K>: Y and Z on the tensor cores
+// ---------------------------------------------------------------------
+
+template <int K>
+struct MmaShape {
+  static constexpr int NP = K * (K + 1) / 2;  // Z's pairs c <= c'
+  static constexpr int NY = (K + 7) / 8;      // n-blocks of 8 columns: Y
+  static constexpr int NZ = (NP + 7) / 8;     // and Z
+  static constexpr int NT = NY + NZ;
+  static constexpr int NT8 = 8 * NT;          // columns of [O | Q]
+};
+
+// (c, c') of pair p of the upper triangle c <= c' < k, row-major, for
+// indices known when the loops that use them are unrolled
+__host__ __device__ constexpr int pair_row(int p, int k) {
+  int c = 0;
+  while (c + 1 < k && p >= k - c) p -= k - c++;
+  return c;
+}
+
+__host__ __device__ constexpr int pair_col(int p, int k) {
+  int c = 0;
+  while (c + 1 < k && p >= k - c) p -= k - c++;
+  return c + p;
+}
+
+// [O | Q] in shared memory as core matrices of 8 columns x 4 partners
+// (128 bytes, what one ldmatrix matrix and one wgmma core matrix read),
+// kCM floats apart along the partners: the 16 bytes of padding put the 8
+// core matrices a warp's lanes write (a partner a lane) in 32 banks
+constexpr int kCM = 36;
+
+// mma_kernel's shared memory in floats (ops/tables_cuda._mma_floats): the
+// ring's X and W (kStages x RT rows of L) and O's rows (kStages x L x K),
+// the stage's [O | Q] as TF32 halves (2 x NT n-blocks
+// x L / 4 core matrices); after the loop the block's partials (KW x RT
+// rows, PP apart) and its M rows (RT x k) in the same space (three blocks
+// an SM at k=10 hold 76,800 bytes each); then the flags (2k), one int
+// and the ring's mbarriers. A stage is 16 KW partners a
+// warp group: two groups of 16 a warp where the warps split the rows, one
+// where they split the partners.
+struct MmaLayout {
+  int RT, KW, L, lgL, KC, PP, w, o, b, half, m, flag, bar, floats;
+};
+
+__host__ __device__ inline MmaLayout mma_layout(int k, int RW) {
+  const int np = k * (k + 1) / 2;
+  const int nt = (k + 7) / 8 + (np + 7) / 8;
+  MmaLayout l;
+  l.KW = kMmaWarps / RW;
+  l.RT = 16 * RW;
+  l.L = 16 * l.KW * (l.KW == 1 ? 2 : 1);
+  l.lgL = l.L == 32 ? 5 : 6;
+  l.KC = l.L / 4;
+  l.PP = 8 * nt + 1;
+  l.w = kStages * l.RT * l.L;
+  l.o = 2 * l.w;
+  l.b = l.o + kStages * l.L * k;
+  l.half = nt * l.KC * kCM;
+  const int staging = l.b + 2 * l.half;
+  l.m = l.KW * l.RT * l.PP;  // M's rows after the partials
+  const int after = l.m + l.RT * k;
+  l.flag = staging > after ? staging : after;
+  l.bar = (l.flag + 2 * k + 2) / 2 * 2;  // 8-byte aligned
+  l.floats = l.bar + 2 * kStages;
+  return l;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// this thread's arrival, and the bytes the phase's copies will bring
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// waits for the phase of the given parity to complete; a wait past two
+// seconds (a copy that never lands) traps, and the launch's error says
+// so, where it would otherwise hold the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  unsigned long long t0 = 0;
+  for (int n = 0;; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    if (n == 0) t0 = now;
+    if (now - t0 > 2000000000ull) asm volatile("trap;");
+  }
+}
+
+// bytes (a multiple of 16, both ends 16-byte aligned) global -> shared,
+// counted on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the box at (c0, c1, c2) of a tensor map global -> shared, counted on
+// bar; what lies past the tensor's edges arrives as zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both TF32 (the 3xTF32 split)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(__fsub_rn(x, __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += A B over one k-step of 8 partners (m16n8k8, TF32 in, float32 out)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// wgmma.mma_async m64nNk8 in TF32, A from registers (each warp's 16 rows
+// as the m16n8k8 A fragment), B by its shared-memory descriptor, float32
+// D of N / 2 registers a thread: D = A B + (scale_d ? D : 0). N is Y's 8
+// NY or Z's 8 NZ for k = 1 .. 12.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void run(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<24> {
+  static __device__ __forceinline__ void run(float (&d)[12],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11"
+        "}, {%12, %13, %14, %15}, %16, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<40> {
+  static __device__ __forceinline__ void run(float (&d)[20],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19"
+        "}, {%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<48> {
+  static __device__ __forceinline__ void run(float (&d)[24],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<56> {
+  static __device__ __forceinline__ void run(float (&d)[28],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27"
+        "}, {%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<72> {
+  static __device__ __forceinline__ void run(float (&d)[36],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n72k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35"
+        "}, {%36, %37, %38, %39}, %40, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<80> {
+  static __device__ __forceinline__ void run(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39"
+        "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile(
+      "wgmma.commit_group.sync.aligned;\n"
+      "wgmma.wait_group.sync.aligned 0;\n" ::
+          : "memory");
+}
+
+// keeps the compiler from moving reads of d above the wait
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// a wgmma descriptor of a K-major operand without swizzle: core matrices
+// lbo bytes apart along K and sbo apart along N
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo,
+                                              int sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// The A fragments of a group of 16 partners: [0] X W for the Y columns,
+// [1] W for the Z columns; big and small halves, k-steps 0, 1
+struct GroupA {
+  uint32_t big[2][2][4], small[2][2][4];
+};
+
+// mma.sync (the short-row form): one group (two k-steps), each
+// n-block's six products of the 3xTF32 split, small ones first, from
+// zero, then added to acc in float32. hb and hs: the group's first core
+// matrix of n-block 0 in the big and small halves, this lane's row of it
+// (ldmatrix: k-step s in registers 2s, 2s + 1); n-blocks sbo floats
+// apart.
+template <int NY, int NT>
+__device__ __forceinline__ void group_mma(float (&acc)[NT][4],
+                                          const GroupA& A,
+                                          const uint32_t* hb,
+                                          const uint32_t* hs, int sbo) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int y = j < NY ? 0 : 1;  // T's fragments, or W's
+    uint32_t bb[4], bs[4];
+    ldmatrix_x4(bb, hb + j * sbo);
+    ldmatrix_x4(bs, hs + j * sbo);
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      mma_tf32(d, A.small[y][s], bb[2 * s], bb[2 * s + 1]);
+      mma_tf32(d, A.big[y][s], bs[2 * s], bs[2 * s + 1]);
+      mma_tf32(d, A.big[y][s], bb[2 * s], bb[2 * s + 1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], d[e]);
+  }
+}
+
+// wgmma (the tensor-core form, the block's four warps one warpgroup of
+// 64 rows): one group's Y and Z products, six each (the 3xTF32 split,
+// small ones first, from zero), then added to acc in float32. b: the
+// big half's first core matrix of the group; the small half `half`
+// floats on, n-blocks sbo floats apart.
+template <int K>
+__device__ __forceinline__ void group_wgmma(
+    float (&acc)[MmaShape<K>::NT][4], const GroupA& A, const uint32_t* b,
+    int half, int sbo) {
+  using Sh = MmaShape<K>;
+  constexpr int NY = Sh::NY, NZ = Sh::NZ;
+  float dy[4 * NY], dz[4 * NZ];
+#pragma unroll
+  for (int e = 0; e < 4 * NY; ++e) dy[e] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 4 * NZ; ++e) dz[e] = 0.0f;
+  const int lbo = 4 * kCM, sbo_b = 4 * sbo;
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const uint32_t* bb = b + 2 * s * kCM;  // k-step s: core matrices 2s, +1
+    const uint32_t* bs = bb + half;
+    const uint64_t yb = gmma_desc(bb, lbo, sbo_b);
+    const uint64_t ys = gmma_desc(bs, lbo, sbo_b);
+    const uint64_t zb = gmma_desc(bb + NY * sbo, lbo, sbo_b);
+    const uint64_t zs = gmma_desc(bs + NY * sbo, lbo, sbo_b);
+    Wgmma<8 * NY>::run(dy, A.small[0][s], yb, s);
+    Wgmma<8 * NZ>::run(dz, A.small[1][s], zb, s);
+    Wgmma<8 * NY>::run(dy, A.big[0][s], ys, 1);
+    Wgmma<8 * NZ>::run(dz, A.big[1][s], zs, 1);
+    Wgmma<8 * NY>::run(dy, A.big[0][s], yb, 1);
+    Wgmma<8 * NZ>::run(dz, A.big[1][s], zb, 1);
+  }
+  wgmma_commit_wait();
+  fence_operands(dy);
+  fence_operands(dz);
+#pragma unroll
+  for (int j = 0; j < NY; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[j][e] = __fadd_rn(acc[j][e], dy[4 * j + e]);
+#pragma unroll
+  for (int j = 0; j < NZ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[NY + j][e] = __fadd_rn(acc[NY + j][e], dz[4 * j + e]);
+}
+
+// The stage's [O | Q] in TF32 halves: warp W the n-blocks W, W + 4, ...,
+// a lane a partner place (its O row in registers, every column's (c, c')
+// known once unrolled); col_nz's flags from Y's columns.
+template <int K, int W>
+__device__ __forceinline__ void form_b(uint32_t* sB, const float* o, int L,
+                                       int half, int sbo, bool flag_block,
+                                       int* sFlag, int lane) {
+  using Sh = MmaShape<K>;
+  constexpr int NY = Sh::NY, NT = Sh::NT;
+  for (int pos = lane; pos < L; pos += 32) {
+    // place pos of a group of 16 holds partner 4 (pos % 4) + pos / 4
+    const float* orow =
+        o + ((pos & ~15) + 4 * (pos & 3) + ((pos >> 2) & 3)) * K;
+    float ov[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) ov[c] = orow[c];
+    uint32_t* cell = sB + (pos >> 2) * kCM + (pos & 3);
+#pragma unroll
+    for (int nb = W; nb < NT; nb += 4) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int n = 8 * nb + r;
+        float v = 0.0f;
+        if (n < 8 * NY) {
+          if (n < K) {
+            v = ov[n < K ? n : 0];
+            if (flag_block) {
+              if (v > 0.0f) sFlag[n] = 1;
+              if (v != v) sFlag[K + n] = 1;
+            }
+          }
+        } else if (n - 8 * NY < Sh::NP) {
+          const int p = n - 8 * NY;
+          v = __fmul_rn(ov[pair_row(p, K)], ov[pair_col(p, K)]);
+        }
+        uint32_t big, small;
+        tf32_split(v, big, small);
+        cell[nb * sbo + 4 * r] = big;
+        cell[half + nb * sbo + 4 * r] = small;
+      }
+    }
+  }
+}
+
+// Four warps, RW x KW; see the file's note. In [O | Q], partners inside
+// a group of 16 sit permuted: partner 4t + e at place 4e + t, so that
+// k-step s takes partners 4t + 2s (A column t, B row t) and 4t + 2s + 1
+// (column and row t + 4), and a thread's float4 of X holds both.
+template <int K>
+__global__ void __launch_bounds__(kThreads, 3)
+    mma_kernel(const __grid_constant__ MmaArgs p) {
+  const Args& a = p.a;
+  using Sh = MmaShape<K>;
+  constexpr int NY = Sh::NY, NT = Sh::NT, NT8 = Sh::NT8;
+  const MmaLayout ly = mma_layout(K, a.RW);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* sX = sm;
+  float* sW = sm + ly.w;
+  float* sO = sm + ly.o;
+  uint32_t* sB = reinterpret_cast<uint32_t*>(sm + ly.b);
+  int* sFlag = reinterpret_cast<int*>(sm + ly.flag);
+  int* sLast = sFlag + 2 * K;
+  const int RT = ly.RT, KW = ly.KW, L = ly.L, lgL = ly.lgL, PP = ly.PP;
+  const int half = ly.half, sbo = ly.KC * kCM;
+  const bool wg = a.RW == kMmaWarps;  // the tensor-core form: wgmma
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rw = warp / KW, kw = warp - rw * KW;
+  const int chain = blockIdx.z, s = blockIdx.y, tile = blockIdx.x;
+  const int row0 = tile * RT;
+  const int lo = s * a.CH, hi = min(lo + a.CH, a.m);
+  const bool flag_block = tile == 0;
+  const float* D = a.D + chain * a.cD;
+  const float* W = a.W + chain * a.cW;
+  const float* O = a.O + chain * a.cO;
+  const float* M = a.M + chain * a.cM;
+  for (int c = tid; c < 2 * K; c += kThreads) sFlag[c] = 0;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
+
+  const int n_sub = hi > lo ? (hi - lo + L - 1) / L : 0;
+  const int nrows = min(RT, a.R - row0);  // the tile's rows in R
+  const bool bulk = a.vec == 2;
+  uint64_t* sBar = reinterpret_cast<uint64_t*>(sm + ly.bar);
+  if (bulk && tid == 0) {
+    for (int q = 0; q < kStages; ++q) mbar_init(sBar + q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (bulk) __syncthreads();
+  // stage t: partners [lo + t L, + L) into ring slot t % kStages: X and W
+  // rows L apart, O's rows K apart (zeros past hi and past R)
+  auto stage = [&](int t) {
+    const int slot = t % kStages, i0 = lo + t * L;
+    const int nval = min(L, hi - i0);
+    float* x = sX + slot * RT * L;
+    float* w = sW + slot * RT * L;
+    float* o = sO + slot * L * K;
+    if (bulk) {  // one thread: X's and W's tiles by TMA, O's rows in bulk
+      if (tid != kThreads - 32) return;  // warp 3 forms the fewest n-blocks
+      for (int e = nval * K; e < L * K; e++) o[e] = 0.0f;  // past m
+      mbar_expect_tx(sBar + slot, 8u * RT * L + 4u * nval * K);
+      tma_load_3d(x, &p.mapD, i0, row0, a.cD ? chain : 0, sBar + slot);
+      tma_load_3d(w, &p.mapW, i0, row0, a.cW ? chain : 0, sBar + slot);
+      bulk_copy(o, O + (size_t)i0 * K, 4u * nval * K, sBar + slot);
+      return;
+    }
+    if (a.vec) {  // hi and i0 are multiples of 4: a piece is in or out
+      for (int e = tid; e < RT * L / 4; e += kThreads) {
+        const int rr = e >> (lgL - 2), ii = 4 * (e & (L / 4 - 1));
+        const int row = row0 + rr, i = i0 + ii;
+        const bool ok = row < a.R && i < hi;
+        const size_t off = ok ? (size_t)row * a.m + i : 0;
+        cp_async16(x + rr * L + ii, D + off, ok);
+        cp_async16(w + rr * L + ii, W + off, ok);
+      }
+    } else {
+      for (int e = tid; e < RT * L; e += kThreads) {
+        const int rr = e >> lgL, ii = e & (L - 1);
+        const int row = row0 + rr, i = i0 + ii;
+        const bool ok = row < a.R && i < hi;
+        const size_t off = ok ? (size_t)row * a.m + i : 0;
+        cp_async4(x + rr * L + ii, D + off, ok);
+        cp_async4(w + rr * L + ii, W + off, ok);
+      }
+    }
+    for (int e = tid; e < L * K; e += kThreads) {
+      const bool ok = e < nval * K;
+      cp_async4(o + e, O + (ok ? (size_t)i0 * K + e : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_sub)
+      stage(t);
+    else if (!bulk)
+      cp_async_commit();
+  }
+  for (int t = 0; t < n_sub; ++t) {
+    if (bulk)
+      mbar_wait(sBar + t % kStages, (t / kStages) & 1);
+    else
+      cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage t is in; every thread is past stage t - 1
+    if (t + kStages - 1 < n_sub)
+      stage(t + kStages - 1);  // into stage t - 1's slot
+    else if (!bulk)
+      cp_async_commit();
+    const int slot = t % kStages;
+    const float* o = sO + slot * L * K;
+    switch (warp) {
+      case 0:
+        form_b<K, 0>(sB, o, L, half, sbo, flag_block, sFlag, lane);
+        break;
+      case 1:
+        form_b<K, 1>(sB, o, L, half, sbo, flag_block, sFlag, lane);
+        break;
+      case 2:
+        form_b<K, 2>(sB, o, L, half, sbo, flag_block, sFlag, lane);
+        break;
+      default:
+        form_b<K, 3>(sB, o, L, half, sbo, flag_block, sFlag, lane);
+    }
+    // the tensor cores read [O | Q] through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const float* xr = sX + (slot * RT + 16 * rw + gq) * L;
+    const float* wr = sW + (slot * RT + 16 * rw + gq) * L;
+    for (int grp = kw; grp < L / 16; grp += KW) {  // this warp's groups
+      // this thread's X and W: rows 16 rw + gq (+ 8); partners 4 tq + e
+      const int col = 16 * grp + 4 * tq;
+      const float4 xa = *reinterpret_cast<const float4*>(xr + col);
+      const float4 xb = *reinterpret_cast<const float4*>(xr + 8 * L + col);
+      const float4 wa = *reinterpret_cast<const float4*>(wr + col);
+      const float4 wb = *reinterpret_cast<const float4*>(wr + 8 * L + col);
+      float ta[4], tb[4];  // X W: Y = (X W) O - M Z, row by row
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ta[e] = __fmul_rn(lane_of(xa, e), lane_of(wa, e));
+        tb[e] = __fmul_rn(lane_of(xb, e), lane_of(wb, e));
+      }
+      // A fragments of k-step s: (row gq, 4 tq + 2s), (gq + 8, 4 tq +
+      // 2s), (gq, 4 tq + 2s + 1), (gq + 8, 4 tq + 2s + 1)
+      GroupA A;
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        tf32_split(ta[2 * s2], A.big[0][s2][0], A.small[0][s2][0]);
+        tf32_split(tb[2 * s2], A.big[0][s2][1], A.small[0][s2][1]);
+        tf32_split(ta[2 * s2 + 1], A.big[0][s2][2], A.small[0][s2][2]);
+        tf32_split(tb[2 * s2 + 1], A.big[0][s2][3], A.small[0][s2][3]);
+        tf32_split(lane_of(wa, 2 * s2), A.big[1][s2][0], A.small[1][s2][0]);
+        tf32_split(lane_of(wb, 2 * s2), A.big[1][s2][1], A.small[1][s2][1]);
+        tf32_split(lane_of(wa, 2 * s2 + 1), A.big[1][s2][2],
+                   A.small[1][s2][2]);
+        tf32_split(lane_of(wb, 2 * s2 + 1), A.big[1][s2][3],
+                   A.small[1][s2][3]);
+      }
+      const uint32_t* b = sB + 4 * grp * kCM;  // the group's core matrices
+      if (wg) {
+        group_wgmma<K>(acc, A, b, half, sbo);
+      } else {
+        // ldmatrix rows: lane l gives row l % 8 of matrix l / 8
+        const uint32_t* hb = b + (lane >> 3) * kCM + 4 * (lane & 7);
+        group_mma<NY, NT>(acc, A, hb, hb + half, sbo);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the ring is free: the block's partials go there
+
+  // warp (rw, kw)'s fragments at rows kw RT + 16 rw + gq (+ 8)
+  float* sP = sm;
+  {
+    float* p0 = sP + (kw * RT + 16 * rw + gq) * PP + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      p0[8 * j] = acc[j][0];
+      p0[8 * j + 1] = acc[j][1];
+      p0[8 * PP + 8 * j] = acc[j][2];
+      p0[8 * PP + 8 * j + 1] = acc[j][3];
+    }
+  }
+  __syncthreads();
+  const int ent = nrows * NT8;  // the block's entries: rows x columns
+  for (int e = tid; KW > 1 && e < ent; e += kThreads) {  // warps in order
+    const int r = e / NT8, n = e - r * NT8;
+    float v = sP[r * PP + n];
+    for (int q = 1; q < KW; ++q) v = v + sP[(q * RT + r) * PP + n];
+    sP[r * PP + n] = v;
+  }
+
+  if (a.S > 1) {
+    const int blk = chain * gridDim.x + tile;
+    const size_t slab = (size_t)RT * NT8;  // a split's partials
+    float* base = a.part + (size_t)blk * a.S * slab;
+    float* mine = base + (size_t)s * slab;
+    for (int e = tid; e < ent; e += kThreads) {
+      const int r = e / NT8;
+      mine[e] = sP[r * PP + e - r * NT8];
+    }
+    const int k2 = 2 * K;
+    if (flag_block)
+      for (int c = tid; c < k2; c += kThreads)
+        a.flags[((size_t)chain * a.S + s) * k2 + c] = sFlag[c];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *sLast = atomicAdd(&a.counters[blk], 1) == a.S - 1;
+    __syncthreads();
+    if (!*sLast) return;
+    __threadfence();
+    // every split's partials, added in split order: a thread two quads of
+    // entries, eight splits' loads in flight before their adds
+    const float4* b4 = reinterpret_cast<const float4*>(base);
+    const size_t slab4 = slab / 4;
+    const int ent4 = ent / 4;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int e4 = tid; e4 < ent4; e4 += 2 * kThreads) {
+      const int f4 = e4 + kThreads;
+      const bool two = f4 < ent4;
+      float4 va = __ldcg(b4 + e4);
+      float4 vb = two ? __ldcg(b4 + f4) : zero;
+      int s2 = 1;
+      for (; s2 + 8 <= a.S; s2 += 8) {
+        float4 xa[8], xb[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          xa[u] = __ldcg(b4 + (s2 + u) * slab4 + e4);
+          xb[u] = two ? __ldcg(b4 + (s2 + u) * slab4 + f4) : zero;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          add_to(va, xa[u]);
+          add_to(vb, xb[u]);
+        }
+      }
+      for (; s2 < a.S; ++s2) {
+        add_to(va, __ldcg(b4 + s2 * slab4 + e4));
+        if (two) add_to(vb, __ldcg(b4 + s2 * slab4 + f4));
+      }
+      // four entries of one row (NT8 is a multiple of 8)
+      for (int h = 0; h < 2; ++h) {
+        if (h == 1 && !two) break;
+        const int e = 4 * (h == 0 ? e4 : f4);
+        const int r = e / NT8, n = e - r * NT8;
+        const float4 v = h == 0 ? va : vb;
+        float* p = sP + r * PP + n;
+        p[0] = v.x;
+        p[1] = v.y;
+        p[2] = v.z;
+        p[3] = v.w;
+      }
+    }
+    if (flag_block)
+      for (int c = tid; c < k2; c += kThreads) {
+        int any = 0;
+        for (int s3 = 0; s3 < a.S; ++s3)
+          any |= __ldcg(&a.flags[((size_t)chain * a.S + s3) * k2 + c]);
+        sFlag[c] = any;
+      }
+    if (tid == 0) a.counters[blk] = 0;
+  }
+  __syncthreads();
+
+  if (flag_block)
+    for (int c = tid; c < K; c += kThreads)
+      a.col_nz[(size_t)chain * K + c] = sFlag[c] && !sFlag[K + c];
+  // the rows' Z, Y and SQ, contiguous in each: coalesced writes, Z a
+  // warp a row, each lane the same entries of every row
+  constexpr int KK = K * K, PER = (KK + 31) / 32;
+  const size_t rowg = (size_t)chain * a.R + row0;
+  int src[PER];  // this lane's Z entries' columns of the block's sums
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int cc = lane + 32 * j, c = cc / K, c2 = cc - c * K;
+    const int l = min(c, c2), h = max(c, c2);
+    src[j] = cc < KK ? 8 * NY + l * K - l * (l - 1) / 2 + (h - l) : -1;
+  }
+  for (int r = warp; r < nrows; r += kMmaWarps) {
+    const float* pr = sP + r * PP;
+    float* zr = a.Z + (rowg + r) * KK;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      if (src[j] >= 0) zr[lane + 32 * j] = pr[src[j]];
+  }
+  // Y = (X W) O - M Z: the residual's part, sum_i (M O^T)[r,i] W[r,i]
+  // O[i,c] = sum_c' M[r,c'] Z[r,c',c], from the block's Z (fmaf over c'
+  // ascending, then one subtraction); the tile's M rows staged first
+  float* sM = sm + ly.m;
+  for (int e = tid; e < nrows * K; e += kThreads)
+    sM[e] = M[(size_t)row0 * K + e];
+  __syncthreads();
+  float* Y = a.Y + rowg * K;
+  float* SQ = a.SQ + rowg * K;
+  for (int e = tid; e < nrows * K; e += kThreads) {
+    const int r = e / K, c = e - r * K;
+    const float* zr = sP + r * PP + 8 * NY;
+    float mz = 0.0f;
+#pragma unroll
+    for (int c2 = 0; c2 < K; ++c2) {
+      const int l = min(c, c2), h = max(c, c2);
+      mz = __fmaf_rn(sM[r * K + c2], zr[l * K - l * (l - 1) / 2 + (h - l)],
+                     mz);
+    }
+    Y[e] = __fsub_rn(sP[r * PP + c], mz);
+    SQ[e] = zr[c * K - c * (c - 1) / 2];
+  }
+}
+
+template <typename Kernel, typename P>
+int launch(Kernel kernel, int& smem_set, const P& params, const Args& a,
+           int nch, int smem, cudaStream_t stream) {
   if (smem > 48 * 1024 && smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -489,52 +1368,127 @@ int launch(Kernel kernel, int& smem_set, const Args& a, int nch, int smem,
   }
   const int row_tiles = (a.R + a.RT - 1) / a.RT;
   const dim3 grid(row_tiles * a.acc_tiles, a.S, nch);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(params);
   return (int)cudaGetLastError();
 }
 
 template <int K>
 int launch_rows(const Args& a, int nch, int smem, cudaStream_t stream) {
   static int smem_set = 0;
-  return launch(rows_kernel<K>, smem_set, a, nch, smem, stream);
+  return launch(rows_kernel<K>, smem_set, a, a, nch, smem, stream);
 }
 
 template <int PQ>
 int launch_quads(const Args& a, int nch, int smem, cudaStream_t stream) {
   static int smem_set = 0;
-  return launch(quads_kernel<PQ>, smem_set, a, nch, smem, stream);
+  return launch(quads_kernel<PQ>, smem_set, a, a, nch, smem, stream);
+}
+
+template <int K>
+int launch_mma(const MmaArgs& p, int nch, int smem, cudaStream_t stream) {
+  static int smem_set = 0;
+  return launch(mma_kernel<K>, smem_set, p, p.a, nch, smem, stream);
 }
 
 constexpr int kBad = (int)cudaErrorInvalidValue;
 
+// The copy engine's map of a float32 (m, R, chains) tensor, chains
+// stride floats apart, in boxes of box_m x box_r x 1: what lies past m
+// or R reads as zeros. cuTensorMapEncodeTiled is libcuda's, found at
+// first use through the runtime.
+int tensor_map(CUtensorMap* map, const float* base, int m, int R, int nch,
+               long long stride, int box_m, int box_r) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault) != cudaSuccess ||
+        fn == nullptr)
+      return (int)cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)m, (cuuint64_t)R, (cuuint64_t)nch};
+  const cuuint64_t strides[2] = {
+      4ull * m, 4ull * (stride ? stride : (long long)R * m)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_m, (cuuint32_t)box_r, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBad;
+}
+
 }  // namespace
 
-// The plan's fields (ops/tables_cuda.tables_plan) and the tensors: PQ 0
-// runs rows_kernel<k>, else quads_kernel<PQ> (PQ one of
-// ops/tables_cuda.QUADS).
+// The plan's fields (ops/tables_cuda.tables_plan) and the tensors: form 0
+// runs rows_kernel<k>, 1 quads_kernel<PQ> (PQ one of ops/tables_cuda.QUADS),
+// 2 mma_kernel<k> with RW row warps.
 extern "C" int cogaps_tables_launch(
-    int nch, int R, int m, int k, int G, int PQ, int TQ, int acc_tiles, int S,
-    int CH, int L, int smq, int smem, const float* D, long long cD,
-    const float* W, long long cW, const float* M, long long cM,
-    const float* O, long long cO, float* Y, float* SQ, float* Z,
-    unsigned char* col_nz, float* part, int* flags, int* counters,
-    void* stream) {
+    int nch, int R, int m, int k, int form, int G, int PQ, int TQ,
+    int acc_tiles, int S, int CH, int L, int smq, int RW, int smem,
+    const float* D, long long cD, const float* W, long long cW,
+    const float* M, long long cM, const float* O, long long cO, float* Y,
+    float* SQ, float* Z, unsigned char* col_nz, float* part, int* flags,
+    int* counters, void* stream) {
   if (nch < 1 || nch > 65535 || R < 1 || m < 0 || k < 1 || k >= 0xFFFF ||
       G < 1 || kThreads % G || S < 1 || S > 65535 || L < 1 || CH < L ||
-      (PQ == 0 && (G != 1 || k > kRowsMaxK || acc_tiles != 1)) ||
+      form < 0 || form > 2 ||
+      (form != 1 && (G != 1 || k > kRowsMaxK || acc_tiles != 1)) ||
       (S > 1 && (part == nullptr || counters == nullptr || flags == nullptr)))
     return kBad;
+  int RT = kThreads / G;
+  if (form == 2) {
+    if ((RW != 1 && RW != 2 && RW != 4) || L != mma_layout(k, RW).L ||
+        CH % L || smem < 4 * mma_layout(k, RW).floats)
+      return kBad;
+    RT = 16 * RW;
+  }
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const int vec = m % 4 == 0 && L % 4 == 0 && CH % 4 == 0 && aligned(D) &&
-                  aligned(W) && cD % 4 == 0 && cW % 4 == 0;
+  // X and W rows in 16-byte pieces (1); mma_kernel's bulk copies, O's
+  // rows too (2)
+  int vec = m % 4 == 0 && L % 4 == 0 && CH % 4 == 0 && aligned(D) &&
+            aligned(W) && cD % 4 == 0 && cW % 4 == 0;
+  if (vec && form == 2 && aligned(O) && cO % 4 == 0) vec = 2;
   const Args a{D, W, M, O, cD, cW, cM, cO, Y, SQ, Z, col_nz,
                part, flags, counters, R, m, k, (k + 3) / 4,
-               k * (k + 1) / 2, G, kThreads / G, TQ, acc_tiles, S, CH, L,
-               smq, vec};
+               k * (k + 1) / 2, G, RT, TQ, acc_tiles, S, CH, L,
+               smq, RW, vec};
   cudaStream_t s = (cudaStream_t)stream;
-  if (PQ == 0) {
+  if (form == 2) {
+    MmaArgs p{a, {}, {}};
+    if (vec == 2) {
+      const int err = tensor_map(&p.mapD, D, m, R, cD ? nch : 1, cD, L, RT);
+      if (err) return err;
+      const int err2 = tensor_map(&p.mapW, W, m, R, cW ? nch : 1, cW, L, RT);
+      if (err2) return err2;
+    }
+    switch (k) {
+      case 1: return launch_mma<1>(p, nch, smem, s);
+      case 2: return launch_mma<2>(p, nch, smem, s);
+      case 3: return launch_mma<3>(p, nch, smem, s);
+      case 4: return launch_mma<4>(p, nch, smem, s);
+      case 5: return launch_mma<5>(p, nch, smem, s);
+      case 6: return launch_mma<6>(p, nch, smem, s);
+      case 7: return launch_mma<7>(p, nch, smem, s);
+      case 8: return launch_mma<8>(p, nch, smem, s);
+      case 9: return launch_mma<9>(p, nch, smem, s);
+      case 10: return launch_mma<10>(p, nch, smem, s);
+      case 11: return launch_mma<11>(p, nch, smem, s);
+      case 12: return launch_mma<12>(p, nch, smem, s);
+      default: return kBad;
+    }
+  }
+  if (form == 0) {
     switch (k) {
       case 1: return launch_rows<1>(a, nch, smem, s);
       case 2: return launch_rows<2>(a, nch, smem, s);

@@ -10,21 +10,29 @@ have no Pallas kernel; on the fused route K3 builds the same tables in
 float64 (csrc/span.cu::rebuild_kernel). models/dense.tables dispatches
 here for float32 CUDA tensors and to the plain version for CPU tensors.
 
-Two kernels, as ``tables_plan`` says: rows_kernel<k> for k <= 12, a
-thread a row with all its accumulators in registers, and quads_kernel<PQ>
-beyond, each thread PQ quads of a row's accumulators, G threads a row.
-quads_kernel computes every k, but forced at k=10 it took 2.0-3.6x
-rows_kernel's time at 4 x 5000 x 2000 and 16 x 20000 x 100 (NVIDIA H100
-80GB HBM3, 700 W; kernel_times.py --quads): it reads M's row and the
-partner's products from shared memory where rows_kernel keeps them in
-registers. Every float32 entry of a chain is summed in an order that ``tables_plan``
-fixes from (R, m, k) and the card's SM count alone, never from the number
-of chains in the call or a chain's index: a chain's tables are the same
-bits alone and beside any number of other chains, which batched cuBLAS
-products do not give (cuBLAS picks its kernel by the batch count). A
-contraction split into chunks is added in split order by the last block
-to finish; there are no float atomics. ``tables_counts`` gives the bytes
-and float32 operations the bound counts. The kernel is built from
+Three kernels, as ``tables_plan`` says, from (R, m, k) and the SM count:
+mma_kernel<k> (k <= 12, m >= MMA_MIN_M, R >= MMA_MIN_R) forms (X W) O
+and Z = W Q on the tensor cores in TF32 with the 3xTF32 split, and Y =
+(X W) O - M Z, four warps a block: 64 rows on wgmma where R > 32 (the
+tensor-core form, "mma"), and for fewer rows 16 or 32 of them on
+mma.sync with the contraction split over the warps (the short-row form,
+"short"); rows_kernel<k> (k <= 12 below those), a thread a row with all
+its accumulators in registers; quads_kernel<PQ> beyond k = 12, each
+thread PQ quads of a row's accumulators, G threads a row. quads_kernel
+computes every k, but forced at k=10 it took 2.0-3.6x rows_kernel's time
+at 4 x 5000 x 2000 and 16 x 20000 x 100 (NVIDIA H100 80GB HBM3, 700 W;
+kernel_times.py --quads). ``tables_tf32`` is the plain emulation of
+mma_kernel's arithmetic (the TF32 halves by cvt.rna's rounding, the
+three products a partner and the float32 sums in the kernel's order),
+for the CPU tests; ``tables_plain`` stays the plain version. Every
+float32 entry of a chain is summed in an order that ``tables_plan``
+fixes from (R, m, k) and the card's SM count alone, never from the
+number of chains in the call or a chain's index: a chain's tables are
+the same bits alone and beside any number of other chains, which batched
+cuBLAS products do not give (cuBLAS picks its kernel by the batch
+count). A contraction split into chunks is added in split order by the
+last block to finish; there are no float atomics. ``tables_counts`` gives
+the bytes and float32 operations the bound counts. The kernel is built from
 csrc/tables.cu by ops/cuda_build.py at first use.
 """
 
@@ -41,30 +49,54 @@ from . import cuda_build
 
 THREADS = 128  # csrc/tables.cu's kThreads
 QUADS = (1, 2, 3, 4, 6, 8, 9, 11, 15, 17, 20)  # quads_kernel's PQ
-ROWS_MAX_K = 12  # rows_kernel's K: 1 .. 12
+ROWS_MAX_K = 12  # rows_kernel's and mma_kernel's K: 1 .. 12
+# mma_kernel from 64 partners and 2 rows: below, 3xTF32's products (up to
+# 2^-21 of each, two bits short of float32) are not averaged down against
+# the accuracy gate (chip_smoke phase 3: at most twice cuBLAS's worst
+# error), which mma_kernel met only at 1.2-1.5x at 16-25 partners; at
+# one row of 4000 partners it reached 2.05x (3.65e-7 against 1.78e-7,
+# rows_kernel 2.0x on those inputs), and one row is rows_kernel's as
+# before (NVIDIA H100 80GB HBM3, 700 W)
+MMA_MIN_M, MMA_MIN_R = 64, 2
+MMA_WARPS = THREADS // 32  # csrc/tables.cu's kMmaWarps
+STAGES = 3  # csrc/tables.cu's kStages: mma_kernel's ring
+CORE = 36  # csrc/tables.cu's kCM: floats a core matrix of [O | Q] takes
+# mma_kernel's shortest chunk: 12 R partners (fewer rows, shorter chunks:
+# a block's partners run in sequence, and a split's partials are 16 RW
+# rows wide) up to MMA_CHUNK partners (a split's partials, NT8 floats a
+# row, against 8 bytes a partner of X and W): 512 took 0.045 ms at the
+# 2500 x 2000 block and 0.176 at 4 x 5000 x 2000 A where 1024 took 0.065
+# and 0.185, and 768 0.052 and 0.173 (NVIDIA H100 80GB HBM3, 700 W;
+# kernel_times.py --tables --plan MMA_CHUNK=...)
+MMA_CHUNK_ROWS, MMA_CHUNK = 12, 512
 MAX_G = 32  # threads sharing a row
 SMEM_TARGET = 56 * 1024  # shared memory a block aims under: four an SM
 SMEM_MAX = 232_448  # an H100 block's most (227 KB)
 MAX_L = 128  # partners a sub-tile stages
-# the shortest contraction chunk a split takes: 4 R partners, from 64 to
-# 256 (a block's sums run in sequence; fewer rows, shorter chunks, more
+# rows_kernel's and quads_kernel's shortest chunk: 4 R partners, from 64
+# to 256 (a block's sums run in sequence; fewer rows, shorter chunks, more
 # splits to add at the end: the best of 64, 128 and 256 at R = 9, 32, 64
 # and 100 on an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke's
 # tables_inputs)
 MIN_CHUNK = (64, 256)
 FILL = 2  # blocks an SM that one chain's call aims at
 REG_BASE = 48  # registers a thread holds besides its accumulators
+FORMS = ("rows", "quads", "mma", "short")  # csrc/tables.cu's form: 0, 1, 2
 
 
 class TablesPlan(NamedTuple):
     """How one sampler's tables are built, per chain: blocks of THREADS
-    threads, G a row, so RT rows a block. PQ 0: rows_kernel, a thread a
-    row and its k + k(k+1)/2 float accumulators. Else quads_kernel: each
-    thread keeps PQ quads (float4 accumulators) of its row's nq = qy + qz
-    (Y's k columns, then Z's k(k+1)/2 pairs c <= c', four a quad), a
-    block TQ of them, in acc_tiles tiles, with M's rows staged smq quads
-    apart. The contraction of m partners runs in S chunks of CH (the last
-    shorter), staged L at a time; smem bytes of dynamic shared memory."""
+    threads. form "mma" or "short": mma_kernel, warps of RW row warps
+    (RT = 16 RW rows) and KW = MMA_WARPS / RW partner warps ("short" where
+    KW > 1), stages of L partners (_mma_stage). form "rows": rows_kernel, a
+    thread a row (G 1, RT = THREADS) and its k + k(k+1)/2 float
+    accumulators. form "quads": quads_kernel, G threads a row (RT =
+    THREADS / G), each keeping PQ quads (float4 accumulators) of its row's
+    nq = qy + qz (Y's k columns, then Z's k(k+1)/2 pairs c <= c', four a
+    quad), a block TQ of them, in acc_tiles tiles, with M's rows staged
+    smq quads apart. The contraction of m partners runs in S chunks of CH
+    (the last shorter), staged L at a time; smem bytes of dynamic shared
+    memory."""
     R: int
     m: int
     k: int
@@ -81,6 +113,19 @@ class TablesPlan(NamedTuple):
     S: int
     smq: int
     smem: int
+    form: str = "rows"
+    RW: int = 0
+
+    @property
+    def KW(self) -> int:
+        """mma_kernel's warps sharing a row tile's partners."""
+        return MMA_WARPS // self.RW if self.RW else 0
+
+    @property
+    def NT8(self) -> int:
+        """mma_kernel's columns: Y's and Z's n-tiles of 8."""
+        kp = self.k * (self.k + 1) // 2
+        return 8 * (-(-self.k // 8) + -(-kp // 8))
 
     @property
     def blocks(self) -> int:
@@ -90,14 +135,26 @@ class TablesPlan(NamedTuple):
     @property
     def accumulators(self) -> int:
         """float32 accumulators a thread keeps: its partials a split."""
+        if self.form in ("mma", "short"):
+            return self.NT8 // 2  # a warp's 16 rows x NT8 over 32 lanes
         if self.PQ == 0:
             return self.k + self.k * (self.k + 1) // 2
         return 4 * self.PQ
 
     @property
+    def partial(self) -> int:
+        """float32 partials a block writes a split (S > 1)."""
+        if self.form in ("mma", "short"):
+            return self.RT * self.NT8
+        return self.accumulators * THREADS
+
+    @property
     def registers(self) -> int:
-        """Registers a thread needs: its accumulators, in rows_kernel M's
-        row and the partner's too, and the rest."""
+        """Registers a thread needs: its accumulators, in rows_kernel and
+        mma_kernel M's rows and the partner's (or its A fragments) too,
+        and the rest."""
+        if self.form in ("mma", "short"):
+            return self.accumulators + 2 * self.k + 32 + REG_BASE
         extra = 2 * self.k if self.PQ == 0 else 0
         return self.accumulators + extra + REG_BASE
 
@@ -122,6 +179,33 @@ def _smem(RT, L, TQ, qy, smq, k) -> tuple:
     return stage, stage + 16 * RT * smq + 4 * 4 * TQ + ints
 
 
+def _mma_stage(RW: int) -> int:
+    """mma_kernel's partners a stage: 16 a partner warp, two groups of 16
+    a warp where the warps split the rows (RW = MMA_WARPS)."""
+    KW = MMA_WARPS // RW
+    return 16 * KW * (2 if KW == 1 else 1)
+
+
+def _mma_floats(k: int, RW: int) -> int:
+    """mma_kernel's shared memory in floats (csrc/tables.cu's
+    mma_layout): STAGES slots of X and W (RT rows of L) and of O's rows
+    (L x k), the stage's [O | Q] in TF32 halves (2 x NT8 / 8 n-blocks x
+    L / 4 core matrices, CORE floats apart); after the loop the block's
+    partials (KW RT rows, NT8 + 1 apart) and M's rows in the same space;
+    the flags, one int, the ring's mbarriers. Three blocks an SM at k=10
+    (its 228 KB, less 1 KB a block): a larger ring or layout took
+    4 x 5000 x 2000 A from 0.176 to 0.20 ms (NVIDIA H100 80GB HBM3, 700
+    W; kernel_times.py --tables)."""
+    kp = k * (k + 1) // 2
+    nt8 = 8 * (-(-k // 8) + -(-kp // 8))
+    KW = MMA_WARPS // RW
+    RT, L = 16 * RW, _mma_stage(RW)
+    staging = (2 * STAGES * RT * L + STAGES * L * k
+               + 2 * (nt8 // 8) * (L // 4) * CORE)
+    flags = max(staging, KW * RT * (nt8 + 1) + RT * k)  # and M's rows
+    return (flags + 2 * k + 2) // 2 * 2 + 2 * STAGES  # and the mbarriers
+
+
 @functools.lru_cache(maxsize=256)
 def tables_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
     """The plan of one sampler's call at rows R, partners m, k patterns
@@ -132,6 +216,21 @@ def tables_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
                          f"n_sm={n_sm}")
     qy = -(-k // 4)
     nq = qy + -(-(k * (k + 1) // 2) // 4)
+    if k <= ROWS_MAX_K and m >= MMA_MIN_M and R >= MMA_MIN_R:  # mma_kernel
+        RW = 1 if R <= 16 else 2 if R <= 32 else MMA_WARPS
+        RT, L = 16 * RW, _mma_stage(RW)
+        row_tiles = -(-R // RT)
+        want = -(-FILL * n_sm // row_tiles)
+        CH = L * -(-m // (want * L))
+        min_chunk = min(MMA_CHUNK, max(2 * L, MMA_CHUNK_ROWS * R))
+        CH = max(CH, L * -(-min_chunk // L))
+        CH = min(CH, L * -(-m // L))
+        S = -(-m // CH)
+        form = "short" if RW < MMA_WARPS else "mma"
+        return TablesPlan(R=R, m=m, k=k, qy=qy, nq=nq, G=1, PQ=0, RT=RT,
+                          TQ=0, acc_tiles=1, row_tiles=row_tiles, L=L,
+                          CH=CH, S=S, smq=0, smem=4 * _mma_floats(k, RW),
+                          form=form, RW=RW)
     if k <= ROWS_MAX_K:  # rows_kernel
         G, PQ, TQ, acc_tiles, smq = 1, 0, 0, 1, 0
     else:
@@ -164,7 +263,8 @@ def tables_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
     S = max(1, -(-m // CH))
     return TablesPlan(R=R, m=m, k=k, qy=qy, nq=nq, G=G, PQ=PQ, RT=RT, TQ=TQ,
                       acc_tiles=acc_tiles, row_tiles=row_tiles, L=L, CH=CH,
-                      S=S, smq=smq, smem=smem)
+                      S=S, smq=smq, smem=smem,
+                      form="rows" if PQ == 0 else "quads")
 
 
 def tables_counts(R: int, m: int, k: int, nch: int) -> tuple:
@@ -179,12 +279,103 @@ def tables_counts(R: int, m: int, k: int, nch: int) -> tuple:
     return n_bytes, n_ops
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 fraction bits) as cvt.rna.tf32.f32
+    does: to nearest, ties away from zero; what is not finite stays."""
+    bits = x.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), r, x)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """x = big + small, both TF32 (mma_kernel's 3xTF32 split)."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def _mma_products(a, b):
+    """One n-tile's six tensor-core products over a group of 16 partners
+    (..., rows, 16) x (..., 16, cols), as mma_kernel chains them: for each
+    k-step of 8 partners small.big, big.small, big.big, each a float64 sum
+    rounded to float32 as one mma.sync's float32 result, from zero."""
+    (ab, as_), (bb, bs) = tf32_split(a), tf32_split(b)
+    d = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for k0 in (0, 8):
+        s = slice(k0, k0 + 8)
+        for x, y in ((as_, bb), (ab, bs), (ab, bb)):
+            d = (x[..., s].double() @ y[..., s, :].double()
+                 + d.double()).float()
+    return d
+
+
+def tables_tf32(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
+                other: torch.Tensor, n_sm: int = 132) -> tuple:
+    """(Y, SQ, Z, col_nz) as mma_kernel forms them, emulated on float32
+    CPU tensors (..., R, m), (..., R, m), (..., R, k), (..., m, k) of one
+    leading shape: [O | Q] with Q[i, (c, c')] = O_c O_c', the 3xTF32
+    products of each group of 16 partners (_mma_products, whose float32
+    rounding inside a product stands for the tensor core's) of X W with O
+    and of W with Q, added in float32 to a warp's sums, the warps of a
+    block in warp order and the splits in split order, as
+    tables_plan(R, m, k, n_sm) says; then Y = (X W) O - M Z, M Z by an
+    fmaf chain over c'. The CPU tests hold it to the JAX package; no path
+    runs it."""
+    R, m = D.shape[-2:]
+    k = M.shape[-1]
+    plan = tables_plan(R, m, k, n_sm)
+    if plan.form not in ("mma", "short"):
+        raise ValueError(f"no tensor-core form at R={R}, m={m}, k={k}")
+    f32 = torch.float32
+    XW = D * invS2
+    pairs = [(c, c2) for c in range(k) for c2 in range(c, k)]
+    Q = torch.stack([other[..., c] * other[..., c2] for c, c2 in pairs], -1)
+    parts = []
+    for lo, hi in plan.splits():
+        warps = [None] * plan.KW
+        for q, g0 in enumerate(range(lo, hi, 16)):
+            g1 = min(g0 + 16, hi)
+            pad = (0, 16 - (g1 - g0))
+
+            def rows(x):
+                return torch.nn.functional.pad(x[..., g0:g1], pad)
+
+            def cols(x):
+                return torch.nn.functional.pad(x[..., g0:g1, :], (0, 0) + pad)
+
+            d = torch.cat([_mma_products(rows(XW), cols(other)),
+                           _mma_products(rows(invS2), cols(Q))], -1)
+            w = q % plan.KW
+            warps[w] = d if warps[w] is None else warps[w] + d
+        block = None
+        for w in warps:
+            if w is not None:
+                block = w if block is None else block + w
+        if block is None:
+            block = torch.zeros(D.shape[:-1] + (k + len(pairs),), dtype=f32)
+        parts.append(block)
+    total = parts[0]
+    for x in parts[1:]:
+        total = total + x
+    Z = torch.empty(D.shape[:-1] + (k, k), dtype=f32)
+    for p, (c, c2) in enumerate(pairs):
+        Z[..., c, c2] = total[..., k + p]
+        Z[..., c2, c] = total[..., k + p]
+    mz = torch.zeros(D.shape[:-1] + (k,), dtype=f32)
+    for c2 in range(k):  # fmaf: the product exact, one rounding
+        mz = (M[..., c2:c2 + 1].double() * Z[..., c2, :].double()
+              + mz.double()).to(f32)
+    Y = total[..., :k] - mz
+    SQ = torch.diagonal(Z, dim1=-2, dim2=-1).contiguous()
+    col_nz = (other > 0).any(-2) & ~torch.isnan(other).any(-2)
+    return Y, SQ, Z.reshape(D.shape[:-2] + (R * k, k)), col_nz
+
+
 def build() -> tuple:
     """Compile csrc/tables.cu and load it: (library, report)."""
     lib, report = cuda_build.load("tables")
     fn = lib.cogaps_tables_launch
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [i] * 13 + [p, ll] * 4 + [p] * 8
+    fn.argtypes = [i] * 15 + [p, ll] * 4 + [p] * 8
     fn.restype = i
     return lib, report
 
@@ -243,16 +434,17 @@ def dense_tables(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
     tiles = plan.row_tiles * plan.acc_tiles
     part = flags = counters = None
     if plan.S > 1:
-        part = torch.empty(nch * tiles * plan.S * plan.accumulators
-                           * THREADS, dtype=f32, device=dev)
+        part = torch.empty(nch * tiles * plan.S * plan.partial,
+                           dtype=f32, device=dev)
         flags = torch.empty(nch * plan.S * 2 * k, dtype=torch.int32,
                             device=dev)
         counters = _counters(dev, nch * tiles)
     lib, _ = build()
     with torch.cuda.device(dev):
         err = lib.cogaps_tables_launch(
-            nch, R, m, k, plan.G, plan.PQ, plan.TQ, plan.acc_tiles, plan.S,
-            plan.CH, plan.L, plan.smq, plan.smem,
+            nch, R, m, k, min(FORMS.index(plan.form), 2), plan.G, plan.PQ,
+            plan.TQ, plan.acc_tiles, plan.S, plan.CH, plan.L, plan.smq,
+            plan.RW, plan.smem,
             D.data_ptr(), strides[0], invS2.data_ptr(), strides[1],
             M.data_ptr(), strides[2], other.data_ptr(), strides[3],
             Y.data_ptr(), SQ.data_ptr(), Z.data_ptr(), col_nz.data_ptr(),

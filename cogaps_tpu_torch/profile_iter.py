@@ -59,7 +59,7 @@ def kernel_class(name: str) -> str:
         return "sweep_kernel"
     if re.search(r"\bspan_kernel\(", name):
         return "span_kernel"
-    if re.search(r"\b(rows|quads)_kernel<\d+>\(", name):  # csrc/tables.cu
+    if re.search(r"\b(rows|quads|mma)_kernel<\d+>\(", name):  # tables.cu
         return "tables_kernel"
     if _MATMUL.search(name):
         return "matmuls"

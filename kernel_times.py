@@ -2,7 +2,8 @@
 checkouts of the package in one run.
 
     python3 kernel_times.py [--root DIR] [--placements | --profile |
-                             --golden N | --quads | --chisq] [--out FILE]
+                             --golden N | --quads | --tables | --chisq]
+                            [--out FILE]
 
 times the cogaps_tpu_torch package found in DIR (default: the checkout
 holding this file), built from DIR's sources, on the cases of
@@ -52,12 +53,22 @@ of the weakest one, of the plateau and of meanChiSq, and between the
 two, Fisher's exact test of the pass rates and Mann-Whitney U tests of
 the distributions (scipy.stats).
 
-With --quads it times instead the tables kernel's two forms at k=10 on
+With --quads it times instead the tables kernel's plan at k=10 on
 chip_smoke's 4 x 5000 x 2000 and 16 x 20000 x 100 cases, A and P:
-rows_kernel<10> (ops/tables_cuda.tables_plan's choice) and
-quads_kernel<PQ> (its plan for k above ROWS_MAX_K, forced), in turns
-(rows, quads, quads, rows): the stream's ms a call, events' ms, the
-plan and the worst error against the float64 tables.
+ops/tables_cuda.tables_plan's choice and quads_kernel<PQ> (its plan for
+k above ROWS_MAX_K, forced), in turns (plan, quads, quads, plan): the
+stream's ms a call, events' ms, the plan and the worst error against
+the float64 tables.
+
+With --tables it times instead the per-call tables kernel
+(models/dense.tables, csrc/tables.cu) at chip_smoke's TABLES_CASES: per
+case the stream's ms a call (chip_smoke.stream_ms) and the host's, events'
+ms, the bound (tables_counts) and bound / stream ms, the worst error
+against the float64 tables over the summed |terms| and whether every
+entry is within 1e-5 of them, the launches a call and the plan's form;
+with the parent's package as DIR, the parent kernel at the same inputs.
+Optional overrides of this checkout's plan constants (name=value,
+--plan), to time other chunks.
 
 With --chisq it times instead the dense chi^2 (models/dense.
 chisq_from_state): per call at 16 x 20000 x 100 k=10, 4 x 5000 x 2000
@@ -375,6 +386,47 @@ def quads_times(cs, device) -> list:
     return out
 
 
+def tables_times(cs, device, overrides=()) -> list:
+    """The root's tables kernel at chip_smoke's TABLES_CASES (see the
+    module's docstring)."""
+    import torch
+    from cogaps_tpu_torch.models import dense
+    from cogaps_tpu_torch.ops import cuda_build, tables_cuda
+    from cogaps_tpu_torch.probes import bound_ms
+    for item in overrides:
+        name, value = item.split("=")
+        setattr(tables_cuda, name, int(value))
+    tables_cuda.tables_plan.cache_clear()
+    n_sm = cuda_build.sm_count(device.index or 0)
+    out = []
+    for i, (name, R, m, k, nch) in enumerate(cs.TABLES_CASES):
+        args = cs.tables_inputs(R, m, k, nch, 100 + i, device)
+        before = tables_cuda.dense_tables.launches
+        cache, phase = dense.tables(*args)
+        launched = tables_cuda.dense_tables.launches - before
+        ec, ep = dense.exact_tables(*args)
+        err, ok = cs.tables_errors((cache.Y, phase.SQ, phase.Z),
+                                   (ec.Y, ep.SQ, ep.Z),
+                                   cs.tables_terms(*args))
+        ok = ok and torch.equal(phase.col_nz, ep.col_nz)
+        del cache, phase, ec, ep
+        dev, host = cs.stream_ms(lambda: dense.tables(*args))
+        ev = cs.time_calls(lambda: dense.tables(*args), 20)
+        bound, by = bound_ms(*tables_cuda.tables_counts(R, m, k, nch))
+        plan = tables_cuda.tables_plan(R, m, k, n_sm)
+        out.append({"case": name, "stream_ms": dev, "host_ms": host,
+                    "events_ms": ev, "bound_ms": bound, "bound_by": by,
+                    "share": bound / dev, "worst_error": err,
+                    "within_1e-5": ok, "launches": launched,
+                    "form": getattr(plan, "form",
+                                    "rows" if plan.PQ == 0 else "quads"),
+                    "plan": plan._asdict()})
+        print(json.dumps(out[-1]), flush=True)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def chisq_batched(D, invS2, M_a, M_p):
     """chi^2 by one product and one sum batched over the chains."""
     import torch
@@ -494,6 +546,10 @@ def main() -> int:
     ap.add_argument("--quads", action="store_true",
                     help="time rows_kernel against quads_kernel at k=10 "
                          "instead")
+    ap.add_argument("--tables", action="store_true",
+                    help="time the tables kernel at TABLES_CASES instead")
+    ap.add_argument("--plan", nargs="*", default=(), metavar="NAME=VALUE",
+                    help="with --tables: plan constants to override")
     ap.add_argument("--chisq", action="store_true",
                     help="time chi^2 calls and runs with a chi^2 history "
                          "instead")
@@ -513,7 +569,8 @@ def main() -> int:
     from cogaps_tpu_torch.bench_harness import synthetic_sparse
     device = torch.device("cuda")
     t0 = time.perf_counter()
-    if args.profile or args.golden or args.quads or args.chisq:
+    if (args.profile or args.golden or args.quads or args.chisq
+            or args.tables):
         record = {"root": root, "card": cs.nvidia_smi()}
         if args.profile:
             record["profile"] = profile_times(device)
@@ -522,6 +579,8 @@ def main() -> int:
             record["golden_summary"] = golden_summary(record["golden"])
         elif args.quads:
             record["quads"] = quads_times(cs, device)
+        elif args.tables:
+            record["tables"] = tables_times(cs, device, args.plan)
         else:
             record["chisq"] = chisq_times(cs, device)
         record["seconds"] = time.perf_counter() - t0

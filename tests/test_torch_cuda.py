@@ -1395,27 +1395,40 @@ def _tables_errors(got, exact, terms):
     return worst, ok
 
 
-TABLES_SHAPES = {  # (R, m, k, nch)
-    "gist-A-x1": (1363, 9, 7, 1), "gist-P-x1": (9, 1363, 7, 1),
-    "gist-A-x16": (1363, 9, 7, 16), "gist-P-x16": (9, 1363, 7, 16),
-    "subsets-A": (500, 40, 5, 4), "subsets-P": (40, 500, 5, 4),
-    "5000x2000-A": (5000, 2000, 10, 4), "5000x2000-P": (2000, 5000, 10, 4),
-    "20000x100-P-x2": (100, 20000, 10, 2),
-    "k1": (300, 777, 1, 3), "k12-split": (200, 3000, 12, 2),
-    "k13": (500, 700, 13, 2), "k25": (300, 777, 25, 2),
-    "k50": (40, 300, 50, 2), "m1": (50, 1, 3, 2), "one-row": (1, 4000, 10, 3)}
+TABLES_SHAPES = {  # (R, m, k, nch, the plan's form)
+    "gist-A-x1": (1363, 9, 7, 1, "rows"),
+    "gist-P-x1": (9, 1363, 7, 1, "short"),
+    "gist-A-x16": (1363, 9, 7, 16, "rows"),
+    "gist-P-x16": (9, 1363, 7, 16, "short"),
+    "subsets-A": (500, 40, 5, 4, "rows"), "subsets-P": (40, 500, 5, 4, "mma"),
+    "5000x2000-A": (5000, 2000, 10, 4, "mma"),
+    "5000x2000-P": (2000, 5000, 10, 4, "mma"),
+    "20000x100-P-x2": (100, 20000, 10, 2, "mma"),
+    "k1": (300, 777, 1, 3, "mma"), "k12-split": (200, 3000, 12, 2, "mma"),
+    "k13": (500, 700, 13, 2, "quads"), "k25": (300, 777, 25, 2, "quads"),
+    "k50": (40, 300, 50, 2, "quads"), "m1": (50, 1, 3, 2, "rows"),
+    "one-row": (1, 4000, 10, 3, "rows"),
+    "modsim-A": (25, 20, 3, 1, "rows"), "modsim-P": (20, 25, 3, 1, "rows"),
+    "short-R17-split": (17, 999, 6, 3, "short"),
+    "m64": (70, 64, 4, 2, "mma"),
+    "subsets-5005-P": (100, 5005, 10, 2, "mma")}
 
 
 @pytest.mark.parametrize("shape", list(TABLES_SHAPES.values()),
                          ids=list(TABLES_SHAPES))
 def test_dense_tables_kernel_matches_plain(cuda_device, shape):
-    """dense.tables on the card (the tables kernel, one launch) against
-    exact_tables (float64 sums rounded once): every entry of Y, SQ and Z
-    within 1e-5 of its summed |terms|, no worse than twice the plain cuBLAS
-    tables' own worst error on the same inputs (m > 1), col_nz equal, SQ
-    Z's diagonal and Z symmetric; the same bits again."""
-    from cogaps_tpu_torch.ops import tables_cuda
-    R, m, k, nch = shape
+    """dense.tables on the card (the tables kernel, one launch, in the
+    plan's form: mma_kernel's tensor-core and short-row forms, some with
+    splits, rows_kernel, quads_kernel) against exact_tables (float64 sums
+    rounded once): every entry of Y, SQ and Z within 1e-5 of its summed
+    |terms|, no worse than twice the plain cuBLAS tables' own worst error
+    on the same inputs (m > 1), col_nz equal, SQ Z's diagonal and Z
+    symmetric; the same bits again."""
+    from cogaps_tpu_torch.ops import cuda_build, tables_cuda
+    R, m, k, nch, form = shape
+    plan = tables_cuda.tables_plan(R, m, k, cuda_build.sm_count(
+        cuda_device.index or 0))
+    assert plan.form == form
     args = _tables_case(cuda_device, R, m, k, nch, seed=R + m + k)
     before = tables_cuda.dense_tables.launches
     cache, phase = dense.tables(*args)
@@ -1442,15 +1455,20 @@ def test_dense_tables_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.parametrize("shape", [(500, 40, 5), (40, 500, 5),
-                                   (100, 20000, 10), (1363, 9, 7)],
+                                   (100, 20000, 10), (1363, 9, 7),
+                                   (9, 1363, 7), (25, 20, 3),
+                                   (300, 777, 13)],
                          ids=["subsets-A", "subsets-P", "20000x100-P",
-                              "gist-A"])
+                              "gist-A", "gist-P", "modsim-A", "k13"])
 def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
                                                           shape):
     """A chain's tables are the same bits alone, as one of 4 and as one of
     16 (first, middle and last index), as a slice of the 16 (a view at
     its offset in them), and with a partner factor shared by every chain
-    (a leading dimension of one)."""
+    (a leading dimension of one): in each form of the plan (the
+    tensor-core form, with splits at subsets-P and 20000x100-P; the
+    short-row form, with splits at gist-P; rows_kernel at subsets-A,
+    gist-A and modsim-A; quads_kernel at k13)."""
     R, m, k = shape
     D, inv, M, O = _tables_case(cuda_device, R, m, k, 16, seed=7)
 

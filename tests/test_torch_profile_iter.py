@@ -32,6 +32,8 @@ def test_busy_ns_is_the_union(intervals, expected):
      "::Args)", "tables_kernel"),
     ("void (anonymous namespace)::quads_kernel<17>((anonymous namespace)"
      "::Args)", "tables_kernel"),
+    ("void (anonymous namespace)::mma_kernel<10>((anonymous namespace)"
+     "::Args)", "tables_kernel"),
     ("void gemmSN_NN_kernel<float, 128, 2, 4, 8, 5, 4, false>", "matmuls"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x32", "matmuls"),
     ("cutlass_80_simt_sgemm_128x64_8x5_nn_align1", "matmuls"),

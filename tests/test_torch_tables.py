@@ -5,16 +5,20 @@ F4's row split (probes/mosaic.claim_plan).
 The kernel (csrc/tables.cu) runs only on the card, where
 tests/test_torch_cuda.py holds it to its plain version. Here: the plan
 fixes every chain's summation order from (R, m, k) and the SM count
-alone, its contraction chunks cover [0, m) once and in order, its quads
+alone, its contraction chunks cover [0, m) once and in order, its row
+tiles, stages and warps cover every (row, partner) pair once, its quads
 cover every table entry, and its shared memory and registers fit an H100
 block, at the shapes the per-call route runs (GIST, 5000 x 2000, 20000 x
-100, a 2500 x 2000 sharded block) and at edges of m and k; tables_counts
-on a case counted by hand; the dispatcher gives CPU tensors of either
-float type to the plain version without a launch, raises for anything
-the kernel does not take, and the plain version, with a leading chain
-dimension, matches the JAX package's make_phase and rebuild_cache to
-float32 rounding (1e-5 of the summed terms' magnitude; for Y of
-(|D| + |M| |O|^T) invS2 against |O|, since Y cancels)."""
+100, a 2500 x 2000 sharded block, phase 11's 5005 x 100 subsets, modsim)
+and at edges of m and k; it picks the tensor-core form, the short-row
+form, rows_kernel or quads_kernel as expected; tables_counts on a case
+counted by hand; the dispatcher gives CPU tensors of either float type
+to the plain version without a launch, raises for anything the kernel
+does not take, and the plain version and the emulation of mma_kernel's
+3xTF32 arithmetic (tables_tf32, its TF32 rounding checked by hand), with
+a leading chain dimension, match the JAX package's make_phase and
+rebuild_cache to float32 rounding (1e-5 of the summed terms' magnitude;
+for Y of (|D| + |M| |O|^T) invS2 against |O|, since Y cancels)."""
 
 import inspect
 
@@ -42,7 +46,21 @@ PLAN_SHAPES = {  # (R, m, k): sampler A rows are genes, P's samples
     "k1": (300, 777, 1), "k3": (300, 777, 3), "k7": (300, 777, 7),
     "k10": (300, 777, 10), "k25": (300, 777, 25),
     "k25-few-rows": (3, 5000, 25), "k50": (40, 30, 50),
+    "subsets-A": (5005, 100, 10), "subsets-P": (100, 5005, 10),
+    "modsim-A": (25, 20, 3), "modsim-P": (20, 25, 3),
+    "m16": (70, 16, 4), "R17": (17, 999, 6), "R33": (33, 4001, 8),
+    "k12": (200, 3000, 12),
 }
+# the form tables_plan takes: mma_kernel's tensor-core ("mma") and
+# short-row ("short") forms, rows_kernel, quads_kernel
+PLAN_FORMS = {
+    "gist-A": "rows", "gist-P": "short", "5000x2000-A": "mma",
+    "5000x2000-P": "mma", "20000x100-A": "mma", "20000x100-P": "mma",
+    "block-2500x2000-A": "mma", "block-2500x2000-P": "mma", "m1": "rows",
+    "k1": "mma", "k12": "mma", "k25": "quads", "k25-few-rows": "quads",
+    "k50": "quads", "subsets-A": "mma", "subsets-P": "mma",
+    "modsim-A": "rows", "modsim-P": "rows", "m16": "rows",
+    "R17": "short", "R33": "mma"}
 
 
 def test_plan_takes_no_chain_count():
@@ -70,10 +88,22 @@ def test_plan_splits_cover_the_contraction_once_in_order(shape):
 def test_plan_fits_a_block_and_covers_every_entry(shape):
     R, m, k = shape
     plan = tables_cuda.tables_plan(R, m, k, H100_SMS)
-    assert plan.smem <= 227 * 1024 and plan.registers <= 255
-    assert plan.G * plan.RT == tables_cuda.THREADS
+    assert plan.smem <= tables_cuda.SMEM_MAX == 232_448
+    assert plan.registers <= 255
     assert plan.row_tiles * plan.RT >= R > (plan.row_tiles - 1) * plan.RT
     assert plan.nq == -(-k // 4) + -(-(k * (k + 1) // 2) // 4)
+    if plan.form in ("mma", "short"):  # four warps, RW x KW
+        assert plan.RW * plan.KW == tables_cuda.MMA_WARPS
+        assert plan.RT == 16 * plan.RW
+        assert plan.L == tables_cuda._mma_stage(plan.RW) >= 16 * plan.KW
+        assert plan.CH % plan.L == 0 and plan.G == 1 and plan.PQ == 0
+        assert plan.smem == 4 * tables_cuda._mma_floats(k, plan.RW)
+        kp = k * (k + 1) // 2  # n-tiles of 8 cover Y's k and Z's kp
+        assert plan.NT8 % 8 == 0 and plan.NT8 - 8 < k + kp + 8
+        assert plan.NT8 >= 8 * -(-k // 8) + kp
+        assert plan.partial == plan.RT * plan.NT8
+        return
+    assert plan.G * plan.RT == tables_cuda.THREADS
     if plan.PQ == 0:  # rows_kernel: a thread a row, every entry
         assert plan.G == 1 and plan.acc_tiles == 1
         assert k <= tables_cuda.ROWS_MAX_K
@@ -92,30 +122,74 @@ def test_plan_fits_a_block_and_covers_every_entry(shape):
     ((9, 1363, 13), False), ((300, 777, 25), False)],
     ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x))
 def test_plan_takes_the_rows_kernel_up_to_k12(shape, rows):
-    """rows_kernel (PQ 0) wherever k <= 12; quads_kernel, its quads spread
-    over a row's threads where the rows are few, for a larger k."""
+    """A row's accumulators at once (PQ 0: mma_kernel, or rows_kernel
+    below MMA_MIN_M partners) wherever k <= 12; quads_kernel, its quads spread over a
+    row's threads where the rows are few, for a larger k."""
     plan = tables_cuda.tables_plan(*shape, H100_SMS)
     assert (plan.PQ == 0) is rows
     if not rows and shape[0] < 64:
         assert plan.G > 1
 
 
-@pytest.mark.parametrize("R,chunk", [(9, 64), (32, 128), (64, 256),
-                                     (100, 256)])
+@pytest.mark.parametrize("R,chunk", [(9, 128), (32, 384), (40, 480),
+                                     (64, 512), (100, 512)])
 def test_plan_chunks_shorter_for_fewer_rows(R, chunk):
     """A long contraction's chunk where one row tile cannot fill the
-    card: 4 R partners, from 64 to 256."""
+    card (mma_kernel): 12 R partners, from two stages up to MMA_CHUNK."""
     plan = tables_cuda.tables_plan(R, 4000, 7, H100_SMS)
     assert plan.CH == chunk and plan.S == -(-4000 // chunk)
 
 
 def test_plan_fills_the_card_where_one_chain_can():
-    """Few rows and a long contraction: the chunks give the blocks (P at
-    20000 x 100), and one chunk where the rows alone do (A)."""
+    """Few rows and a long contraction: the chunks give the blocks (9 x
+    20000, the short-row form), up to chunks of MMA_CHUNK where a split's
+    partials are 64 rows wide (P at 20000 x 100: its 16 chains fill the
+    card), and one chunk where the rows alone do (A)."""
+    short = tables_cuda.tables_plan(9, 20000, 7, H100_SMS)
+    assert short.blocks >= H100_SMS and short.S == short.blocks
     p = tables_cuda.tables_plan(100, 20000, 10, H100_SMS)
-    assert p.blocks >= 64 and p.S == p.blocks
+    assert p.CH == tables_cuda.MMA_CHUNK and p.S == -(-20000 // p.CH)
+    assert 16 * p.blocks >= 2 * H100_SMS
     a = tables_cuda.tables_plan(20000, 100, 10, H100_SMS)
     assert a.S == 1 and a.blocks >= H100_SMS
+
+
+@pytest.mark.parametrize("name", list(PLAN_FORMS))
+def test_plan_picks_the_expected_form(name):
+    """The tensor-core form for 33 rows and more, the short-row form
+    (partners split over the warps) below, rows_kernel where the
+    contraction is shorter than MMA_MIN_M partners (the accuracy gate),
+    quads_kernel above k = 12."""
+    plan = tables_cuda.tables_plan(*PLAN_SHAPES[name], H100_SMS)
+    assert plan.form == PLAN_FORMS[name]
+    assert (plan.KW > 1) == (plan.form == "short")
+
+
+def _coverage(plan):
+    """How many times the plan's blocks, stages and warps reach each
+    (row, partner) pair."""
+    hits = np.zeros((plan.R, plan.m), dtype=np.int32)
+    mma = plan.form in ("mma", "short")
+    for tile in range(plan.row_tiles):
+        for lo, hi in plan.splits():
+            if not mma:
+                hits[tile * plan.RT:(tile + 1) * plan.RT, lo:hi] += 1
+                continue
+            for i0 in range(lo, hi, plan.L):
+                for rw in range(plan.RW):
+                    r0 = tile * plan.RT + 16 * rw
+                    for kw in range(plan.KW):
+                        for grp in range(kw, plan.L // 16, plan.KW):
+                            g0 = i0 + 16 * grp
+                            hits[r0:r0 + 16, g0:min(g0 + 16, hi)] += 1
+    return hits
+
+
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES.values()),
+                         ids=list(PLAN_SHAPES))
+def test_plan_covers_every_row_and_partner_once(shape):
+    plan = tables_cuda.tables_plan(*shape, H100_SMS)
+    assert (_coverage(plan) == 1).all()
 
 
 def test_tables_counts_by_hand():
@@ -198,6 +272,69 @@ def test_plain_tables_match_jax_per_chain(shape):
             assert np.all(np.abs(got.astype(np.float64) - want)
                           <= 1e-5 * terms + 1e-30)
         np.testing.assert_array_equal(phase.col_nz[c].numpy(),
+                                      np.asarray(jp.col_nz))
+
+
+def test_tf32_round_is_cvt_rna():
+    """To 10 fraction bits, to nearest, ties away from zero, in either
+    sign; what is not finite stays; big + small holds x to 2^-22 of it."""
+    one = 1.0
+    tie, below = one + 2.0 ** -11, one + 2.0 ** -11 - 2.0 ** -23
+    x = torch.tensor([tie, below, -tie, 3.0, 0.0, float("inf"),
+                      float("nan"), 1.0 + 3 * 2.0 ** -12], dtype=torch.float32)
+    got = tables_cuda.tf32_round(x)
+    want = [one + 2.0 ** -10, one, -(one + 2.0 ** -10), 3.0, 0.0,
+            float("inf")]
+    assert got[:6].tolist() == want and torch.isnan(got[6])
+    assert got[7].item() == one + 2.0 ** -10
+    assert (got[:6].view(torch.int32) & 0x1FFF == 0).all()
+    v = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1e3, 1000).astype(np.float32))
+    big, small = tables_cuda.tf32_split(v)
+    assert torch.equal(tables_cuda.tf32_round(big), big)
+    assert torch.equal(tables_cuda.tf32_round(small), small)
+    assert ((big.double() + small.double() - v.double()).abs()
+            <= 2.0 ** -22 * v.double().abs()).all()
+
+
+@pytest.mark.parametrize("shape", [(20, 96, 3), (17, 999, 6), (9, 1363, 7),
+                                   (40, 300, 5), (100, 2000, 4)],
+                         ids=["short-R20", "short-R17-split", "gist-P",
+                              "mma-k5", "mma-split"])
+def test_tf32_tables_match_jax_per_chain(shape):
+    """mma_kernel's arithmetic (tables_tf32: the 3xTF32 products, the sums
+    in the plan's order) on two chains at once, each chain against the
+    JAX package's make_phase and rebuild_cache, and against the float64
+    tables, each entry within 1e-5 of its summed |terms|; the plan's
+    form, with splits at gist-P and mma-split."""
+    R, m, k = shape
+    plan = tables_cuda.tables_plan(R, m, k, H100_SMS)
+    assert plan.form in ("mma", "short")
+    assert (plan.S > 1) == (shape in ((17, 999, 6), (9, 1363, 7),
+                                      (100, 2000, 4)))
+    D, inv, M, O = _tables_inputs(R, m, k, 2, seed=R + m)
+    Y, SQ, Z, col_nz = tables_cuda.tables_tf32(
+        *(torch.from_numpy(a) for a in (D, inv, M, O)))
+    ec, ep = dense.tables_plain(*(torch.from_numpy(a).double()
+                                  for a in (D, inv, M, O)))
+    for c in range(2):
+        jp = jdense.make_phase(jnp.asarray(inv[c]), jnp.asarray(O[c]))
+        jY = np.asarray(jdense.rebuild_cache(
+            jnp.asarray(D[c]), jnp.asarray(inv[c]), jnp.asarray(M[c]),
+            jnp.asarray(O[c])).Y)
+        d, w, mm, o = (x[c].astype(np.float64) for x in (D, inv, M, O))
+        y_terms = ((np.abs(d) + mm @ o.T) * w) @ o
+        z_terms = (w @ (o[:, :, None] * o[:, None, :]).reshape(m, k * k)
+                   ).reshape(R * k, k)
+        for got, want, exact, terms in (
+                (Y[c], jY, ec.Y[c], y_terms),
+                (SQ[c], np.asarray(jp.SQ), ep.SQ[c], w @ (o * o)),
+                (Z[c], np.asarray(jp.Z), ep.Z[c], z_terms)):
+            got = got.numpy().astype(np.float64)
+            assert np.all(np.abs(got - want) <= 1e-5 * terms + 1e-30)
+            assert np.all(np.abs(got - exact.numpy())
+                          <= 1e-5 * terms + 1e-30)
+        np.testing.assert_array_equal(col_nz[c].numpy(),
                                       np.asarray(jp.col_nz))
 
 
