@@ -36,10 +36,12 @@
 //     L partners holds X, W and O's rows: in the tensor-core form one
 //     thread fills a stage with two TMA tensor copies (zeros past m and
 //     R) and a bulk copy of O's rows, counted on the slot's mbarrier;
-//     else every thread by cp.async. Per stage each warp forms its
-//     n-blocks of [O | Q] for the stage's partners, split into TF32
-//     halves, as core matrices of 8 columns x 4 partners (what ldmatrix
-//     and wgmma read); partners sit permuted inside each group of 16
+//     else every thread by cp.async. Per stage each warp forms a
+//     quarter of [O | Q]'s columns for the stage's partners (the padding
+//     columns zeroed once), split into TF32 halves, as core matrices of
+//     8 columns x 4 partners (what ldmatrix and wgmma read); M's rows are
+//     loaded at the start, for the end. Partners sit permuted inside
+//     each group of 16
 //     (partner 4t + e at place 4e + t), so that a thread's float4 of X
 //     and W is its two k-steps' A fragments. A group's six products a
 //     product start from zero and are then added to the accumulators in
@@ -1004,15 +1006,17 @@ __device__ __forceinline__ void group_wgmma(
       acc[NY + j][e] = __fadd_rn(acc[NY + j][e], dz[4 * j + e]);
 }
 
-// The stage's [O | Q] in TF32 halves: warp W the n-blocks W, W + 4, ...,
-// a lane a partner place (its O row in registers, every column's (c, c')
+// The stage's [O | Q] in TF32 halves, its padding columns left as the
+// kernel zeroed them: warp W a quarter of the k + k(k+1)/2 columns, a
+// lane a partner place (its O row in registers, every column's (c, c')
 // known once unrolled); col_nz's flags from Y's columns.
 template <int K, int W>
 __device__ __forceinline__ void form_b(uint32_t* sB, const float* o, int L,
                                        int half, int sbo, bool flag_block,
                                        int* sFlag, int lane) {
   using Sh = MmaShape<K>;
-  constexpr int NY = Sh::NY, NT = Sh::NT;
+  constexpr int NY = Sh::NY, NREAL = K + Sh::NP, C = (NREAL + 3) / 4;
+  constexpr int Q0 = W * C, Q1 = Q0 + C < NREAL ? Q0 + C : NREAL;
   for (int pos = lane; pos < L; pos += 32) {
     // place pos of a group of 16 holds partner 4 (pos % 4) + pos / 4
     const float* orow =
@@ -1022,28 +1026,23 @@ __device__ __forceinline__ void form_b(uint32_t* sB, const float* o, int L,
     for (int c = 0; c < K; ++c) ov[c] = orow[c];
     uint32_t* cell = sB + (pos >> 2) * kCM + (pos & 3);
 #pragma unroll
-    for (int nb = W; nb < NT; nb += 4) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int n = 8 * nb + r;
-        float v = 0.0f;
-        if (n < 8 * NY) {
-          if (n < K) {
-            v = ov[n < K ? n : 0];
-            if (flag_block) {
-              if (v > 0.0f) sFlag[n] = 1;
-              if (v != v) sFlag[K + n] = 1;
-            }
-          }
-        } else if (n - 8 * NY < Sh::NP) {
-          const int p = n - 8 * NY;
-          v = __fmul_rn(ov[pair_row(p, K)], ov[pair_col(p, K)]);
+    for (int q = Q0; q < Q1; ++q) {
+      const int n = q < K ? q : 8 * NY + q - K;  // Y's column, or a pair
+      float v;
+      if (q < K) {
+        v = ov[q < K ? q : 0];
+        if (flag_block) {
+          if (v > 0.0f) sFlag[q] = 1;
+          if (v != v) sFlag[K + q] = 1;
         }
-        uint32_t big, small;
-        tf32_split(v, big, small);
-        cell[nb * sbo + 4 * r] = big;
-        cell[half + nb * sbo + 4 * r] = small;
+      } else {
+        const int p = q - K;
+        v = __fmul_rn(ov[pair_row(p, K)], ov[pair_col(p, K)]);
       }
+      uint32_t big, small;
+      tf32_split(v, big, small);
+      cell[(n >> 3) * sbo + 4 * (n & 7)] = big;
+      cell[half + (n >> 3) * sbo + 4 * (n & 7)] = small;
     }
   }
 }
@@ -1082,6 +1081,25 @@ __global__ void __launch_bounds__(kThreads, 3)
   const float* O = a.O + chain * a.cO;
   const float* M = a.M + chain * a.cM;
   for (int c = tid; c < 2 * K; c += kThreads) sFlag[c] = 0;
+  // [O | Q]'s padding columns (Y's past k, Z's past its pairs): zeros,
+  // which no stage writes again
+  constexpr int YPAD = 8 * NY - K, NPAD = NT8 - K - Sh::NP;
+  for (int e = tid; e < NPAD * L; e += kThreads) {
+    const int j = e / L, pos = e - j * L;
+    const int n = j < YPAD ? K + j : 8 * NY + Sh::NP + j - YPAD;
+    const int off = (n >> 3) * sbo + (pos >> 2) * kCM + 4 * (n & 7) + (pos & 3);
+    sB[off] = 0u;
+    sB[half + off] = 0u;
+  }
+  // the tile's M rows, for Y = (X W) O - M Z at the end: loaded now,
+  // their latency behind the stages
+  const int nrows = min(RT, a.R - row0);  // the tile's rows in R
+  float mreg[(K + 1) / 2];  // RT x K over kThreads, RT <= 64
+#pragma unroll
+  for (int j = 0; j < (K + 1) / 2; ++j) {
+    const int e = tid + kThreads * j;
+    mreg[j] = e < nrows * K ? M[(size_t)row0 * K + e] : 0.0f;
+  }
 
   float acc[NT][4];
 #pragma unroll
@@ -1090,7 +1108,6 @@ __global__ void __launch_bounds__(kThreads, 3)
     for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
 
   const int n_sub = hi > lo ? (hi - lo + L - 1) / L : 0;
-  const int nrows = min(RT, a.R - row0);  // the tile's rows in R
   const bool bulk = a.vec == 2;
   uint64_t* sBar = reinterpret_cast<uint64_t*>(sm + ly.bar);
   if (bulk && tid == 0) {
@@ -1337,8 +1354,11 @@ __global__ void __launch_bounds__(kThreads, 3)
   // O[i,c] = sum_c' M[r,c'] Z[r,c',c], from the block's Z (fmaf over c'
   // ascending, then one subtraction); the tile's M rows staged first
   float* sM = sm + ly.m;
-  for (int e = tid; e < nrows * K; e += kThreads)
-    sM[e] = M[(size_t)row0 * K + e];
+#pragma unroll
+  for (int j = 0; j < (K + 1) / 2; ++j) {
+    const int e = tid + kThreads * j;
+    if (e < nrows * K) sM[e] = mreg[j];
+  }
   __syncthreads();
   float* Y = a.Y + rowg * K;
   float* SQ = a.SQ + rowg * K;
