@@ -227,9 +227,11 @@ that run the kernel, "launches_by_phase" each phase's count).
 """
 
 import collections
+import ctypes
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -252,6 +254,77 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its descendants (Linux
+    prctl(PR_SET_CHILD_SUBREAPER)): a process whose parent ends before it
+    (a spawned rank's helper, a compiler's child) becomes this process's
+    child, so stop_descendants() finds it."""
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def descendants() -> list:
+    """(pid, command line) of every live process below this one, read
+    from /proc."""
+    children = collections.defaultdict(list)
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the fields after the command's closing parenthesis: state, ppid
+        fields = stat[stat.rfind(")") + 2:].split()
+        if fields[0] != "Z":
+            children[int(fields[1])].append(int(entry))
+    found, todo = [], [os.getpid()]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode().strip()
+            except OSError:
+                cmd = "?"
+            found.append((pid, cmd))
+            todo.append(pid)
+    return found
+
+
+def stop_descendants(wait: float = 10.0) -> list:
+    """Stop every process this one started that still runs: first the
+    multiprocessing resource tracker that spawned processes start (it
+    lives until its parent ends, unless stopped), then any other
+    descendant by SIGTERM and, after `wait` seconds, SIGKILL. Reaps them,
+    and returns the command lines of those it had to signal."""
+    from multiprocessing import resource_tracker
+    tracker = getattr(resource_tracker, "_resource_tracker", None)
+    if getattr(tracker, "_pid", None) is not None and hasattr(tracker,
+                                                               "_stop"):
+        tracker._stop()
+    left = descendants()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid, _ in descendants():
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + wait
+        while time.monotonic() < deadline:
+            try:
+                while os.waitpid(-1, os.WNOHANG)[0] > 0:
+                    pass
+            except ChildProcessError:
+                pass
+            if not descendants():
+                break
+            time.sleep(0.05)
+    return [cmd for _, cmd in left]
 
 
 def gist_golden_mcs() -> float:
@@ -2911,4 +2984,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        rc = main()
+    finally:
+        stopped = stop_descendants()
+        if stopped:
+            print(f"stopped {len(stopped)} process(es) still running at the "
+                  f"end: {stopped}", file=sys.stderr, flush=True)
+        if descendants():
+            print("a process could not be stopped", file=sys.stderr,
+                  flush=True)
+    sys.exit(rc)
