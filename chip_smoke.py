@@ -78,8 +78,13 @@ Phases:
               cuBLAS tables' (its plain version and the library
               yardstick) both ways, the bound (tables_cuda.tables_counts)
               and the kernel's plan (its form: mma_kernel's tensor-core
-              or short-row form, rows_kernel or quads_kernel) and
-              ptxas's registers and spills;
+              or short-row form, in column tiles above k = 12
+              (mma_tiles_kernel), rows_kernel or quads_kernel) and
+              ptxas's registers and spills; the same at k=20 (4 x 5000
+              x 2000, 16 x 20000 x 100), k=50 (4 x 5000 x 2000) and
+              GIST x1 k=13, with the tensor-core bound
+              (tables_cuda.tables_tc_counts, TF32 at 495 TFLOP/s)
+              beside the float32 one;
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda,
               debug_checks=True): meanChiSq below 2x the golden GIST
               value, the kernel launched at least twice per iteration of
@@ -93,7 +98,9 @@ Phases:
   6 realistic — 4 chains of a synthetic 5000 x 2000 matrix (k=10), 100
               iterations per phase: a finite, falling chi^2 history;
               updates/s, peak device memory, tables launches (two an
-              iteration);
+              iteration); then the same data at k=20, 50 iterations per
+              phase, both samplers' tables in column tiles: the same
+              checks;
   7 sparse  — the iteration time of each sparse mode (dense, ell, xla)
               from one state of a 2000 x 10000 k=10 matrix with 87%
               structural zeros, then CoGAPS(sparse_optimization=True,
@@ -1281,7 +1288,16 @@ TABLES_CASES = (  # (name, rows R, partners m, k, chains): both samplers
     ("20000x2000 block P", 2000, 2500, 10, 1),
     ("phase 11 subsets A x4", 5005, 100, 10, 4),
     ("phase 11 subsets P x4", 100, 5005, 10, 4),
-    ("modsim A", 25, 20, 3, 1), ("modsim P", 20, 25, 3, 1))
+    ("modsim A", 25, 20, 3, 1), ("modsim P", 20, 25, 3, 1),
+    # above k = 12: single-cell and genome-wide runs ask for more patterns
+    # than GIST's 7
+    ("5000x2000 A x4 k=20", 5000, 2000, 20, 4),
+    ("5000x2000 P x4 k=20", 2000, 5000, 20, 4),
+    ("20000x100 A x16 k=20", 20000, 100, 20, 16),
+    ("20000x100 P x16 k=20", 100, 20000, 20, 16),
+    ("5000x2000 A x4 k=50", 5000, 2000, 50, 4),
+    ("5000x2000 P x4 k=50", 2000, 5000, 50, 4),
+    ("GIST A x1 k=13", 1363, 9, 13, 1), ("GIST P x1 k=13", 9, 1363, 13, 1))
 TABLES_HEADLINE = "5000x2000 A x4"
 
 
@@ -1342,7 +1358,7 @@ def phase_tables(device, report, card, reps=20):
     import torch
     from cogaps_tpu_torch.models import dense
     from cogaps_tpu_torch.ops import cuda_build, tables_cuda
-    from cogaps_tpu_torch.probes import bound_ms
+    from cogaps_tpu_torch.probes import H100_TF32_OPS_PER_S, bound_ms
     n_sm = cuda_build.sm_count(device.index or 0)
     rows, max_err, bad = {}, 0.0, []
     for i, (name, R, m, k, nch) in enumerate(TABLES_CASES):
@@ -1368,14 +1384,17 @@ def phase_tables(device, report, card, reps=20):
         plain_ms = time_calls(lambda: dense.tables_plain(*args), reps)
         plain_dev, _ = stream_ms(lambda: dense.tables_plain(*args))
         bound, by = bound_ms(*tables_cuda.tables_counts(R, m, k, nch))
+        tc, tc_by = bound_ms(*tables_cuda.tables_tc_counts(R, m, k, nch),
+                             ops_per_s=H100_TF32_OPS_PER_S)
         plan = tables_cuda.tables_plan(R, m, k, n_sm)
         rows[name] = (f"{nch} x ({R},{m}) k={k}", ms, plain_ms, bound, by,
-                      dev, plain_dev)
+                      dev, plain_dev, tc, tc_by)
         log(f"  tables {name} ({nch} x {R}x{m}, k={k}): kernel {ms:.4f} ms "
             f"(device {dev:.4f}, the host's {host:.4f}), plain cuBLAS "
-            f"tables {plain_ms:.4f} ms (device {plain_dev:.4f}), bound "
-            f"{bound:.4f} ms ({by}), "
-            f"bound/device {bound / dev:.3f}; worst |error|/terms against "
+            f"tables {plain_ms:.4f} ms (device {plain_dev:.4f}), float32 "
+            f"bound {bound:.4f} ms ({by}), bound/device {bound / dev:.3f}, "
+            f"tensor-core bound {tc:.4f} ms ({tc_by}), bound/device "
+            f"{tc / dev:.3f}; worst |error|/terms against "
             f"the float64 tables {err_k:.3g} (cuBLAS {err_p:.3g}), "
             f"max|kernel - cuBLAS| {diff:.3g}; plan {tables_form(plan)}"
             f" RT={plan.RT} S={plan.S} CH={plan.CH} L={plan.L}, "
@@ -1394,6 +1413,9 @@ def phase_tables(device, report, card, reps=20):
             for q in range(1, tables_cuda.ROWS_MAX_K + 1)}
     regs.update({f"quads_kernel<{q}>": ptxas_of(report, f"quads_kernelILi{q}E")
                  for q in tables_cuda.QUADS})
+    regs.update({f"mma_tiles_kernel<{q}>": ptxas_of(
+        report, f"mma_tiles_kernelILi{q}E")
+        for q in (tables_cuda.TILE_NT, 2 * tables_cuda.TILE_NT)})
     log(f"  tables kernels' ptxas (registers, bytes of spill stores): "
         f"{regs}")
     if bad:
@@ -1405,6 +1427,9 @@ def phase_tables(device, report, card, reps=20):
 
 def tables_form(plan):
     """The tables kernel a plan runs, as phase 3 prints it."""
+    if plan.form in ("mma", "short") and plan.NCT:
+        return (f"{plan.form}: mma_tiles_kernel<{plan.NCT}> RW={plan.RW} "
+                f"KW={plan.KW}, {plan.acc_tiles} column tiles of {plan.NC}")
     if plan.form in ("mma", "short"):
         return (f"{plan.form}: mma_kernel<{plan.k}> RW={plan.RW} "
                 f"KW={plan.KW}")
@@ -2723,7 +2748,6 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     data = stack_device_data(Ds, None, cfg, device)
-    del Ds
     eng = MultichainEngine(data, cfg, device)
     rand = PhiloxRandom([7 + c for c in range(4)], device)
     state, stats = eng.init_state(), eng.init_stats()
@@ -2748,6 +2772,48 @@ def main() -> int:
     if dense_by["6"] != 2 * 2 * 100:
         raise AssertionError(f"{dense_by['6']} tables launches, not two an "
                              f"iteration")
+    # the same data at k=20: both samplers' tables in column tiles
+    # (mma_tiles_kernel), the per-call route
+    del eng, data, state, stats
+    from cogaps_tpu_torch.ops import cuda_build
+    n_sm = cuda_build.sm_count(device.index or 0)
+    plans20 = [tables_cuda.tables_plan(R, m, 20, n_sm)
+               for R, m in ((5000, 2000), (2000, 5000))]
+    params = cogaps_tpu_torch.CogapsParams(
+        n_patterns=20, n_iterations=50, seed=7, output_frequency=10)
+    cfg = params.engine_config(5000, 2000)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = stack_device_data(Ds, None, cfg, device)
+    del Ds
+    eng = MultichainEngine(data, cfg, device)
+    rand = PhiloxRandom([7 + c for c in range(4)], device)
+    state, stats = eng.init_state(), eng.init_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tables_cuda.dense_tables.launches = 0
+    for ph in (EQUILIBRATION, SAMPLING):
+        state, stats = eng.run_phase(state, stats, rand, ph)
+    hist = stats.chisq_hist.cpu().numpy()  # waits for the device
+    t2 = time.perf_counter()
+    dense_by["6 (k=20)"] = tables_cuda.dense_tables.launches
+    ups = int(stats.upd.sum()) / (t2 - t1)
+    log(f"  4 chains x 5000x2000, k=20, 50+50 iterations: {ups:.1f} "
+        f"updates/s, {t2 - t1:.2f} s (+{t1 - t0:.2f} s set-up), peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; atoms"
+        f" A {state.atoms_a.n.tolist()} P {state.atoms_p.n.tolist()}; "
+        f"tables launches {dense_by['6 (k=20)']}, A and P "
+        + " and ".join(tables_form(p) for p in plans20))
+    for c in range(4):
+        log(f"  chain {c} chi^2 history {np.round(hist[c], 1).tolist()}")
+    if not np.isfinite(hist).all() or not (hist[:, -1] < hist[:, 0]).all():
+        raise AssertionError("k=20 chi^2 history is not finite and falling")
+    if dense_by["6 (k=20)"] != 2 * 2 * 50:
+        raise AssertionError(f"{dense_by['6 (k=20)']} tables launches at "
+                             f"k=20, not two an iteration")
+    if not all(p.NCT and p.form == "mma" for p in plans20):
+        raise AssertionError(f"k=20 tables not in column tiles: {plans20}")
+    del eng, data, state, stats
 
     # 7. the sparse model through CoGAPS()
     from cogaps_tpu_torch.sparse_engine import resolve_sparse_mode

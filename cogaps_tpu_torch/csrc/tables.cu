@@ -21,7 +21,7 @@
 // grid is (row tiles x accumulator tiles, contraction splits, chains): more
 // chains add blocks and change no block's work. A block covers RT rows of
 // one chain and the partners of one fixed chunk of the contraction, staged
-// in shared memory while the block works on earlier ones. Three kernels,
+// in shared memory while the block works on earlier ones. Four kernels,
 // as the plan says:
 //   - mma_kernel<K> (k <= 12, m >= 64, R >= 2): the products on the
 //     tensor cores in TF32 with the 3xTF32 split (x = big + small, both
@@ -47,35 +47,62 @@
 //     product start from zero and are then added to the accumulators in
 //     float32 round-to-nearest, so long sums round as fmaf chains do.
 //     The block's sums are staged in shared memory for coalesced writes.
+//   - mma_tiles_kernel<NCT> (12 < k <= 64, m >= 64, R >= 2): the same
+//     forms and arithmetic, every entry's sum in the same order, with
+//     [O | Q]'s 8 ceil(k/8) + 8 ceil(k(k+1)/16) columns cut into column
+//     tiles of 8 NCT, a block's: 64 (a thread's sums and a group's
+//     products in 32 registers each, and both fragments, under the 170
+//     registers of three blocks an SM), or in the tensor-core form
+//     above k = 28 128 (two blocks an SM, W staged and split half as
+//     often a column). The grid's accumulator tiles are the column
+//     tiles, next to each other in blockIdx.x so that a row tile's X
+//     and W come from L2 after its first tile. A block forms only its
+//     tile's columns, a warp a quarter of its n-blocks, the lane's
+//     column codes in registers; on wgmma it forms the stage's second
+//     group of 16 partners while the first group's products run. Tile 0
+//     holds Y's ceil(k/8) n-blocks (all of them up to k = 64): it alone
+//     stages X and runs X W's products, beside W's. A tile writes its Z
+//     entries in the order of their addresses
+//     (ops/tables_cuda.tile_list), SQ and, in tile 0, (X W) O; the last
+//     of a row tile's tiles to finish (a second integer counter, left
+//     0) reads the row tile's Z back and forms Y = (X W) O - M Z with M
+//     Z's fmaf chain over c' as mma_kernel's;
 //   - rows_kernel<K> (k <= 12, the rest): a thread a row, K + K(K+1)/2
 //     float accumulators, the partner's row in registers; per partner
 //     t O_c for Y and (W O_c) O_c' for Z, one fmaf each;
-//   - quads_kernel<PQ> (k > 12): after O's rows, a row of "columns" a
-//     partner, [O_c | O_c O_c'], formed once a partner and block, and each
-//     thread PQ quads of them (float4 accumulators), G threads sharing a
-//     row where its quads exceed PQ or the rows are too few to fill the
-//     block; one fmaf a column, a 16-byte broadcast load for four. Above G
-//     = 32 (k > ~35) the accumulators are tiled over blocks too, each
-//     forming the residual again.
+//   - quads_kernel<PQ> (k > 12 where m < 64 or R = 1, and k > 64): after
+//     O's rows, a row of "columns" a partner, [O_c | O_c O_c'], formed
+//     once a partner and block, and each thread PQ quads of them (float4
+//     accumulators), G threads sharing a row where its quads exceed PQ or
+//     the rows are too few to fill the block; one fmaf a column, a
+//     16-byte broadcast load for four. Above G = 32 (k > ~35) the
+//     accumulators are tiled over blocks too, each forming the residual
+//     again.
 // A contraction split into S chunks writes its partials, and the last
 // block of its (chain, tile) to finish (an integer counter, left 0) adds
 // them in split order, 0 to S - 1 (mma_kernel: every thread a few
 // entries, many loads in flight); no float atomics, so two runs give the
 // same bits.
 //
-// What bounds it on the H100: bytes. X and W are read once, 8 bytes an
-// element, against 2 + 4k + k(k+1) float32 operations (152 at k=10: 19 a
-// byte against the CUDA cores' 67e12 / 3.35e12 = 20, so rows_kernel could
-// meet its bound only with the FMA pipe and HBM both at peak). mma_kernel
-// puts 130 of the 152 on the tensor cores (three TF32 products each,
-// against 495e12 dense TF32; mma.sync's TF32 products measured ~80e12 a
-// second here, wgmma's are the card's full rate) and drops the residual's
-// 2k, which leaves the CUDA cores the products X W, the splits and the
-// adds of a group's sums: the card's bytes stay the bound. At 4 x 5000 x
-// 2000 k=10 both samplers move 0.64 GB: ~0.19 ms at the 3.35 TB/s of the
-// H100 SXM data sheet. What is left is each stage's forming of [O | Q]
-// (per 64 rows), the per-stage barriers, and with short rows the partials
-// of the splits.
+// What bounds it on the H100: bytes at k <= 12, the tensor cores above.
+// X and W are read once, 8 bytes an element, against 2 + 4k + k(k+1)
+// float32 operations (152 at k=10: 19 a byte against the CUDA cores' 67e12
+// / 3.35e12 = 20, so rows_kernel could meet its bound only with the FMA
+// pipe and HBM both at peak). mma_kernel puts 130 of the 152 on the
+// tensor cores (three TF32 products each, against 495e12 dense TF32;
+// mma.sync's TF32 products measured ~80e12 a second here, wgmma's are
+// the card's full rate) and drops the residual's 2k, which leaves the
+// CUDA cores the products X W, the splits and the adds of a group's
+// sums: the card's bytes stay the bound. At 4 x 5000 x 2000 k=10 both
+// samplers move 0.64 GB: ~0.19 ms at the 3.35 TB/s of the H100 SXM data
+// sheet. At k=20 the same calls' 3xTF32 products take 0.112 ms at
+// 495e12 against 0.107 ms of bytes, and at k=50 0.642 ms: the tensor
+// cores bound it, and on the CUDA cores quads_kernel took 2.76 ms at k=20
+// and 39 ms at k=50 (NVIDIA H100 80GB HBM3, 700 W; kernel_times.py
+// --tables on the parent of mma_tiles_kernel). What is left is each
+// stage's forming of [O | Q] (per 64 rows, now per column tile), the
+// per-stage barriers, each column tile's own W and A fragments, and with
+// short rows the partials of the splits.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -101,7 +128,9 @@ struct Args {
   unsigned char* col_nz;
   float* part;    // (chains, tiles, S, accumulators, kThreads) partials
   int* flags;     // (chains, S, 2, k): positive seen, NaN seen
-  int* counters;  // (chains, tiles) blocks done, left 0 by the last
+  int* counters;  // (chains, tiles) blocks done, then mma_tiles_kernel's
+                  // (chains, row tiles) column tiles done; left 0
+  const int* zlist;  // mma_tiles_kernel: each column tile's Z entries
   int R, m, k, qy, npairs;
   int G, RT, TQ, acc_tiles, S, CH, L, smq;
   int RW;   // mma_kernel's row warps
@@ -839,6 +868,32 @@ struct Wgmma<56> {
 };
 
 template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
 struct Wgmma<72> {
   static __device__ __forceinline__ void run(float (&d)[36],
                                              const uint32_t (&a)[4],
@@ -890,6 +945,44 @@ struct Wgmma<80> {
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
           "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
           "r"(scale_d));
   }
@@ -1377,6 +1470,542 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
+// ---------------------------------------------------------------------
+// mma_tiles_kernel<NCT>: 12 < k <= kTilesMaxK, [O | Q] in column tiles
+// ---------------------------------------------------------------------
+
+constexpr int kTilesMaxK = 64;  // ops/tables_cuda.TILE_MAX_K
+
+// mma_tiles_kernel's shared memory in floats (ops/tables_cuda.
+// _tile_floats): mma_layout's ring of X, W and O's rows, then one column
+// tile's [O | Q] in TF32 halves (2 x NCT n-blocks x L / 4 core matrices)
+// and its column codes (8 NCT ints); after the loop the block's partials
+// (KW x RT rows, PP apart) in the same space; then the flags (2k), two
+// ints and the ring's mbarriers.
+struct TileLayout {
+  int RT, KW, L, lgL, KC, PP, w, o, b, half, code, flag, bar, floats;
+};
+
+__host__ __device__ inline TileLayout tile_layout(int k, int RW, int NCT) {
+  TileLayout l;
+  l.KW = kMmaWarps / RW;
+  l.RT = 16 * RW;
+  l.L = 16 * l.KW * (l.KW == 1 ? 2 : 1);
+  l.lgL = l.L == 32 ? 5 : 6;
+  l.KC = l.L / 4;
+  l.PP = 8 * NCT + 1;
+  l.w = kStages * l.RT * l.L;
+  l.o = 2 * l.w;
+  l.b = l.o + kStages * l.L * k;
+  l.half = NCT * l.KC * kCM;
+  l.code = l.b + 2 * l.half;
+  const int staging = l.code + 8 * NCT;
+  const int after = l.KW * l.RT * l.PP;
+  l.flag = staging > after ? staging : after;
+  l.bar = (l.flag + 2 * k + 2) / 2 * 2;  // 8-byte aligned
+  l.floats = l.bar + 2 * kStages;
+  return l;
+}
+
+// wgmma, one group's products over a column tile of NCT n-blocks, six
+// (the 3xTF32 split, small ones first, from zero) with A fragments y (0:
+// X W's, 1: W's), into d, committed and not waited for
+template <int NCT>
+__device__ __forceinline__ void tile_issue(float (&d)[4 * NCT],
+                                           const GroupA& A, int y,
+                                           const uint32_t* b, int half,
+                                           int sbo) {
+  const int lbo = 4 * kCM, sbo_b = 4 * sbo;
+#pragma unroll
+  for (int e = 0; e < 4 * NCT; ++e) d[e] = 0.0f;
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const uint32_t* bb = b + 2 * s * kCM;
+    const uint64_t db = gmma_desc(bb, lbo, sbo_b);
+    const uint64_t ds = gmma_desc(bb + half, lbo, sbo_b);
+    Wgmma<8 * NCT>::run(d, y ? A.small[1][s] : A.small[0][s], db, s);
+    Wgmma<8 * NCT>::run(d, y ? A.big[1][s] : A.big[0][s], ds, 1);
+    Wgmma<8 * NCT>::run(d, y ? A.big[1][s] : A.big[0][s], db, 1);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits for tile_issue's products and adds those of the n-blocks that
+// take them (y 0: Y's, the tile's first ny; 1: the rest) to acc
+template <int NCT>
+__device__ __forceinline__ void tile_finish(float (&acc)[NCT][4],
+                                            float (&d)[4 * NCT], int y,
+                                            int ny) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_operands(d);
+#pragma unroll
+  for (int j = 0; j < NCT; ++j)
+    if ((j < ny) == (y == 0))
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[j][e] = __fadd_rn(acc[j][e], d[4 * j + e]);
+}
+
+// mma.sync (the short-row form), one group over a column tile: n-block j
+// takes X W's fragments where j < ny, else W's (group_mma's products)
+template <int NCT>
+__device__ __forceinline__ void group_mma_tile(float (&acc)[NCT][4],
+                                               const GroupA& A,
+                                               const uint32_t* hb,
+                                               const uint32_t* hs, int sbo,
+                                               int ny) {
+#pragma unroll
+  for (int j = 0; j < NCT; ++j) {
+    const bool y = j < ny;
+    uint32_t bb[4], bs[4];
+    ldmatrix_x4(bb, hb + j * sbo);
+    ldmatrix_x4(bs, hs + j * sbo);
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t as[4], ab[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        as[e] = y ? A.small[0][s][e] : A.small[1][s][e];
+        ab[e] = y ? A.big[0][s][e] : A.big[1][s][e];
+      }
+      mma_tf32(d, as, bb[2 * s], bb[2 * s + 1]);
+      mma_tf32(d, ab, bs[2 * s], bs[2 * s + 1]);
+      mma_tf32(d, ab, bb[2 * s], bb[2 * s + 1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], d[e]);
+  }
+}
+
+// mma_kernel's design with k a parameter and [O | Q]'s NT8 columns in
+// acc_tiles column tiles of 8 NCT: a block (row tile, column tile, split,
+// chain) forms only its tile's columns a stage, and stages X only where
+// its tile holds Y's columns (tile 0: Y's ceil(k / 8) n-blocks, all of
+// them while k <= kTilesMaxK). A tile's sums (its splits added in split
+// order by the last of them, as mma_kernel does) go out at once: Z's
+// entries of the tile in the order of their addresses (the plan's list,
+// ops/tables_cuda.tile_list), SQ, and tile 0's (X W) O into Y; the last
+// of a row tile's column tiles to finish (a second counter) then forms Y
+// = (X W) O - M Z from them, as mma_kernel does in-block.
+template <int NCT>
+__global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
+    mma_tiles_kernel(const __grid_constant__ MmaArgs p) {
+  const Args& a = p.a;
+  constexpr int NC = 8 * NCT, LIST = 2 * NC / 32;  // a lane's list entries
+  const int k = a.k;
+  const TileLayout ly = tile_layout(k, a.RW, NCT);
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* sX = sm;
+  float* sW = sm + ly.w;
+  float* sO = sm + ly.o;
+  uint32_t* sB = reinterpret_cast<uint32_t*>(sm + ly.b);
+  int* sCode = reinterpret_cast<int*>(sm + ly.code);
+  int* sFlag = reinterpret_cast<int*>(sm + ly.flag);
+  int* sLast = sFlag + 2 * k;
+  const int RT = ly.RT, KW = ly.KW, L = ly.L, lgL = ly.lgL, PP = ly.PP;
+  const int half = ly.half, sbo = ly.KC * kCM;
+  const bool wg = a.RW == kMmaWarps;  // the tensor-core form: wgmma
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rw = warp / KW, kw = warp - rw * KW;
+  const int chain = blockIdx.z, s = blockIdx.y, tile = blockIdx.x;
+  const int rt = tile / a.acc_tiles, at = tile - rt * a.acc_tiles;
+  const int row0 = rt * RT;
+  const int lo = s * a.CH, hi = min(lo + a.CH, a.m);
+  const bool flag_block = tile == 0;
+  const int NY = (k + 7) / 8;
+  const int ny = at == 0 ? NY : 0;  // the tile's n-blocks of Y
+  const bool has_y = ny > 0;
+  const float* D = a.D + chain * a.cD;
+  const float* W = a.W + chain * a.cW;
+  const float* O = a.O + chain * a.cO;
+  for (int c = tid; c < 2 * k; c += kThreads) sFlag[c] = 0;
+  // the tile's columns: Y's column c as (c << 16) | kY, pair (c, c') as
+  // (c << 16) | c', padding -1
+  for (int j = tid; j < NC; j += kThreads) {
+    const int n = at * NC + j;
+    int code = -1;
+    if (n < 8 * NY) {
+      if (n < k) code = (n << 16) | kY;
+    } else if (n - 8 * NY < a.npairs) {
+      int c, c2;
+      decode_pair(n - 8 * NY, k, c, c2);
+      code = (c << 16) | c2;
+    }
+    sCode[j] = code;
+  }
+  __syncthreads();
+  // this lane's columns of the forming: n-block warp + 4 jj, column l / 4
+  // of it; c < 0 past the last pair, c2 kY for Y's columns
+  static_assert(NCT % kMmaWarps == 0, "n-blocks spread evenly");
+  constexpr int NJ = NCT / kMmaWarps;
+  int fc[NJ], fc2[NJ];
+#pragma unroll
+  for (int jj = 0; jj < NJ; ++jj) {
+    const int code = sCode[8 * (warp + kMmaWarps * jj) + (lane >> 2)];
+    fc[jj] = code < 0 ? -1 : code >> 16;
+    fc2[jj] = code < 0 ? 0 : code & 0xFFFF;
+  }
+
+  float acc[NCT][4];
+#pragma unroll
+  for (int j = 0; j < NCT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
+
+  const int n_sub = hi > lo ? (hi - lo + L - 1) / L : 0;
+  const bool bulk = a.vec == 2;
+  uint64_t* sBar = reinterpret_cast<uint64_t*>(sm + ly.bar);
+  if (bulk && tid == 0) {
+    for (int q = 0; q < kStages; ++q) mbar_init(sBar + q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (bulk) __syncthreads();
+  // stage t: partners [lo + t L, + L) into ring slot t % kStages: X (where
+  // the tile holds Y) and W rows L apart, O's rows k apart (zeros past hi
+  // and past R)
+  auto stage = [&](int t) {
+    const int slot = t % kStages, i0 = lo + t * L;
+    const int nval = min(L, hi - i0);
+    float* x = sX + slot * RT * L;
+    float* w = sW + slot * RT * L;
+    float* o = sO + slot * L * k;
+    if (bulk) {  // one thread: X's and W's tiles by TMA, O's rows in bulk
+      if (tid != kThreads - 32) return;
+      for (int e = nval * k; e < L * k; e++) o[e] = 0.0f;  // past m
+      mbar_expect_tx(sBar + slot,
+                     (has_y ? 8u : 4u) * RT * L + 4u * nval * k);
+      if (has_y)
+        tma_load_3d(x, &p.mapD, i0, row0, a.cD ? chain : 0, sBar + slot);
+      tma_load_3d(w, &p.mapW, i0, row0, a.cW ? chain : 0, sBar + slot);
+      bulk_copy(o, O + (size_t)i0 * k, 4u * nval * k, sBar + slot);
+      return;
+    }
+    if (a.vec) {  // hi and i0 are multiples of 4: a piece is in or out
+      for (int e = tid; e < RT * L / 4; e += kThreads) {
+        const int rr = e >> (lgL - 2), ii = 4 * (e & (L / 4 - 1));
+        const int row = row0 + rr, i = i0 + ii;
+        const bool ok = row < a.R && i < hi;
+        const size_t off = ok ? (size_t)row * a.m + i : 0;
+        if (has_y) cp_async16(x + rr * L + ii, D + off, ok);
+        cp_async16(w + rr * L + ii, W + off, ok);
+      }
+    } else {
+      for (int e = tid; e < RT * L; e += kThreads) {
+        const int rr = e >> lgL, ii = e & (L - 1);
+        const int row = row0 + rr, i = i0 + ii;
+        const bool ok = row < a.R && i < hi;
+        const size_t off = ok ? (size_t)row * a.m + i : 0;
+        if (has_y) cp_async4(x + rr * L + ii, D + off, ok);
+        cp_async4(w + rr * L + ii, W + off, ok);
+      }
+    }
+    for (int e = tid; e < L * k; e += kThreads) {
+      const bool ok = e < nval * k;
+      cp_async4(o + e, O + (ok ? (size_t)i0 * k + e : 0), ok);
+    }
+    cp_async_commit();
+  };
+
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_sub)
+      stage(t);
+    else if (!bulk)
+      cp_async_commit();
+  }
+  for (int t = 0; t < n_sub; ++t) {
+    if (bulk)
+      mbar_wait(sBar + t % kStages, (t / kStages) & 1);
+    else
+      cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage t is in; every thread is past stage t - 1
+    if (t + kStages - 1 < n_sub)
+      stage(t + kStages - 1);  // into stage t - 1's slot
+    else if (!bulk)
+      cp_async_commit();
+    const int slot = t % kStages;
+    const float* o = sO + slot * L * k;
+    // the tile's [O | Q] for places [4 cm0, 4 cm1) of the stage: warp w
+    // n-blocks w + 4 jj, a core matrix at a time, lane l at column l / 4
+    // and place 4 cm + l % 4 (partner 4 (l % 4) + cm % 4 of its group of
+    // 16), its 32 words in 32 banks; then the fence and barrier after
+    // which the tensor cores may read them
+    auto form = [&](int cm0, int cm1) {
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int c = fc[jj], c2 = fc2[jj];
+        const bool pad = c < 0, y = c2 == kY;
+        const int oc1 = pad ? 0 : c, oc2 = pad || y ? 0 : c2;
+        uint32_t* cell = sB + (warp + kMmaWarps * jj) * sbo + lane;
+#pragma unroll 4
+        for (int cm = cm0; cm < cm1; ++cm) {
+          const float* orow =
+              o + (16 * (cm >> 2) + 4 * (lane & 3) + (cm & 3)) * k;
+          const float a1 = orow[oc1];
+          const float a2 = y ? 1.0f : orow[oc2];
+          const float v = pad ? 0.0f : __fmul_rn(a1, a2);  // Y's: a1
+          if (flag_block && y) {
+            if (v > 0.0f) sFlag[c] = 1;
+            if (v != v) sFlag[k + c] = 1;
+          }
+          uint32_t big, small;
+          tf32_split(v, big, small);
+          cell[cm * kCM] = big;
+          cell[cm * kCM + half] = small;
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    };
+    const float* xr = sX + (slot * RT + 16 * rw + gq) * L;
+    const float* wr = sW + (slot * RT + 16 * rw + gq) * L;
+    // group grp's A fragments: W's, and X W's where the tile holds Y
+    auto frags = [&](int grp, GroupA& A) {
+      const int col = 16 * grp + 4 * tq;
+      const float4 wa = *reinterpret_cast<const float4*>(wr + col);
+      const float4 wb = *reinterpret_cast<const float4*>(wr + 8 * L + col);
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        tf32_split(lane_of(wa, 2 * s2), A.big[1][s2][0], A.small[1][s2][0]);
+        tf32_split(lane_of(wb, 2 * s2), A.big[1][s2][1], A.small[1][s2][1]);
+        tf32_split(lane_of(wa, 2 * s2 + 1), A.big[1][s2][2],
+                   A.small[1][s2][2]);
+        tf32_split(lane_of(wb, 2 * s2 + 1), A.big[1][s2][3],
+                   A.small[1][s2][3]);
+      }
+      if (has_y) {  // X W: Y = (X W) O - M Z, row by row
+        const float4 xa = *reinterpret_cast<const float4*>(xr + col);
+        const float4 xb = *reinterpret_cast<const float4*>(xr + 8 * L + col);
+        float ta[4], tb[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ta[e] = __fmul_rn(lane_of(xa, e), lane_of(wa, e));
+          tb[e] = __fmul_rn(lane_of(xb, e), lane_of(wb, e));
+        }
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          tf32_split(ta[2 * s2], A.big[0][s2][0], A.small[0][s2][0]);
+          tf32_split(tb[2 * s2], A.big[0][s2][1], A.small[0][s2][1]);
+          tf32_split(ta[2 * s2 + 1], A.big[0][s2][2], A.small[0][s2][2]);
+          tf32_split(tb[2 * s2 + 1], A.big[0][s2][3], A.small[0][s2][3]);
+        }
+      } else {
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            A.big[0][s2][e] = A.small[0][s2][e] = 0u;
+      }
+    };
+    if (wg) {
+      // the tensor-core form, two groups a stage: group 1's [O | Q] is
+      // formed while group 0's W products run; X W's (the tile holding
+      // Y) run before them, waited for
+      float d[4 * NCT];
+      form(0, 4);
+#pragma unroll 1
+      for (int grp = 0; grp < 2; ++grp) {
+        GroupA A;
+        frags(grp, A);
+        const uint32_t* b = sB + 4 * grp * kCM;
+        if (has_y) {
+          tile_issue<NCT>(d, A, 0, b, half, sbo);
+          tile_finish<NCT>(acc, d, 0, ny);
+        }
+        tile_issue<NCT>(d, A, 1, b, half, sbo);
+        if (grp == 0) form(4, 8);
+        tile_finish<NCT>(acc, d, 1, ny);
+      }
+    } else {
+      form(0, L >> 2);
+      for (int grp = kw; grp < L / 16; grp += KW) {  // this warp's groups
+        GroupA A;
+        frags(grp, A);
+        const uint32_t* b = sB + 4 * grp * kCM;  // the group's core matrices
+        const uint32_t* hb = b + (lane >> 3) * kCM + 4 * (lane & 7);
+        group_mma_tile<NCT>(acc, A, hb, hb + half, sbo, ny);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // the ring is free: the block's partials go there
+
+  float* sP = sm;
+  {
+    float* p0 = sP + (kw * RT + 16 * rw + gq) * PP + 2 * tq;
+#pragma unroll
+    for (int j = 0; j < NCT; ++j) {
+      p0[8 * j] = acc[j][0];
+      p0[8 * j + 1] = acc[j][1];
+      p0[8 * PP + 8 * j] = acc[j][2];
+      p0[8 * PP + 8 * j + 1] = acc[j][3];
+    }
+  }
+  __syncthreads();
+  const int nrows = min(RT, a.R - row0);  // the tile's rows in R
+  const int ent = nrows * NC;
+  for (int e = tid; KW > 1 && e < ent; e += kThreads) {  // warps in order
+    const int r = e / NC, n = e - r * NC;
+    float v = sP[r * PP + n];
+    for (int q = 1; q < KW; ++q) v = v + sP[(q * RT + r) * PP + n];
+    sP[r * PP + n] = v;
+  }
+
+  const int k2 = 2 * k;
+  if (a.S > 1) {
+    const int blk = chain * gridDim.x + tile;
+    const size_t slab = (size_t)RT * NC;  // a split's partials
+    float* base = a.part + (size_t)blk * a.S * slab;
+    float* mine = base + (size_t)s * slab;
+    for (int e = tid; e < ent; e += kThreads) {
+      const int r = e / NC;
+      mine[e] = sP[r * PP + e - r * NC];
+    }
+    if (flag_block)
+      for (int c = tid; c < k2; c += kThreads)
+        a.flags[((size_t)chain * a.S + s) * k2 + c] = sFlag[c];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *sLast = atomicAdd(&a.counters[blk], 1) == a.S - 1;
+    __syncthreads();
+    if (!*sLast) return;
+    __threadfence();
+    // every split's partials, added in split order, as mma_kernel does
+    const float4* b4 = reinterpret_cast<const float4*>(base);
+    const size_t slab4 = slab / 4;
+    const int ent4 = ent / 4;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int e4 = tid; e4 < ent4; e4 += 2 * kThreads) {
+      const int f4 = e4 + kThreads;
+      const bool two = f4 < ent4;
+      float4 va = __ldcg(b4 + e4);
+      float4 vb = two ? __ldcg(b4 + f4) : zero;
+      int s2 = 1;
+      for (; s2 + 8 <= a.S; s2 += 8) {
+        float4 xa[8], xb[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          xa[u] = __ldcg(b4 + (s2 + u) * slab4 + e4);
+          xb[u] = two ? __ldcg(b4 + (s2 + u) * slab4 + f4) : zero;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          add_to(va, xa[u]);
+          add_to(vb, xb[u]);
+        }
+      }
+      for (; s2 < a.S; ++s2) {
+        add_to(va, __ldcg(b4 + s2 * slab4 + e4));
+        if (two) add_to(vb, __ldcg(b4 + s2 * slab4 + f4));
+      }
+      for (int h = 0; h < 2; ++h) {  // four entries of one row
+        if (h == 1 && !two) break;
+        const int e = 4 * (h == 0 ? e4 : f4);
+        const int r = e / NC, n = e - r * NC;
+        const float4 v = h == 0 ? va : vb;
+        float* q = sP + r * PP + n;
+        q[0] = v.x;
+        q[1] = v.y;
+        q[2] = v.z;
+        q[3] = v.w;
+      }
+    }
+    if (flag_block)
+      for (int c = tid; c < k2; c += kThreads) {
+        int any = 0;
+        for (int s3 = 0; s3 < a.S; ++s3)
+          any |= __ldcg(&a.flags[((size_t)chain * a.S + s3) * k2 + c]);
+        sFlag[c] = any;
+      }
+    if (tid == 0) a.counters[blk] = 0;
+  }
+  __syncthreads();
+
+  if (flag_block)
+    for (int c = tid; c < k; c += kThreads)
+      a.col_nz[(size_t)chain * k + c] = sFlag[c] && !sFlag[k + c];
+  // the tile's Z entries a warp a row, in the order of their addresses;
+  // SQ on the diagonal; tile 0's (X W) O into Y, for the last tile
+  const int kk = k * k;
+  const size_t rowg = (size_t)chain * a.R + row0;
+  // this lane's entries of the tile's Z list: (column, address in a row's
+  // k x k, 1 + c on the diagonal), packed; -1 past its end
+  int zl[LIST];
+  const int* list = a.zlist + (size_t)at * 2 * NC;
+#pragma unroll
+  for (int j = 0; j < LIST; ++j) zl[j] = __ldg(list + lane + 32 * j);
+  for (int r = warp; r < nrows; r += kMmaWarps) {
+    const float* pr = sP + r * PP;
+    float* zr = a.Z + (rowg + r) * kk;
+#pragma unroll
+    for (int j = 0; j < LIST; ++j) {
+      const int x = zl[j];
+      if (x < 0) continue;
+      const float v = pr[x & 0xFF];
+      zr[(x >> 8) & 0xFFF] = v;
+      if (x >> 20) a.SQ[(rowg + r) * k + (x >> 20) - 1] = v;
+    }
+  }
+  float* Y = a.Y + rowg * k;
+  if (has_y)
+    for (int e = tid; e < nrows * k; e += kThreads) {
+      const int r = e / k;
+      Y[e] = sP[r * PP + e - r * k];
+    }
+  if (a.acc_tiles > 1) {  // the last of the row tile's column tiles on
+    int* rows_done = a.counters + (size_t)gridDim.z * gridDim.x;
+    const size_t rc = (size_t)chain * (gridDim.x / a.acc_tiles) + rt;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0)
+      *sLast = atomicAdd(&rows_done[rc], 1) == a.acc_tiles - 1;
+    __syncthreads();
+    if (!*sLast) return;
+    __threadfence();
+    if (tid == 0) rows_done[rc] = 0;
+  } else {
+    __syncthreads();
+  }
+  // Y = (X W) O - M Z, M Z by an fmaf chain over c' ascending, as
+  // mma_kernel forms it: the row tile's Z and M rows staged in shared
+  // memory (the ring and the partials are free), `per` rows at a time
+  const float* M = a.M + chain * a.cM + (size_t)row0 * k;
+  const float* Z = a.Z + rowg * kk;
+  const int per = max(1, ly.flag / (kk + k));
+  for (int r0 = 0; r0 < nrows; r0 += per) {
+    const int nr = min(per, nrows - r0);
+    float* sZ = sm;
+    float* sMr = sm + nr * kk;
+    __syncthreads();  // the last rows' reads are done
+    if ((kk & 3) == 0) {  // 16-byte pieces: rows of k x k start aligned
+      const float4* z4 = reinterpret_cast<const float4*>(Z + (size_t)r0 * kk);
+      float4* s4 = reinterpret_cast<float4*>(sZ);
+#pragma unroll 8
+      for (int e = tid; e < nr * kk / 4; e += kThreads) s4[e] = __ldcg(z4 + e);
+    } else {
+#pragma unroll 8
+      for (int e = tid; e < nr * kk; e += kThreads)
+        sZ[e] = __ldcg(Z + (size_t)r0 * kk + e);
+    }
+    for (int e = tid; e < nr * k; e += kThreads)
+      sMr[e] = __ldg(M + (size_t)r0 * k + e);
+    __syncthreads();
+    for (int e = tid; e < nr * k; e += kThreads) {
+      const int r = e / k, c = e - r * k;
+      const float* zc = sZ + r * kk + c;
+      const float* mr = sMr + r * k;
+      float mz = 0.0f;
+      for (int c2 = 0; c2 < k; ++c2)
+        mz = __fmaf_rn(mr[c2], zc[c2 * k], mz);
+      const size_t y = (size_t)r0 * k + e;
+      Y[y] = __fsub_rn(__ldcg(Y + y), mz);
+    }
+  }
+}
+
 template <typename Kernel, typename P>
 int launch(Kernel kernel, int& smem_set, const P& params, const Args& a,
            int nch, int smem, cudaStream_t stream) {
@@ -1409,6 +2038,13 @@ int launch_mma(const MmaArgs& p, int nch, int smem, cudaStream_t stream) {
   static int smem_set = 0;
   return launch(mma_kernel<K>, smem_set, p, p.a, nch, smem, stream);
 }
+
+template <int NCT>
+int launch_tiles(const MmaArgs& p, int nch, int smem, cudaStream_t stream) {
+  static int smem_set = 0;
+  return launch(mma_tiles_kernel<NCT>, smem_set, p, p.a, nch, smem, stream);
+}
+
 
 constexpr int kBad = (int)cudaErrorInvalidValue;
 
@@ -1450,24 +2086,34 @@ int tensor_map(CUtensorMap* map, const float* base, int m, int R, int nch,
 
 // The plan's fields (ops/tables_cuda.tables_plan) and the tensors: form 0
 // runs rows_kernel<k>, 1 quads_kernel<PQ> (PQ one of ops/tables_cuda.QUADS),
-// 2 mma_kernel<k> with RW row warps.
+// 2 mma_kernel<k> with RW row warps (k <= 12), or above mma_tiles_kernel
+// <NCT> in acc_tiles column tiles, whose Z lists zlist holds.
 extern "C" int cogaps_tables_launch(
     int nch, int R, int m, int k, int form, int G, int PQ, int TQ,
-    int acc_tiles, int S, int CH, int L, int smq, int RW, int smem,
+    int acc_tiles, int S, int CH, int L, int smq, int RW, int NCT, int smem,
     const float* D, long long cD, const float* W, long long cW,
     const float* M, long long cM, const float* O, long long cO, float* Y,
     float* SQ, float* Z, unsigned char* col_nz, float* part, int* flags,
-    int* counters, void* stream) {
+    int* counters, const int* zlist, void* stream) {
+  const bool tiles = form == 2 && k > kRowsMaxK;
+  const int nt = (k + 7) / 8 + (k * (k + 1) / 2 + 7) / 8;  // n-blocks
   if (nch < 1 || nch > 65535 || R < 1 || m < 0 || k < 1 || k >= 0xFFFF ||
       G < 1 || kThreads % G || S < 1 || S > 65535 || L < 1 || CH < L ||
       form < 0 || form > 2 ||
-      (form != 1 && (G != 1 || k > kRowsMaxK || acc_tiles != 1)) ||
+      (form != 1 && G != 1) ||
+      (form != 1 && !tiles && (k > kRowsMaxK || acc_tiles != 1)) ||
+      (tiles && (k > kTilesMaxK || (NCT != 8 && NCT != 16) ||
+                 acc_tiles != (nt + NCT - 1) / NCT || zlist == nullptr ||
+                 counters == nullptr)) ||
       (S > 1 && (part == nullptr || counters == nullptr || flags == nullptr)))
     return kBad;
   int RT = kThreads / G;
   if (form == 2) {
-    if ((RW != 1 && RW != 2 && RW != 4) || L != mma_layout(k, RW).L ||
-        CH % L || smem < 4 * mma_layout(k, RW).floats)
+    const int lay_L = tiles ? tile_layout(k, RW, NCT).L : mma_layout(k, RW).L;
+    const int floats =
+        tiles ? tile_layout(k, RW, NCT).floats : mma_layout(k, RW).floats;
+    if ((RW != 1 && RW != 2 && RW != 4) || L != lay_L || CH % L ||
+        smem < 4 * floats)
       return kBad;
     RT = 16 * RW;
   }
@@ -1480,7 +2126,7 @@ extern "C" int cogaps_tables_launch(
             aligned(W) && cD % 4 == 0 && cW % 4 == 0;
   if (vec && form == 2 && aligned(O) && cO % 4 == 0) vec = 2;
   const Args a{D, W, M, O, cD, cW, cM, cO, Y, SQ, Z, col_nz,
-               part, flags, counters, R, m, k, (k + 3) / 4,
+               part, flags, counters, zlist, R, m, k, (k + 3) / 4,
                k * (k + 1) / 2, G, RT, TQ, acc_tiles, S, CH, L,
                smq, RW, vec};
   cudaStream_t s = (cudaStream_t)stream;
@@ -1492,6 +2138,9 @@ extern "C" int cogaps_tables_launch(
       const int err2 = tensor_map(&p.mapW, W, m, R, cW ? nch : 1, cW, L, RT);
       if (err2) return err2;
     }
+    if (tiles)
+      return NCT == 8 ? launch_tiles<8>(p, nch, smem, s)
+                      : launch_tiles<16>(p, nch, smem, s);
     switch (k) {
       case 1: return launch_mma<1>(p, nch, smem, s);
       case 2: return launch_mma<2>(p, nch, smem, s);

@@ -10,29 +10,38 @@ have no Pallas kernel; on the fused route K3 builds the same tables in
 float64 (csrc/span.cu::rebuild_kernel). models/dense.tables dispatches
 here for float32 CUDA tensors and to the plain version for CPU tensors.
 
-Three kernels, as ``tables_plan`` says, from (R, m, k) and the SM count:
+Four kernels, as ``tables_plan`` says, from (R, m, k) and the SM count:
 mma_kernel<k> (k <= 12, m >= MMA_MIN_M, R >= MMA_MIN_R) forms (X W) O
 and Z = W Q on the tensor cores in TF32 with the 3xTF32 split, and Y =
 (X W) O - M Z, four warps a block: 64 rows on wgmma where R > 32 (the
 tensor-core form, "mma"), and for fewer rows 16 or 32 of them on
 mma.sync with the contraction split over the warps (the short-row form,
-"short"); rows_kernel<k> (k <= 12 below those), a thread a row with all
-its accumulators in registers; quads_kernel<PQ> beyond k = 12, each
-thread PQ quads of a row's accumulators, G threads a row. quads_kernel
-computes every k, but forced at k=10 it took 2.0-3.6x rows_kernel's time
-at 4 x 5000 x 2000 and 16 x 20000 x 100 (NVIDIA H100 80GB HBM3, 700 W;
-kernel_times.py --quads). ``tables_tf32`` is the plain emulation of
-mma_kernel's arithmetic (the TF32 halves by cvt.rna's rounding, the
-three products a partner and the float32 sums in the kernel's order),
-for the CPU tests; ``tables_plain`` stays the plain version. Every
-float32 entry of a chain is summed in an order that ``tables_plan``
-fixes from (R, m, k) and the card's SM count alone, never from the
-number of chains in the call or a chain's index: a chain's tables are
-the same bits alone and beside any number of other chains, which batched
-cuBLAS products do not give (cuBLAS picks its kernel by the batch
-count). A contraction split into chunks is added in split order by the
-last block to finish; there are no float atomics. ``tables_counts`` gives
-the bytes and float32 operations the bound counts. The kernel is built from
+"short"); above k = 12 up to TILE_MAX_K the same forms run as
+mma_tiles_kernel<NCT>, [O | Q]'s columns cut into column tiles
+(``TablesPlan.column_tiles``) of 64, or in the tensor-core form 128
+above TILE_WIDE_K, a block's, the tile holding Y's columns staging X as
+well and the last tile of a row tile forming Y; rows_kernel<k> (k <= 12
+below those), a thread a row with all its accumulators in registers;
+quads_kernel<PQ> (k > 12 below those, and above TILE_MAX_K), each thread
+PQ quads of a row's accumulators, G threads a row. quads_kernel computes
+every k on the CUDA cores: it took 2.76 ms at 4 x 5000 x 2000 A k=20 and
+39 ms at k=50, where cuBLAS's tables took 1.52 and 4.90, and the column
+tiles ~0.72 and ~3.95 (NVIDIA H100 80GB HBM3, 700 W; kernel_times.py
+--tables); their bound there is the tensor cores'
+(``tables_tc_counts``): 0.112 and 0.642 ms. ``tables_tf32`` is the plain
+emulation of mma_kernel's arithmetic (the TF32 halves by cvt.rna's
+rounding, the three products a partner and the float32 sums in the
+kernel's order), for the CPU tests; ``tables_plain`` stays the plain
+version. Every float32 entry of a chain is summed in an order that
+``tables_plan`` fixes from (R, m, k) and the card's SM count alone,
+never from the number of chains in the call or a chain's index: a
+chain's tables are the same bits alone and beside any number of other
+chains, which batched cuBLAS products do not give (cuBLAS picks its
+kernel by the batch count). A contraction split into chunks is added in
+split order by the last block to finish; there are no float atomics.
+``tables_counts`` gives the bytes and float32 operations the float32
+bound counts, ``tables_tc_counts`` the same bytes and the 3xTF32
+products the tensor-core bound counts. The kernel is built from
 csrc/tables.cu by ops/cuda_build.py at first use.
 """
 
@@ -48,7 +57,9 @@ import torch
 from . import cuda_build
 
 THREADS = 128  # csrc/tables.cu's kThreads
-QUADS = (1, 2, 3, 4, 6, 8, 9, 11, 15, 17, 20)  # quads_kernel's PQ
+# quads_kernel's PQ; it takes k > 12 only below mma_kernel's MMA_MIN_M
+# partners or MMA_MIN_R rows (GIST A, 1363 x 9) and above TILE_MAX_K
+QUADS = (1, 2, 3, 4, 6, 8, 9, 11, 15, 17, 20)
 ROWS_MAX_K = 12  # rows_kernel's and mma_kernel's K: 1 .. 12
 # mma_kernel from 64 partners and 2 rows: below, 3xTF32's products (up to
 # 2^-21 of each, two bits short of float32) are not averaged down against
@@ -69,6 +80,18 @@ CORE = 36  # csrc/tables.cu's kCM: floats a core matrix of [O | Q] takes
 # and 0.185, and 768 0.052 and 0.173 (NVIDIA H100 80GB HBM3, 700 W;
 # kernel_times.py --tables --plan MMA_CHUNK=...)
 MMA_CHUNK_ROWS, MMA_CHUNK = 12, 512
+# mma_kernel's form above k = 12 (csrc/tables.cu's mma_tiles_kernel): [O |
+# Q]'s columns in tiles of TILE_NT n-tiles of 8, each a block's, or twice
+# that above TILE_WIDE_K in the tensor-core form. 64 columns keep a
+# thread's sums and a group's products (32 registers each) and both A
+# fragments under the 170 registers of three blocks an SM; 128 columns
+# take two blocks an SM and stage W and split its fragments half as
+# often a column: 64 are faster at k=20, 128 at k=50 (PERF.md §6;
+# kernel_times.py --tables --plan TILE_WIDE_K=12 and =64, every tile of
+# 128 and of 64); TILE_WIDE_K lies between. TILE_MAX_K = 64 keeps Y's
+# ceil(k / 8) n-tiles in the first tile, so one block holds all of Y's
+# (X W) O and col_nz's flags. Above, quads_kernel.
+TILE_NT, TILE_WIDE_K, TILE_MAX_K = 8, 28, 64
 MAX_G = 32  # threads sharing a row
 SMEM_TARGET = 56 * 1024  # shared memory a block aims under: four an SM
 SMEM_MAX = 232_448  # an H100 block's most (227 KB)
@@ -115,6 +138,7 @@ class TablesPlan(NamedTuple):
     smem: int
     form: str = "rows"
     RW: int = 0
+    NCT: int = 0
 
     @property
     def KW(self) -> int:
@@ -128,6 +152,17 @@ class TablesPlan(NamedTuple):
         return 8 * (-(-self.k // 8) + -(-kp // 8))
 
     @property
+    def NC(self) -> int:
+        """mma_kernel's columns a block: all NT8, or a column tile's."""
+        return 8 * self.NCT if self.NCT else self.NT8
+
+    def column_tiles(self) -> list:
+        """mma_kernel's column tiles [n0, n1) of the NT8 columns, in the
+        order of the grid's accumulator tiles (one where k <= 12)."""
+        return [(t * self.NC, min((t + 1) * self.NC, self.NT8))
+                for t in range(self.acc_tiles)]
+
+    @property
     def blocks(self) -> int:
         """Blocks a chain."""
         return self.row_tiles * self.acc_tiles * self.S
@@ -136,7 +171,7 @@ class TablesPlan(NamedTuple):
     def accumulators(self) -> int:
         """float32 accumulators a thread keeps: its partials a split."""
         if self.form in ("mma", "short"):
-            return self.NT8 // 2  # a warp's 16 rows x NT8 over 32 lanes
+            return self.NC // 2  # a warp's 16 rows x NC over 32 lanes
         if self.PQ == 0:
             return self.k + self.k * (self.k + 1) // 2
         return 4 * self.PQ
@@ -145,14 +180,17 @@ class TablesPlan(NamedTuple):
     def partial(self) -> int:
         """float32 partials a block writes a split (S > 1)."""
         if self.form in ("mma", "short"):
-            return self.RT * self.NT8
+            return self.RT * self.NC
         return self.accumulators * THREADS
 
     @property
     def registers(self) -> int:
         """Registers a thread needs: its accumulators, in rows_kernel and
         mma_kernel M's rows and the partner's (or its A fragments) too,
-        and the rest."""
+        or with column tiles a group's products and both fragments, and the
+        rest."""
+        if self.NCT:
+            return 2 * self.accumulators + 32 + REG_BASE
         if self.form in ("mma", "short"):
             return self.accumulators + 2 * self.k + 32 + REG_BASE
         extra = 2 * self.k if self.PQ == 0 else 0
@@ -206,6 +244,43 @@ def _mma_floats(k: int, RW: int) -> int:
     return (flags + 2 * k + 2) // 2 * 2 + 2 * STAGES  # and the mbarriers
 
 
+def _tile_floats(k: int, RW: int, nct: int) -> int:
+    """mma_tiles_kernel's shared memory in floats (csrc/tables.cu's
+    tile_layout): _mma_floats' ring, one column tile's [O | Q] (2 x nct
+    n-blocks x L / 4 core matrices) and its 8 nct column codes; after the
+    loop the block's partials (KW RT rows, 8 nct + 1 apart) in the same
+    space; the flags, two ints, the mbarriers."""
+    KW = MMA_WARPS // RW
+    RT, L = 16 * RW, _mma_stage(RW)
+    staging = (2 * STAGES * RT * L + STAGES * L * k
+               + 2 * nct * (L // 4) * CORE + 8 * nct)
+    flags = max(staging, KW * RT * (8 * nct + 1))
+    return (flags + 2 * k + 2) // 2 * 2 + 2 * STAGES
+
+
+@functools.lru_cache(maxsize=64)
+def tile_list(k: int, nct: int) -> tuple:
+    """Each column tile's Z entries in a row, in the order of their
+    addresses in the row's k x k: per tile 2 * 8 nct ints (column of
+    the tile | address << 8 | (1 + c) << 20 on the diagonal (c, c),
+    which is SQ's too), -1 past the tile's last; the tiles of
+    tables_plan's column tiles in order."""
+    nc, ny8 = 8 * nct, 8 * -(-k // 8)
+    nt8 = ny8 + 8 * -(-(k * (k + 1) // 2) // 8)
+    out = []
+    for n0 in range(0, nt8, nc):
+        ent = []
+        for c in range(k):
+            for c2 in range(k):
+                lo, hi = min(c, c2), max(c, c2)
+                n = ny8 + lo * k - lo * (lo - 1) // 2 + hi - lo - n0
+                if 0 <= n < nc:
+                    ent.append(n | (c * k + c2) << 8
+                               | ((c + 1) << 20 if c == c2 else 0))
+        out.append(ent + [-1] * (2 * nc - len(ent)))
+    return tuple(out)
+
+
 @functools.lru_cache(maxsize=256)
 def tables_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
     """The plan of one sampler's call at rows R, partners m, k patterns
@@ -216,21 +291,29 @@ def tables_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
                          f"n_sm={n_sm}")
     qy = -(-k // 4)
     nq = qy + -(-(k * (k + 1) // 2) // 4)
-    if k <= ROWS_MAX_K and m >= MMA_MIN_M and R >= MMA_MIN_R:  # mma_kernel
+    if k <= TILE_MAX_K and m >= MMA_MIN_M and R >= MMA_MIN_R:  # mma_kernel
         RW = 1 if R <= 16 else 2 if R <= 32 else MMA_WARPS
         RT, L = 16 * RW, _mma_stage(RW)
         row_tiles = -(-R // RT)
-        want = -(-FILL * n_sm // row_tiles)
+        # column tiles above 12, wider above TILE_WIDE_K in the
+        # tensor-core form (the short form's ring of 64 partners leaves
+        # no room for them)
+        wide = k > TILE_WIDE_K and RW == MMA_WARPS
+        nct = 0 if k <= ROWS_MAX_K else 2 * TILE_NT if wide else TILE_NT
+        nt = -(-k // 8) + -(-(k * (k + 1) // 2) // 8)
+        acc_tiles = -(-nt // nct) if nct else 1
+        want = -(-FILL * n_sm // (row_tiles * acc_tiles))
         CH = L * -(-m // (want * L))
         min_chunk = min(MMA_CHUNK, max(2 * L, MMA_CHUNK_ROWS * R))
         CH = max(CH, L * -(-min_chunk // L))
         CH = min(CH, L * -(-m // L))
         S = -(-m // CH)
         form = "short" if RW < MMA_WARPS else "mma"
+        floats = _tile_floats(k, RW, nct) if nct else _mma_floats(k, RW)
         return TablesPlan(R=R, m=m, k=k, qy=qy, nq=nq, G=1, PQ=0, RT=RT,
-                          TQ=0, acc_tiles=1, row_tiles=row_tiles, L=L,
-                          CH=CH, S=S, smq=0, smem=4 * _mma_floats(k, RW),
-                          form=form, RW=RW)
+                          TQ=0, acc_tiles=acc_tiles, row_tiles=row_tiles,
+                          L=L, CH=CH, S=S, smq=0, smem=4 * floats,
+                          form=form, RW=RW, NCT=nct)
     if k <= ROWS_MAX_K:  # rows_kernel
         G, PQ, TQ, acc_tiles, smq = 1, 0, 0, 1, 0
     else:
@@ -279,6 +362,15 @@ def tables_counts(R: int, m: int, k: int, nch: int) -> tuple:
     return n_bytes, n_ops
 
 
+def tables_tc_counts(R: int, m: int, k: int, nch: int) -> tuple:
+    """(bytes, TF32 tensor-core operations) of one call for the
+    tensor-core bound: tables_counts' bytes, and the 3xTF32 products of
+    the k + k(k+1)/2 columns of [O | Q] over every (row, partner), three
+    products of two operations each."""
+    kp = k * (k + 1) // 2
+    return tables_counts(R, m, k, nch)[0], nch * 6 * R * m * (k + kp)
+
+
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32 (10 fraction bits) as cvt.rna.tf32.f32
     does: to nearest, ties away from zero; what is not finite stays."""
@@ -312,14 +404,16 @@ def tables_tf32(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
                 other: torch.Tensor, n_sm: int = 132) -> tuple:
     """(Y, SQ, Z, col_nz) as mma_kernel forms them, emulated on float32
     CPU tensors (..., R, m), (..., R, m), (..., R, k), (..., m, k) of one
-    leading shape: [O | Q] with Q[i, (c, c')] = O_c O_c', the 3xTF32
-    products of each group of 16 partners (_mma_products, whose float32
-    rounding inside a product stands for the tensor core's) of X W with O
-    and of W with Q, added in float32 to a warp's sums, the warps of a
-    block in warp order and the splits in split order, as
-    tables_plan(R, m, k, n_sm) says; then Y = (X W) O - M Z, M Z by an
-    fmaf chain over c'. The CPU tests hold it to the JAX package; no path
-    runs it."""
+    leading shape: [O | Q] with Q[i, (c, c')] = O_c O_c' in its NT8
+    columns (Y's k padded to n-tiles of 8, then the pairs), cut into the
+    plan's column tiles (one where k <= 12); per tile the 3xTF32 products
+    of each group of 16 partners (_mma_products, whose float32 rounding
+    inside a product stands for the tensor core's) of X W with its Y
+    columns and of W with the rest, added in float32 to a warp's sums,
+    the warps of a block in warp order and the splits in split order, as
+    tables_plan(R, m, k, n_sm) says; then, from every tile's sums, Y = (X
+    W) O - M Z, M Z by an fmaf chain over c'. The CPU tests hold it to
+    the JAX package; no path runs it."""
     R, m = D.shape[-2:]
     k = M.shape[-1]
     plan = tables_plan(R, m, k, n_sm)
@@ -328,38 +422,47 @@ def tables_tf32(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
     f32 = torch.float32
     XW = D * invS2
     pairs = [(c, c2) for c in range(k) for c2 in range(c, k)]
-    Q = torch.stack([other[..., c] * other[..., c2] for c, c2 in pairs], -1)
-    parts = []
-    for lo, hi in plan.splits():
-        warps = [None] * plan.KW
-        for q, g0 in enumerate(range(lo, hi, 16)):
-            g1 = min(g0 + 16, hi)
-            pad = (0, 16 - (g1 - g0))
+    ny8 = 8 * -(-k // 8)
+    B = torch.zeros(other.shape[:-1] + (plan.NT8,), dtype=f32)
+    B[..., :k] = other
+    for p, (c, c2) in enumerate(pairs):
+        B[..., ny8 + p] = other[..., c] * other[..., c2]
+    sums = []
+    for n0, n1 in plan.column_tiles():
+        is_y = torch.arange(n0, n1) < ny8
+        parts = []
+        for lo, hi in plan.splits():
+            warps = [None] * plan.KW
+            for q, g0 in enumerate(range(lo, hi, 16)):
+                g1 = min(g0 + 16, hi)
+                pad = (0, 16 - (g1 - g0))
 
-            def rows(x):
-                return torch.nn.functional.pad(x[..., g0:g1], pad)
+                def rows(x):
+                    return torch.nn.functional.pad(x[..., g0:g1], pad)
 
-            def cols(x):
-                return torch.nn.functional.pad(x[..., g0:g1, :], (0, 0) + pad)
-
-            d = torch.cat([_mma_products(rows(XW), cols(other)),
-                           _mma_products(rows(invS2), cols(Q))], -1)
-            w = q % plan.KW
-            warps[w] = d if warps[w] is None else warps[w] + d
-        block = None
-        for w in warps:
-            if w is not None:
-                block = w if block is None else block + w
-        if block is None:
-            block = torch.zeros(D.shape[:-1] + (k + len(pairs),), dtype=f32)
-        parts.append(block)
-    total = parts[0]
-    for x in parts[1:]:
-        total = total + x
+                b = torch.nn.functional.pad(B[..., g0:g1, n0:n1],
+                                            (0, 0) + pad)
+                d = _mma_products(rows(invS2), b)
+                if is_y.any():  # the tile holding Y
+                    d = torch.where(is_y, _mma_products(rows(XW), b), d)
+                w = q % plan.KW
+                warps[w] = d if warps[w] is None else warps[w] + d
+            block = None
+            for w in warps:
+                if w is not None:
+                    block = w if block is None else block + w
+            if block is None:
+                block = torch.zeros(D.shape[:-1] + (n1 - n0,), dtype=f32)
+            parts.append(block)
+        total = parts[0]
+        for x in parts[1:]:
+            total = total + x
+        sums.append(total)
+    total = torch.cat(sums, -1)
     Z = torch.empty(D.shape[:-1] + (k, k), dtype=f32)
     for p, (c, c2) in enumerate(pairs):
-        Z[..., c, c2] = total[..., k + p]
-        Z[..., c2, c] = total[..., k + p]
+        Z[..., c, c2] = total[..., ny8 + p]
+        Z[..., c2, c] = total[..., ny8 + p]
     mz = torch.zeros(D.shape[:-1] + (k,), dtype=f32)
     for c2 in range(k):  # fmaf: the product exact, one rounding
         mz = (M[..., c2:c2 + 1].double() * Z[..., c2, :].double()
@@ -375,12 +478,13 @@ def build() -> tuple:
     lib, report = cuda_build.load("tables")
     fn = lib.cogaps_tables_launch
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [i] * 15 + [p, ll] * 4 + [p] * 8
+    fn.argtypes = [i] * 16 + [p, ll] * 4 + [p] * 9
     fn.restype = i
     return lib, report
 
 
 _COUNTERS: dict = {}  # device -> int32 counters, zero between launches
+_LISTS: dict = {}  # (device, k, NCT) -> tile_list(k, NCT) on the device
 
 
 def _counters(device, n: int) -> torch.Tensor:
@@ -432,25 +536,33 @@ def dense_tables(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
         return Y, SQ, Z, col_nz
     plan = tables_plan(R, m, k, cuda_build.sm_count(dev.index or 0))
     tiles = plan.row_tiles * plan.acc_tiles
-    part = flags = counters = None
+    part = flags = counters = zlist = None
     if plan.S > 1:
         part = torch.empty(nch * tiles * plan.S * plan.partial,
                            dtype=f32, device=dev)
         flags = torch.empty(nch * plan.S * 2 * k, dtype=torch.int32,
                             device=dev)
-        counters = _counters(dev, nch * tiles)
+    if plan.S > 1 or plan.acc_tiles > 1:  # splits', then row tiles' counts
+        counters = _counters(dev, nch * (tiles + plan.row_tiles))
+    if plan.NCT:
+        zlist = _LISTS.get((dev, k, plan.NCT))
+        if zlist is None:
+            zlist = torch.tensor(tile_list(k, plan.NCT), dtype=torch.int32,
+                                 device=dev)
+            _LISTS[(dev, k, plan.NCT)] = zlist
     lib, _ = build()
     with torch.cuda.device(dev):
         err = lib.cogaps_tables_launch(
             nch, R, m, k, min(FORMS.index(plan.form), 2), plan.G, plan.PQ,
             plan.TQ, plan.acc_tiles, plan.S, plan.CH, plan.L, plan.smq,
-            plan.RW, plan.smem,
+            plan.RW, plan.NCT, plan.smem,
             D.data_ptr(), strides[0], invS2.data_ptr(), strides[1],
             M.data_ptr(), strides[2], other.data_ptr(), strides[3],
             Y.data_ptr(), SQ.data_ptr(), Z.data_ptr(), col_nz.data_ptr(),
             None if part is None else part.data_ptr(),
             None if flags is None else flags.data_ptr(),
             None if counters is None else counters.data_ptr(),
+            None if zlist is None else zlist.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"tables kernel launch failed: CUDA error {err} "

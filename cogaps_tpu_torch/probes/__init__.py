@@ -40,16 +40,19 @@ from ..ops import cuda_build
 # bound_ms.
 H100_BYTES_PER_S = 3.35e12
 H100_OPS_PER_S = 67e12
+H100_TF32_OPS_PER_S = 495e12  # dense TF32 on the tensor cores
 
 _CTYPES = {"i": ctypes.c_int, "f": ctypes.c_float, "p": ctypes.c_void_p}
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = H100_OPS_PER_S) -> tuple:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the peak rate, in ms, and
-    which of the two it is ("bytes" or "operations")."""
+    the memory rate and the operations over the peak rate (float32
+    outside the tensor cores unless `ops_per_s` names another), in ms,
+    and which of the two it is ("bytes" or "operations")."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / H100_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

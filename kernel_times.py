@@ -53,22 +53,26 @@ of the weakest one, of the plateau and of meanChiSq, and between the
 two, Fisher's exact test of the pass rates and Mann-Whitney U tests of
 the distributions (scipy.stats).
 
-With --quads it times instead the tables kernel's plan at k=10 on
+With --quads it times instead the tables kernel's plan at k=20 on
 chip_smoke's 4 x 5000 x 2000 and 16 x 20000 x 100 cases, A and P:
-ops/tables_cuda.tables_plan's choice and quads_kernel<PQ> (its plan for
-k above ROWS_MAX_K, forced), in turns (plan, quads, quads, plan): the
-stream's ms a call, events' ms, the plan and the worst error against
-the float64 tables.
+ops/tables_cuda.tables_plan's choice (mma_kernel in column tiles) and
+quads_kernel<PQ> (its plan for k above TILE_MAX_K, forced), in turns
+(tiles, quads, quads, tiles): the stream's ms a call, events' ms, the
+plan and the worst error against the float64 tables.
 
 With --tables it times instead the per-call tables kernel
 (models/dense.tables, csrc/tables.cu) at chip_smoke's TABLES_CASES: per
 case the stream's ms a call (chip_smoke.stream_ms) and the host's, events'
-ms, the bound (tables_counts) and bound / stream ms, the worst error
+ms, the plain cuBLAS tables' stream ms (models/dense.tables_plain), the
+float32 bound (tables_counts) and the tensor-core bound
+(tables_tc_counts, TF32 at 495 TFLOP/s) and each over stream ms, the
+worst error
 against the float64 tables over the summed |terms| and whether every
 entry is within 1e-5 of them, the launches a call and the plan's form;
 with the parent's package as DIR, the parent kernel at the same inputs.
 Optional overrides of this checkout's plan constants (name=value,
---plan), to time other chunks.
+--plan), to time other chunks; --cases NAME... keeps the cases whose
+names hold one of them.
 
 With --chisq it times instead the dense chi^2 (models/dense.
 chisq_from_state): per call at 16 x 20000 x 100 k=10, 4 x 5000 x 2000
@@ -337,18 +341,18 @@ def golden_summary(rows) -> dict:
     return out
 
 
-QUADS_CASES = ("5000x2000 A x4", "5000x2000 P x4", "20000x100 A x16",
-               "20000x100 P x16")
+QUADS_CASES = ("5000x2000 A x4 k=20", "5000x2000 P x4 k=20",
+               "20000x100 A x16 k=20", "20000x100 P x16 k=20")
 
 
 def quads_times(cs, device) -> list:
-    """rows_kernel<10> against the forced quads_kernel plan (see the
-    module's docstring)."""
+    """The plan's column-tiled mma_kernel at k=20 against the forced
+    quads_kernel plan (see the module's docstring)."""
     import torch
     from cogaps_tpu_torch.models import dense
     from cogaps_tpu_torch.ops import cuda_build, tables_cuda
     n_sm = cuda_build.sm_count(device.index or 0)
-    rows_max = tables_cuda.ROWS_MAX_K
+    tile_max = tables_cuda.TILE_MAX_K
     out = []
     for i, (name, R, m, k, nch) in enumerate(cs.TABLES_CASES):
         if name not in QUADS_CASES:
@@ -357,8 +361,10 @@ def quads_times(cs, device) -> list:
         ec, ep = dense.exact_tables(*args)
         terms = cs.tables_terms(*args)
         got = {}
-        for form in ("rows", "quads", "quads", "rows"):
-            tables_cuda.ROWS_MAX_K = rows_max if form == "rows" else 0
+        for form in ("tiles", "quads", "quads", "tiles"):
+            # no column tiles above ROWS_MAX_K: quads_kernel's plan
+            tables_cuda.TILE_MAX_K = (tile_max if form == "tiles"
+                                      else tables_cuda.ROWS_MAX_K)
             tables_cuda.tables_plan.cache_clear()
             try:
                 plan = tables_cuda.tables_plan(R, m, k, n_sm)
@@ -371,24 +377,24 @@ def quads_times(cs, device) -> list:
                 ev = cs.time_calls(lambda: tables_cuda.dense_tables(*args),
                                    20)
             finally:
-                tables_cuda.ROWS_MAX_K = rows_max
+                tables_cuda.TILE_MAX_K = tile_max
                 tables_cuda.tables_plan.cache_clear()
             out.append({"case": name, "form": form, "stream_ms": dev,
                         "host_ms": host, "events_ms": ev,
                         "worst_error": err, "within_1e-5": ok,
                         "plan": plan._asdict()})
             print(json.dumps(out[-1]), flush=True)
-        out.append({"case": name, "max_abs_rows_minus_quads": max(
+        out.append({"case": name, "max_abs_tiles_minus_quads": max(
             float((a - b).abs().max())
-            for a, b in zip(got["rows"], got["quads"]))})
+            for a, b in zip(got["tiles"], got["quads"]))})
         del args, ec, ep, terms, got
         torch.cuda.empty_cache()
     return out
 
 
-def tables_times(cs, device, overrides=()) -> list:
-    """The root's tables kernel at chip_smoke's TABLES_CASES (see the
-    module's docstring)."""
+def tables_times(cs, device, overrides=(), cases=()) -> list:
+    """The root's tables kernel at chip_smoke's TABLES_CASES, or at those
+    whose names hold one of `cases` (see the module's docstring)."""
     import torch
     from cogaps_tpu_torch.models import dense
     from cogaps_tpu_torch.ops import cuda_build, tables_cuda
@@ -398,8 +404,13 @@ def tables_times(cs, device, overrides=()) -> list:
         setattr(tables_cuda, name, int(value))
     tables_cuda.tables_plan.cache_clear()
     n_sm = cuda_build.sm_count(device.index or 0)
+    # an older package has no tensor-core count: its rows carry the
+    # float32 bound alone
+    tc_counts = getattr(tables_cuda, "tables_tc_counts", None)
     out = []
     for i, (name, R, m, k, nch) in enumerate(cs.TABLES_CASES):
+        if cases and not any(c in name for c in cases):
+            continue
         args = cs.tables_inputs(R, m, k, nch, 100 + i, device)
         before = tables_cuda.dense_tables.launches
         cache, phase = dense.tables(*args)
@@ -412,11 +423,18 @@ def tables_times(cs, device, overrides=()) -> list:
         del cache, phase, ec, ep
         dev, host = cs.stream_ms(lambda: dense.tables(*args))
         ev = cs.time_calls(lambda: dense.tables(*args), 20)
+        plain, _ = cs.stream_ms(lambda: dense.tables_plain(*args))
         bound, by = bound_ms(*tables_cuda.tables_counts(R, m, k, nch))
+        tc, tc_by = (bound_ms(*tc_counts(R, m, k, nch), ops_per_s=495e12)
+                     if tc_counts else (None, None))
         plan = tables_cuda.tables_plan(R, m, k, n_sm)
         out.append({"case": name, "stream_ms": dev, "host_ms": host,
-                    "events_ms": ev, "bound_ms": bound, "bound_by": by,
-                    "share": bound / dev, "worst_error": err,
+                    "events_ms": ev, "plain_stream_ms": plain,
+                    "bound_ms": bound, "bound_by": by,
+                    "share": bound / dev, "tc_bound_ms": tc,
+                    "tc_bound_by": tc_by,
+                    "tc_share": tc / dev if tc else None,
+                    "worst_error": err,
                     "within_1e-5": ok, "launches": launched,
                     "form": getattr(plan, "form",
                                     "rows" if plan.PQ == 0 else "quads"),
@@ -544,12 +562,15 @@ def main() -> int:
                     help="GIST golden recovery at N seeds, kernel and "
                          "cuBLAS tables, instead")
     ap.add_argument("--quads", action="store_true",
-                    help="time rows_kernel against quads_kernel at k=10 "
-                         "instead")
+                    help="time the column tiles against quads_kernel at "
+                         "k=20 instead")
     ap.add_argument("--tables", action="store_true",
                     help="time the tables kernel at TABLES_CASES instead")
     ap.add_argument("--plan", nargs="*", default=(), metavar="NAME=VALUE",
                     help="with --tables: plan constants to override")
+    ap.add_argument("--cases", nargs="*", default=(), metavar="TEXT",
+                    help="with --tables: only the cases whose names hold "
+                         "one of these")
     ap.add_argument("--chisq", action="store_true",
                     help="time chi^2 calls and runs with a chi^2 history "
                          "instead")
@@ -580,7 +601,8 @@ def main() -> int:
         elif args.quads:
             record["quads"] = quads_times(cs, device)
         elif args.tables:
-            record["tables"] = tables_times(cs, device, args.plan)
+            record["tables"] = tables_times(cs, device, args.plan,
+                                            args.cases)
         else:
             record["chisq"] = chisq_times(cs, device)
         record["seconds"] = time.perf_counter() - t0

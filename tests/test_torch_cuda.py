@@ -1405,8 +1405,12 @@ TABLES_SHAPES = {  # (R, m, k, nch, the plan's form)
     "5000x2000-P": (2000, 5000, 10, 4, "mma"),
     "20000x100-P-x2": (100, 20000, 10, 2, "mma"),
     "k1": (300, 777, 1, 3, "mma"), "k12-split": (200, 3000, 12, 2, "mma"),
-    "k13": (500, 700, 13, 2, "quads"), "k25": (300, 777, 25, 2, "quads"),
-    "k50": (40, 300, 50, 2, "quads"), "m1": (50, 1, 3, 2, "rows"),
+    "k13": (500, 700, 13, 2, "mma"), "k25": (300, 777, 25, 2, "mma"),
+    "k50": (40, 300, 50, 2, "mma"), "m1": (50, 1, 3, 2, "rows"),
+    "k25-m30": (300, 30, 25, 2, "quads"),
+    "k20-short-split": (17, 999, 20, 3, "short"),
+    "5000x2000-A-k20": (5000, 2000, 20, 4, "mma"),
+    "k64-split": (100, 3000, 64, 2, "mma"),
     "one-row": (1, 4000, 10, 3, "rows"),
     "modsim-A": (25, 20, 3, 1, "rows"), "modsim-P": (20, 25, 3, 1, "rows"),
     "short-R17-split": (17, 999, 6, 3, "short"),
@@ -1419,7 +1423,8 @@ TABLES_SHAPES = {  # (R, m, k, nch, the plan's form)
 def test_dense_tables_kernel_matches_plain(cuda_device, shape):
     """dense.tables on the card (the tables kernel, one launch, in the
     plan's form: mma_kernel's tensor-core and short-row forms, some with
-    splits, rows_kernel, quads_kernel) against exact_tables (float64 sums
+    splits, in column tiles above k = 12, rows_kernel, quads_kernel)
+    against exact_tables (float64 sums
     rounded once): every entry of Y, SQ and Z within 1e-5 of its summed
     |terms|, no worse than twice the plain cuBLAS tables' own worst error
     on the same inputs (m > 1), col_nz equal, SQ Z's diagonal and Z
@@ -1457,9 +1462,11 @@ def test_dense_tables_kernel_matches_plain(cuda_device, shape):
 @pytest.mark.parametrize("shape", [(500, 40, 5), (40, 500, 5),
                                    (100, 20000, 10), (1363, 9, 7),
                                    (9, 1363, 7), (25, 20, 3),
-                                   (300, 777, 13)],
+                                   (300, 777, 13), (300, 777, 20),
+                                   (300, 777, 40), (300, 30, 25)],
                          ids=["subsets-A", "subsets-P", "20000x100-P",
-                              "gist-A", "gist-P", "modsim-A", "k13"])
+                              "gist-A", "gist-P", "modsim-A", "k13", "k20",
+                              "k40", "k25-m30"])
 def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
                                                           shape):
     """A chain's tables are the same bits alone, as one of 4 and as one of
@@ -1468,7 +1475,8 @@ def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
     (a leading dimension of one): in each form of the plan (the
     tensor-core form, with splits at subsets-P and 20000x100-P; the
     short-row form, with splits at gist-P; rows_kernel at subsets-A,
-    gist-A and modsim-A; quads_kernel at k13)."""
+    gist-A and modsim-A; the column tiles at k13 and at k20, with
+    splits, and tiles of 128 columns at k40; quads_kernel at k25-m30)."""
     R, m, k = shape
     D, inv, M, O = _tables_case(cuda_device, R, m, k, 16, seed=7)
 

@@ -45,22 +45,36 @@ PLAN_SHAPES = {  # (R, m, k): sampler A rows are genes, P's samples
     "m1": (50, 1, 3), "odd-m": (37, 1001, 5),
     "k1": (300, 777, 1), "k3": (300, 777, 3), "k7": (300, 777, 7),
     "k10": (300, 777, 10), "k25": (300, 777, 25),
-    "k25-few-rows": (3, 5000, 25), "k50": (40, 30, 50),
+    "k25-few-rows": (3, 5000, 25), "k50": (40, 300, 50),
     "subsets-A": (5005, 100, 10), "subsets-P": (100, 5005, 10),
     "modsim-A": (25, 20, 3), "modsim-P": (20, 25, 3),
     "m16": (70, 16, 4), "R17": (17, 999, 6), "R33": (33, 4001, 8),
     "k12": (200, 3000, 12),
+    # above k = 12: the column tiles, and what stays quads_kernel's
+    "k13": (500, 700, 13), "gist-A-k13": (1363, 9, 13),
+    "gist-P-k13": (9, 1363, 13), "5000x2000-A-k20": (5000, 2000, 20),
+    "5000x2000-P-k20": (2000, 5000, 20), "20000x100-A-k20": (20000, 100, 20),
+    "20000x100-P-k20": (100, 20000, 20), "5000x2000-A-k50": (5000, 2000, 50),
+    "5000x2000-P-k50": (2000, 5000, 50), "k64": (70, 64, 64),
+    "k25-m30": (300, 30, 25), "k50-m30": (40, 30, 50),
+    "k25-one-row": (1, 4000, 25), "k65": (300, 777, 65),
 }
 # the form tables_plan takes: mma_kernel's tensor-core ("mma") and
-# short-row ("short") forms, rows_kernel, quads_kernel
+# short-row ("short") forms (in column tiles above k = 12), rows_kernel,
+# quads_kernel (above k = 12 where m < MMA_MIN_M, R = 1 or k > TILE_MAX_K)
 PLAN_FORMS = {
     "gist-A": "rows", "gist-P": "short", "5000x2000-A": "mma",
     "5000x2000-P": "mma", "20000x100-A": "mma", "20000x100-P": "mma",
     "block-2500x2000-A": "mma", "block-2500x2000-P": "mma", "m1": "rows",
-    "k1": "mma", "k12": "mma", "k25": "quads", "k25-few-rows": "quads",
-    "k50": "quads", "subsets-A": "mma", "subsets-P": "mma",
+    "k1": "mma", "k12": "mma", "k25": "mma", "k25-few-rows": "short",
+    "k50": "mma", "subsets-A": "mma", "subsets-P": "mma",
     "modsim-A": "rows", "modsim-P": "rows", "m16": "rows",
-    "R17": "short", "R33": "mma"}
+    "R17": "short", "R33": "mma", "k13": "mma", "gist-A-k13": "quads",
+    "gist-P-k13": "short", "5000x2000-A-k20": "mma",
+    "5000x2000-P-k20": "mma", "20000x100-A-k20": "mma",
+    "20000x100-P-k20": "mma", "5000x2000-A-k50": "mma",
+    "5000x2000-P-k50": "mma", "k64": "mma", "k25-m30": "quads",
+    "k50-m30": "quads", "k25-one-row": "quads", "k65": "quads"}
 
 
 def test_plan_takes_no_chain_count():
@@ -97,11 +111,16 @@ def test_plan_fits_a_block_and_covers_every_entry(shape):
         assert plan.RT == 16 * plan.RW
         assert plan.L == tables_cuda._mma_stage(plan.RW) >= 16 * plan.KW
         assert plan.CH % plan.L == 0 and plan.G == 1 and plan.PQ == 0
-        assert plan.smem == 4 * tables_cuda._mma_floats(k, plan.RW)
+        floats = (tables_cuda._tile_floats(k, plan.RW, plan.NCT) if plan.NCT
+                  else tables_cuda._mma_floats(k, plan.RW))
+        assert plan.smem == 4 * floats
         kp = k * (k + 1) // 2  # n-tiles of 8 cover Y's k and Z's kp
         assert plan.NT8 % 8 == 0 and plan.NT8 - 8 < k + kp + 8
         assert plan.NT8 >= 8 * -(-k // 8) + kp
-        assert plan.partial == plan.RT * plan.NT8
+        assert plan.partial == plan.RT * plan.NC
+        # column tiles above k = 12, one tile of every column below
+        assert (plan.NCT > 0) == (k > tables_cuda.ROWS_MAX_K)
+        assert plan.acc_tiles == -(-plan.NT8 // plan.NC)
         return
     assert plan.G * plan.RT == tables_cuda.THREADS
     if plan.PQ == 0:  # rows_kernel: a thread a row, every entry
@@ -122,13 +141,17 @@ def test_plan_fits_a_block_and_covers_every_entry(shape):
     ((9, 1363, 13), False), ((300, 777, 25), False)],
     ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else str(x))
 def test_plan_takes_the_rows_kernel_up_to_k12(shape, rows):
-    """A row's accumulators at once (PQ 0: mma_kernel, or rows_kernel
-    below MMA_MIN_M partners) wherever k <= 12; quads_kernel, its quads spread over a
-    row's threads where the rows are few, for a larger k."""
+    """A row's accumulators at once in one block (one column tile of
+    mma_kernel, or rows_kernel below MMA_MIN_M partners) wherever k <=
+    12; for a larger k, mma_kernel's column tiles over several blocks
+    from MMA_MIN_M partners, or quads_kernel, its quads spread over a
+    row's threads where the rows are few."""
     plan = tables_cuda.tables_plan(*shape, H100_SMS)
-    assert (plan.PQ == 0) is rows
-    if not rows and shape[0] < 64:
+    assert (plan.PQ == 0 and plan.acc_tiles == 1) is rows
+    if not rows and plan.form == "quads" and shape[0] < 64:
         assert plan.G > 1
+    if not rows and plan.form != "quads":
+        assert plan.acc_tiles > 1 and plan.G == 1
 
 
 @pytest.mark.parametrize("R,chunk", [(9, 128), (32, 384), (40, 480),
@@ -157,9 +180,10 @@ def test_plan_fills_the_card_where_one_chain_can():
 @pytest.mark.parametrize("name", list(PLAN_FORMS))
 def test_plan_picks_the_expected_form(name):
     """The tensor-core form for 33 rows and more, the short-row form
-    (partners split over the warps) below, rows_kernel where the
-    contraction is shorter than MMA_MIN_M partners (the accuracy gate),
-    quads_kernel above k = 12."""
+    (partners split over the warps) below, up to k = TILE_MAX_K;
+    rows_kernel where the contraction is shorter than MMA_MIN_M partners
+    (the accuracy gate) or at one row, quads_kernel there above k = 12
+    and beyond TILE_MAX_K."""
     plan = tables_cuda.tables_plan(*PLAN_SHAPES[name], H100_SMS)
     assert plan.form == PLAN_FORMS[name]
     assert (plan.KW > 1) == (plan.form == "short")
@@ -192,12 +216,72 @@ def test_plan_covers_every_row_and_partner_once(shape):
     assert (_coverage(plan) == 1).all()
 
 
+TILE_SHAPES = [(40, 300, 20), (17, 999, 13), (100, 2000, 25), (70, 64, 50),
+               (9, 1363, 13), (5000, 2000, 20), (100, 20000, 20),
+               (2000, 5000, 50), (3, 5000, 64), (64, 64, 33)]
+
+
+@pytest.mark.parametrize("shape", TILE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plan_column_tiles_cover_each_column_once(shape):
+    """Above k = 12 (mma_kernel's column tiles): the plan takes no chain
+    count; its column tiles, in the grid's order, cover each of the NT8
+    columns once, Y's n-tiles all in the first; its splits cover the
+    contraction once, in order; a block's shared memory and the register
+    estimate fit three blocks an SM up to k = 22 and two above (and in
+    the tensor-core form's tiles of 128 columns above TILE_WIDE_K); every
+    entry of a row's k x k is in exactly one tile's Z list, in address
+    order, SQ's diagonal marked."""
+    R, m, k = shape
+    plan = tables_cuda.tables_plan(R, m, k, H100_SMS)
+    # 128 columns a tile, not 64, in the tensor-core form
+    wide = k > tables_cuda.TILE_WIDE_K and plan.form == "mma"
+    assert plan.form in ("mma", "short")
+    assert plan.NCT == tables_cuda.TILE_NT * (2 if wide else 1)
+    tiles = plan.column_tiles()
+    assert len(tiles) == plan.acc_tiles and tiles[0][0] == 0
+    assert tiles[-1][1] == plan.NT8
+    for (a, b), (a2, _) in zip(tiles, tiles[1:]):
+        assert a < b == a2 and b - a == plan.NC
+    assert 8 * -(-k // 8) <= plan.NC  # Y's columns in tile 0
+    splits = plan.splits()
+    assert splits[0][0] == 0 and splits[-1][1] == m
+    assert all(lo < hi == lo2 for (lo, hi), (lo2, _) in zip(splits,
+                                                             splits[1:]))
+    per_sm = 3 if k <= 22 and not wide else 2
+    assert per_sm * (plan.smem + 1024) <= 228 * 1024
+    assert plan.registers <= 65536 // (per_sm * tables_cuda.THREADS)
+    assert plan.partial == plan.RT * plan.NC
+    lists = tables_cuda.tile_list(k, plan.NCT)
+    assert len(lists) == plan.acc_tiles
+    seen = np.zeros(k * k, dtype=np.int32)
+    ny8, kp = 8 * -(-k // 8), k * (k + 1) // 2
+    for t, ent in enumerate(lists):
+        assert len(ent) == 2 * plan.NC
+        live = [x for x in ent if x >= 0]
+        assert list(ent[len(live):]) == [-1] * (len(ent) - len(live))
+        addr = [(x >> 8) & 0xFFF for x in live]
+        assert addr == sorted(addr)
+        for x, e in zip(live, addr):
+            seen[e] += 1
+            c, c2 = divmod(e, k)
+            lo, hi = min(c, c2), max(c, c2)
+            n = ny8 + lo * k - lo * (lo - 1) // 2 + hi - lo
+            assert n == tiles[t][0] + (x & 0xFF) and n < ny8 + kp
+            assert (x >> 20) == (c + 1 if c == c2 else 0)
+    assert (seen == 1).all()
+
+
 def test_tables_counts_by_hand():
     """R=2, m=3, k=2 (3 pairs): bytes 4 (2*6 D and W + 4 M + 6 O + 8 Y
     and SQ + 8 Z) + 2 col_nz = 154; operations 6 elements x (8 + 2 + 6) +
     3 partners x 3 pairs = 105."""
     assert tables_cuda.tables_counts(2, 3, 2, 1) == (154, 105)
     assert tables_cuda.tables_counts(2, 3, 2, 4) == (616, 420)
+    # the tensor-core count: 3 products x 2 operations x 6 (row, partner)
+    # pairs x (2 + 3) columns
+    assert tables_cuda.tables_tc_counts(2, 3, 2, 1) == (154, 180)
+    assert tables_cuda.tables_tc_counts(2, 3, 2, 4) == (616, 720)
 
 
 def _tables_inputs(R, m, k, nch, seed=3):
@@ -298,20 +382,27 @@ def test_tf32_round_is_cvt_rna():
 
 
 @pytest.mark.parametrize("shape", [(20, 96, 3), (17, 999, 6), (9, 1363, 7),
-                                   (40, 300, 5), (100, 2000, 4)],
+                                   (40, 300, 5), (100, 2000, 4),
+                                   (40, 300, 20), (17, 999, 13),
+                                   (100, 2000, 25), (70, 64, 50)],
                          ids=["short-R20", "short-R17-split", "gist-P",
-                              "mma-k5", "mma-split"])
+                              "mma-k5", "mma-split", "tiles-k20",
+                              "tiles-short-split-k13", "tiles-split-k25",
+                              "tiles-k50"])
 def test_tf32_tables_match_jax_per_chain(shape):
     """mma_kernel's arithmetic (tables_tf32: the 3xTF32 products, the sums
-    in the plan's order) on two chains at once, each chain against the
-    JAX package's make_phase and rebuild_cache, and against the float64
-    tables, each entry within 1e-5 of its summed |terms|; the plan's
-    form, with splits at gist-P and mma-split."""
+    in the plan's order, column tile by column tile above k = 12) on two
+    chains at once, each chain against the JAX package's make_phase and
+    rebuild_cache, and against the float64 tables, each entry within
+    1e-5 of its summed |terms|; the plan's form, with splits at gist-P,
+    mma-split, tiles-short-split-k13 and tiles-split-k25."""
     R, m, k = shape
     plan = tables_cuda.tables_plan(R, m, k, H100_SMS)
     assert plan.form in ("mma", "short")
     assert (plan.S > 1) == (shape in ((17, 999, 6), (9, 1363, 7),
-                                      (100, 2000, 4)))
+                                      (100, 2000, 4), (17, 999, 13),
+                                      (100, 2000, 25)))
+    assert (plan.acc_tiles > 1) == (k > tables_cuda.ROWS_MAX_K)
     D, inv, M, O = _tables_inputs(R, m, k, 2, seed=R + m)
     Y, SQ, Z, col_nz = tables_cuda.tables_tf32(
         *(torch.from_numpy(a) for a in (D, inv, M, O)))
