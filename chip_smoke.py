@@ -81,15 +81,24 @@ Phases:
               or short-row form, in column tiles above k = 12
               (mma_tiles_kernel), rows_kernel or quads_kernel) and
               ptxas's registers and spills; the same at k=20 (4 x 5000
-              x 2000, 16 x 20000 x 100), k=50 (4 x 5000 x 2000) and
-              GIST x1 k=13, with the tensor-core bound
-              (tables_cuda.tables_tc_counts, TF32 at 495 TFLOP/s)
-              beside the float32 one;
+              x 2000, 16 x 20000 x 100), k=50 (4 x 5000 x 2000), GIST
+              x1 k=13, k=80 and k=100 (4 x 5000 x 2000), 100 x 100 k=90
+              and 300 x 400 k=150 (Y's columns over two column tiles),
+              with the tensor-core bound (tables_cuda.tables_tc_counts,
+              TF32 at 495 TFLOP/s) beside the float32 one, and each
+              case's kernel's registers, spills and shared bytes; and
+              quads_kernel's remaining ground, 20000 x 40 A at k=20 and
+              k=39;
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda,
               debug_checks=True): meanChiSq below 2x the golden GIST
               value, the kernel launched at least twice per iteration of
               each phase, the tables kernel exactly twice an iteration,
-              and utils/debug.check_state passed after each phase;
+              and utils/debug.check_state passed after each phase; then
+              CoGAPS() on a 100 x 100 matrix at k=90, 100 + 100
+              iterations, and one chain of it in a MultichainEngine whose
+              gate must refuse K3 (above k = 88 it cannot launch): each
+              a finite meanChiSq, no K3 launch and the tables kernel in
+              column tiles twice an iteration;
   5 throughput — run_throughput on GIST, 16 chains, 2000 iterations (the
               fused span: K3 launched, the per-call sweep kernel not),
               then the per-call route on the same data and seeds
@@ -98,9 +107,9 @@ Phases:
   6 realistic — 4 chains of a synthetic 5000 x 2000 matrix (k=10), 100
               iterations per phase: a finite, falling chi^2 history;
               updates/s, peak device memory, tables launches (two an
-              iteration); then the same data at k=20, 50 iterations per
-              phase, both samplers' tables in column tiles: the same
-              checks;
+              iteration); then the same data at k=20 and at k=100, 50
+              iterations per phase, both samplers' tables in column
+              tiles: the same checks;
   7 sparse  — the iteration time of each sparse mode (dense, ell, xla)
               from one state of a 2000 x 10000 k=10 matrix with 87%
               structural zeros, then CoGAPS(sparse_optimization=True,
@@ -1297,7 +1306,19 @@ TABLES_CASES = (  # (name, rows R, partners m, k, chains): both samplers
     ("20000x100 P x16 k=20", 100, 20000, 20, 16),
     ("5000x2000 A x4 k=50", 5000, 2000, 50, 4),
     ("5000x2000 P x4 k=50", 2000, 5000, 50, 4),
-    ("GIST A x1 k=13", 1363, 9, 13, 1), ("GIST P x1 k=13", 9, 1363, 13, 1))
+    ("GIST A x1 k=13", 1363, 9, 13, 1), ("GIST P x1 k=13", 9, 1363, 13, 1),
+    # above k = 64: the column tiles on a ring of two stages; phase 4's
+    # CoGAPS() at 100 x 100 k=90; Y's columns over two tiles at k=150
+    ("5000x2000 A x4 k=80", 5000, 2000, 80, 4),
+    ("5000x2000 P x4 k=80", 2000, 5000, 80, 4),
+    ("5000x2000 A x4 k=100", 5000, 2000, 100, 4),
+    ("5000x2000 P x4 k=100", 2000, 5000, 100, 4),
+    ("100x100 A x1 k=90", 100, 100, 90, 1),
+    ("100x100 P x1 k=90", 100, 100, 90, 1),
+    ("300x400 A x1 k=150", 300, 400, 150, 1),
+    # quads_kernel's remaining ground: bulk data of 40 samples, m < 64
+    ("20000x40 A x1 k=20", 20000, 40, 20, 1),
+    ("20000x40 A x1 k=39", 20000, 40, 39, 1))
 TABLES_HEADLINE = "5000x2000 A x4"
 
 
@@ -1387,6 +1408,7 @@ def phase_tables(device, report, card, reps=20):
         tc, tc_by = bound_ms(*tables_cuda.tables_tc_counts(R, m, k, nch),
                              ops_per_s=H100_TF32_OPS_PER_S)
         plan = tables_cuda.tables_plan(R, m, k, n_sm)
+        regs, spill = ptxas_of(report, tables_symbol(plan))
         rows[name] = (f"{nch} x ({R},{m}) k={k}", ms, plain_ms, bound, by,
                       dev, plain_dev, tc, tc_by)
         log(f"  tables {name} ({nch} x {R}x{m}, k={k}): kernel {ms:.4f} ms "
@@ -1396,9 +1418,11 @@ def phase_tables(device, report, card, reps=20):
             f"tensor-core bound {tc:.4f} ms ({tc_by}), bound/device "
             f"{tc / dev:.3f}; worst |error|/terms against "
             f"the float64 tables {err_k:.3g} (cuBLAS {err_p:.3g}), "
-            f"max|kernel - cuBLAS| {diff:.3g}; plan {tables_form(plan)}"
+            f"max|kernel - cuBLAS| {diff:.3g}; {launched} launch a call; "
+            f"plan {tables_form(plan)}"
             f" RT={plan.RT} S={plan.S} CH={plan.CH} L={plan.L}, "
-            f"{plan.blocks} blocks a chain, {plan.smem} B shared"
+            f"{plan.blocks} blocks a chain, {plan.smem} B shared, ptxas "
+            f"{regs} registers, {spill} bytes of spill stores"
             + ("" if ok else "  MISMATCH"))
         if not ok:
             bad.append(name)
@@ -1413,9 +1437,11 @@ def phase_tables(device, report, card, reps=20):
             for q in range(1, tables_cuda.ROWS_MAX_K + 1)}
     regs.update({f"quads_kernel<{q}>": ptxas_of(report, f"quads_kernelILi{q}E")
                  for q in tables_cuda.QUADS})
-    regs.update({f"mma_tiles_kernel<{q}>": ptxas_of(
-        report, f"mma_tiles_kernelILi{q}E")
-        for q in (tables_cuda.TILE_NT, 2 * tables_cuda.TILE_NT)})
+    regs.update({f"mma_tiles_kernel<{q}, {ns}>": ptxas_of(
+        report, f"mma_tiles_kernelILi{q}ELi{ns}E")
+        for q, ns in ((tables_cuda.TILE_NT, tables_cuda.STAGES),
+                      (2 * tables_cuda.TILE_NT, tables_cuda.STAGES),
+                      (2 * tables_cuda.TILE_NT, 2))})
     log(f"  tables kernels' ptxas (registers, bytes of spill stores): "
         f"{regs}")
     if bad:
@@ -1428,14 +1454,27 @@ def phase_tables(device, report, card, reps=20):
 def tables_form(plan):
     """The tables kernel a plan runs, as phase 3 prints it."""
     if plan.form in ("mma", "short") and plan.NCT:
-        return (f"{plan.form}: mma_tiles_kernel<{plan.NCT}> RW={plan.RW} "
-                f"KW={plan.KW}, {plan.acc_tiles} column tiles of {plan.NC}")
+        return (f"{plan.form}: mma_tiles_kernel<{plan.NCT}, {plan.stages}> "
+                f"RW={plan.RW} KW={plan.KW}, {plan.acc_tiles} column tiles "
+                f"of {plan.NC}")
     if plan.form in ("mma", "short"):
         return (f"{plan.form}: mma_kernel<{plan.k}> RW={plan.RW} "
                 f"KW={plan.KW}")
     if plan.form == "rows":
         return f"rows: rows_kernel<{plan.k}>"
     return f"quads: quads_kernel<{plan.PQ}> G={plan.G}"
+
+
+def tables_symbol(plan):
+    """The part of the mangled name of the tables kernel a plan runs that
+    ptxas_of looks for."""
+    if plan.form in ("mma", "short") and plan.NCT:
+        return f"mma_tiles_kernelILi{plan.NCT}ELi{plan.stages}E"
+    if plan.form in ("mma", "short"):
+        return f"mma_kernelILi{plan.k}E"
+    if plan.form == "rows":
+        return f"rows_kernelILi{plan.k}E"
+    return f"quads_kernelILi{plan.PQ}E"
 
 
 def ptxas_of(report, kernel):
@@ -1450,6 +1489,122 @@ def ptxas_of(report, kernel):
             return (int(regs.group(1)) if regs else None,
                     int(spill.group(1)) if spill else None)
     return None, None
+
+
+def realistic_run(Ds, k, device, n_it=50, seed=7):
+    """Phase 6 at k patterns: the chains of Ds (4 x 5000 x 2000) in a
+    MultichainEngine, n_it + n_it iterations, a chi^2 every 10, on the
+    per-call route; it fails unless chi^2 is finite and falling, the
+    tables launch twice an iteration and both samplers' plans are
+    column tiles. Returns the tables launches."""
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.ops import cuda_build, tables_cuda
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    G, S = Ds[0].shape
+    n_sm = cuda_build.sm_count(device.index or 0)
+    plans = [tables_cuda.tables_plan(R, m, k, n_sm)
+             for R, m in ((G, S), (S, G))]
+    params = cogaps_tpu_torch.CogapsParams(
+        n_patterns=k, n_iterations=n_it, seed=seed, output_frequency=10)
+    cfg = params.engine_config(G, S)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = MultichainEngine(stack_device_data(Ds, None, cfg, device), cfg,
+                           device)
+    rand = PhiloxRandom([seed + c for c in range(len(Ds))], device)
+    state, stats = eng.init_state(), eng.init_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tables_cuda.dense_tables.launches = 0
+    for ph in (EQUILIBRATION, SAMPLING):
+        state, stats = eng.run_phase(state, stats, rand, ph)
+    hist = stats.chisq_hist.cpu().numpy()  # waits for the device
+    t2 = time.perf_counter()
+    launches = tables_cuda.dense_tables.launches
+    ups = int(stats.upd.sum()) / (t2 - t1)
+    log(f"  {len(Ds)} chains x {G}x{S}, k={k}, {n_it}+{n_it} iterations: "
+        f"{ups:.1f} updates/s, {t2 - t1:.2f} s (+{t1 - t0:.2f} s set-up), "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
+        f" atoms A {state.atoms_a.n.tolist()} P {state.atoms_p.n.tolist()};"
+        f" tables launches {launches}, A and P "
+        + " and ".join(tables_form(p) for p in plans))
+    for c in range(len(Ds)):
+        log(f"  chain {c} chi^2 history {np.round(hist[c], 1).tolist()}")
+    if not np.isfinite(hist).all() or not (hist[:, -1] < hist[:, 0]).all():
+        raise AssertionError(f"k={k} chi^2 history is not finite and "
+                             f"falling")
+    if launches != 2 * 2 * n_it:
+        raise AssertionError(f"{launches} tables launches at k={k}, not two"
+                             f" an iteration")
+    if not all(p.NCT and p.form == "mma" for p in plans):
+        raise AssertionError(f"k={k} tables not in column tiles: {plans}")
+    return launches
+
+
+def phase_many_patterns(device, card, n=100, k=90, n_it=100, seed=17):
+    """Phase 4 above k = 88: CoGAPS() on an n x n matrix at k patterns,
+    n_it + n_it iterations, through the public entry point (one chain,
+    the per-call route: both samplers' tables in column tiles), then one
+    chain of the same data in a MultichainEngine with no history, whose
+    gate sends it to the per-call route too (K3 cannot launch past k =
+    88: span_cuda.span_fits). Each ends with a finite meanChiSq, two
+    tables launches an iteration and no K3 launch. Returns the tables
+    launches."""
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.models import dense
+    from cogaps_tpu_torch.ops import cuda_build, span_cuda, tables_cuda
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    from cogaps_tpu_torch.result import finalize_statistics, mean_chi_sq
+    D = np.random.default_rng(seed).gamma(2.0, 2.0, (n, n)).astype(
+        np.float32)
+    plan = tables_cuda.tables_plan(n, n, k, cuda_build.sm_count(
+        device.index or 0))
+    t0 = time.perf_counter()
+    tables_cuda.dense_tables.launches = 0
+    span_cuda.run_span.launches = 0
+    res = cogaps_tpu_torch.CoGAPS(D, n_patterns=k, n_iterations=n_it,
+                                  seed=seed, messages=False, device="cuda")
+    t1 = time.perf_counter()
+    launches = tables_cuda.dense_tables.launches
+    params = cogaps_tpu_torch.CogapsParams(
+        n_patterns=k, n_iterations=n_it, seed=seed, output_frequency=0)
+    cfg = params.engine_config(n, n)
+    eng = MultichainEngine(stack_device_data([D], None, cfg, device), cfg,
+                           device)
+    fused = eng._fused_ok()
+    state, stats = eng.init_state(), eng.init_stats()
+    rand = PhiloxRandom([seed], device)
+    tables_cuda.dense_tables.launches = 0
+    for ph in (EQUILIBRATION, SAMPLING):
+        state, stats = eng.run_phase(state, stats, rand, ph)
+    amean, _, pmean, _ = finalize_statistics(*(
+        x[0].cpu().numpy() for x in (stats.a_sum, stats.a_sumsq,
+                                     stats.p_sum, stats.p_sumsq,
+                                     stats.n_stat)))
+    t2 = time.perf_counter()
+    multi = tables_cuda.dense_tables.launches
+    mcs_multi = mean_chi_sq(amean, pmean, D, dense.default_uncertainty(D))
+    spans = span_cuda.run_span.launches
+    log(f"  CoGAPS() {n}x{n} k={k}, {n_it}+{n_it} iterations: meanChiSq "
+        f"{res.mean_chi_sq:.1f}, {t1 - t0:.2f} s, tables launches "
+        f"{launches} ({tables_form(plan)}, {plan.smem} B shared); one "
+        f"chain of a MultichainEngine, gate fused {fused}: meanChiSq "
+        f"{mcs_multi:.1f}, {t2 - t1:.2f} s, tables launches {multi}; K3 "
+        f"launches {spans}; card: {card}")
+    if not (np.isfinite(res.mean_chi_sq) and np.isfinite(mcs_multi)):
+        raise AssertionError(f"k={k}: meanChiSq not finite")
+    if fused or spans or launches != 4 * n_it or multi != 4 * n_it:
+        raise AssertionError(f"k={k} did not take the per-call route: gate "
+                             f"{fused}, {spans} K3 launches, tables "
+                             f"launches {launches} and {multi}")
+    if not (plan.form == "mma" and plan.NCT):
+        raise AssertionError(f"k={k} tables not in column tiles: {plan}")
+    return launches + multi
 
 
 def build_all():
@@ -2697,6 +2852,7 @@ def main() -> int:
                              f"iteration")
     if len(checked) != 2:
         raise AssertionError(f"check_state ran {len(checked)} times")
+    dense_by["4 (k=90)"] = phase_many_patterns(device, card)
 
     # 5. throughput path: the fused span, then the per-call route
     import functools
@@ -2772,48 +2928,13 @@ def main() -> int:
     if dense_by["6"] != 2 * 2 * 100:
         raise AssertionError(f"{dense_by['6']} tables launches, not two an "
                              f"iteration")
-    # the same data at k=20: both samplers' tables in column tiles
-    # (mma_tiles_kernel), the per-call route
+    # the same data at k=20 and k=100: both samplers' tables in column
+    # tiles (mma_tiles_kernel; at k=100 on a ring of two stages, and K1
+    # above k = 64), the per-call route
     del eng, data, state, stats
-    from cogaps_tpu_torch.ops import cuda_build
-    n_sm = cuda_build.sm_count(device.index or 0)
-    plans20 = [tables_cuda.tables_plan(R, m, 20, n_sm)
-               for R, m in ((5000, 2000), (2000, 5000))]
-    params = cogaps_tpu_torch.CogapsParams(
-        n_patterns=20, n_iterations=50, seed=7, output_frequency=10)
-    cfg = params.engine_config(5000, 2000)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    data = stack_device_data(Ds, None, cfg, device)
+    for k in (20, 100):
+        dense_by[f"6 (k={k})"] = realistic_run(Ds, k, device)
     del Ds
-    eng = MultichainEngine(data, cfg, device)
-    rand = PhiloxRandom([7 + c for c in range(4)], device)
-    state, stats = eng.init_state(), eng.init_stats()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    tables_cuda.dense_tables.launches = 0
-    for ph in (EQUILIBRATION, SAMPLING):
-        state, stats = eng.run_phase(state, stats, rand, ph)
-    hist = stats.chisq_hist.cpu().numpy()  # waits for the device
-    t2 = time.perf_counter()
-    dense_by["6 (k=20)"] = tables_cuda.dense_tables.launches
-    ups = int(stats.upd.sum()) / (t2 - t1)
-    log(f"  4 chains x 5000x2000, k=20, 50+50 iterations: {ups:.1f} "
-        f"updates/s, {t2 - t1:.2f} s (+{t1 - t0:.2f} s set-up), peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; atoms"
-        f" A {state.atoms_a.n.tolist()} P {state.atoms_p.n.tolist()}; "
-        f"tables launches {dense_by['6 (k=20)']}, A and P "
-        + " and ".join(tables_form(p) for p in plans20))
-    for c in range(4):
-        log(f"  chain {c} chi^2 history {np.round(hist[c], 1).tolist()}")
-    if not np.isfinite(hist).all() or not (hist[:, -1] < hist[:, 0]).all():
-        raise AssertionError("k=20 chi^2 history is not finite and falling")
-    if dense_by["6 (k=20)"] != 2 * 2 * 50:
-        raise AssertionError(f"{dense_by['6 (k=20)']} tables launches at "
-                             f"k=20, not two an iteration")
-    if not all(p.NCT and p.form == "mma" for p in plans20):
-        raise AssertionError(f"k=20 tables not in column tiles: {plans20}")
-    del eng, data, state, stats
 
     # 7. the sparse model through CoGAPS()
     from cogaps_tpu_torch.sparse_engine import resolve_sparse_mode

@@ -47,30 +47,35 @@
 //     product start from zero and are then added to the accumulators in
 //     float32 round-to-nearest, so long sums round as fmaf chains do.
 //     The block's sums are staged in shared memory for coalesced writes.
-//   - mma_tiles_kernel<NCT> (12 < k <= 64, m >= 64, R >= 2): the same
-//     forms and arithmetic, every entry's sum in the same order, with
-//     [O | Q]'s 8 ceil(k/8) + 8 ceil(k(k+1)/16) columns cut into column
-//     tiles of 8 NCT, a block's: 64 (a thread's sums and a group's
-//     products in 32 registers each, and both fragments, under the 170
-//     registers of three blocks an SM), or in the tensor-core form
-//     above k = 28 128 (two blocks an SM, W staged and split half as
-//     often a column). The grid's accumulator tiles are the column
-//     tiles, next to each other in blockIdx.x so that a row tile's X
-//     and W come from L2 after its first tile. A block forms only its
-//     tile's columns, a warp a quarter of its n-blocks, the lane's
-//     column codes in registers; on wgmma it forms the stage's second
-//     group of 16 partners while the first group's products run. Tile 0
-//     holds Y's ceil(k/8) n-blocks (all of them up to k = 64): it alone
-//     stages X and runs X W's products, beside W's. A tile writes its Z
-//     entries in the order of their addresses
-//     (ops/tables_cuda.tile_list), SQ and, in tile 0, (X W) O; the last
-//     of a row tile's tiles to finish (a second integer counter, left
-//     0) reads the row tile's Z back and forms Y = (X W) O - M Z with M
-//     Z's fmaf chain over c' as mma_kernel's;
+//   - mma_tiles_kernel<NCT, NS> (k > 12, m >= 64, R >= 2; the short-row
+//     form up to k = 64): the same forms and arithmetic, every entry's
+//     sum in the same order, with [O | Q]'s 8 ceil(k/8) + 8
+//     ceil(k(k+1)/16) columns cut into column tiles of 8 NCT, a block's:
+//     64 (a thread's sums and a group's products in 32 registers each,
+//     and both fragments, under the 170 registers of three blocks an
+//     SM), or in the tensor-core form above k = 28 128 (two blocks an SM,
+//     W staged and split half as often a column). The ring holds NS
+//     stages: three, or two where three would cost the SM its second
+//     block (O's rows grow with k: above k = 74). The grid's accumulator
+//     tiles are the column tiles, next to each other in blockIdx.x so
+//     that a row tile's X and W come from L2 after its first tile. A
+//     block forms only its tile's columns, a warp a quarter of its
+//     n-blocks, the lane's column codes in registers; on wgmma it forms
+//     the stage's second group of 16 partners while the first group's
+//     products run. Y's ceil(k/8) n-blocks fill the first tiles (all in
+//     tile 0 up to k = 128): those alone stage X and run X W's products,
+//     beside W's, and the one holding Y's last n-blocks also takes Z's
+//     first pairs. A tile writes its Z entries in the order of their
+//     addresses (ops/tables_cuda.tile_list), SQ and its columns of (X W)
+//     O; the last of a row tile's tiles to finish (a second integer
+//     counter, left 0) reads the row tile's Z back and forms Y = (X W) O
+//     - M Z with M Z's fmaf chain over c' as mma_kernel's;
 //   - rows_kernel<K> (k <= 12, the rest): a thread a row, K + K(K+1)/2
 //     float accumulators, the partner's row in registers; per partner
 //     t O_c for Y and (W O_c) O_c' for Z, one fmaf each;
-//   - quads_kernel<PQ> (k > 12 where m < 64 or R = 1, and k > 64): after
+//   - quads_kernel<PQ> (k > 12 where m < 64 or R = 1, the short-row
+//     form's R <= 32 above k = 64, which only a direct call reaches, and
+//     past the k whose column tile fits a block, ~614): after
 //     O's rows, a row of "columns" a partner, [O_c | O_c O_c'], formed
 //     once a partner and block, and each thread PQ quads of them (float4
 //     accumulators), G threads sharing a row where its quads exceed PQ or
@@ -1471,22 +1476,25 @@ __global__ void __launch_bounds__(kThreads, 3)
 }
 
 // ---------------------------------------------------------------------
-// mma_tiles_kernel<NCT>: 12 < k <= kTilesMaxK, [O | Q] in column tiles
+// mma_tiles_kernel<NCT, NS>: k > 12, [O | Q] in column tiles
 // ---------------------------------------------------------------------
 
-constexpr int kTilesMaxK = 64;  // ops/tables_cuda.TILE_MAX_K
+// a tile's Z list packs a column of the tile (7 bits), the diagonal's
+// mark and an address in a row's k x k (23 bits): k up to 2896
+constexpr int kListMaxKK = 1 << 23;
 
 // mma_tiles_kernel's shared memory in floats (ops/tables_cuda.
-// _tile_floats): mma_layout's ring of X, W and O's rows, then one column
-// tile's [O | Q] in TF32 halves (2 x NCT n-blocks x L / 4 core matrices)
-// and its column codes (8 NCT ints); after the loop the block's partials
-// (KW x RT rows, PP apart) in the same space; then the flags (2k), two
-// ints and the ring's mbarriers.
+// _tile_floats): a ring of NS stages of X, W and O's rows, then one
+// column tile's [O | Q] in TF32 halves (2 x NCT n-blocks x L / 4 core
+// matrices) and its column codes (8 NCT ints); after the loop the block's
+// partials (KW x RT rows, PP apart) in the same space; then the flags
+// (2k), two ints and the ring's mbarriers.
 struct TileLayout {
   int RT, KW, L, lgL, KC, PP, w, o, b, half, code, flag, bar, floats;
 };
 
-__host__ __device__ inline TileLayout tile_layout(int k, int RW, int NCT) {
+__host__ __device__ inline TileLayout tile_layout(int k, int RW, int NCT,
+                                                  int NS) {
   TileLayout l;
   l.KW = kMmaWarps / RW;
   l.RT = 16 * RW;
@@ -1494,16 +1502,16 @@ __host__ __device__ inline TileLayout tile_layout(int k, int RW, int NCT) {
   l.lgL = l.L == 32 ? 5 : 6;
   l.KC = l.L / 4;
   l.PP = 8 * NCT + 1;
-  l.w = kStages * l.RT * l.L;
+  l.w = NS * l.RT * l.L;
   l.o = 2 * l.w;
-  l.b = l.o + kStages * l.L * k;
+  l.b = l.o + NS * l.L * k;
   l.half = NCT * l.KC * kCM;
   l.code = l.b + 2 * l.half;
   const int staging = l.code + 8 * NCT;
   const int after = l.KW * l.RT * l.PP;
   l.flag = staging > after ? staging : after;
   l.bar = (l.flag + 2 * k + 2) / 2 * 2;  // 8-byte aligned
-  l.floats = l.bar + 2 * kStages;
+  l.floats = l.bar + 2 * NS;
   return l;
 }
 
@@ -1579,23 +1587,23 @@ __device__ __forceinline__ void group_mma_tile(float (&acc)[NCT][4],
   }
 }
 
-// mma_kernel's design with k a parameter and [O | Q]'s NT8 columns in
-// acc_tiles column tiles of 8 NCT: a block (row tile, column tile, split,
-// chain) forms only its tile's columns a stage, and stages X only where
-// its tile holds Y's columns (tile 0: Y's ceil(k / 8) n-blocks, all of
-// them while k <= kTilesMaxK). A tile's sums (its splits added in split
-// order by the last of them, as mma_kernel does) go out at once: Z's
-// entries of the tile in the order of their addresses (the plan's list,
-// ops/tables_cuda.tile_list), SQ, and tile 0's (X W) O into Y; the last
-// of a row tile's column tiles to finish (a second counter) then forms Y
-// = (X W) O - M Z from them, as mma_kernel does in-block.
-template <int NCT>
+// mma_kernel's design with k a parameter, a ring of NS stages and [O |
+// Q]'s NT8 columns in acc_tiles column tiles of 8 NCT: a block (row tile,
+// column tile, split, chain) forms only its tile's columns a stage, and
+// stages X only where its tile holds Y's columns (Y's ceil(k / 8)
+// n-blocks from tile 0 on, NCT a tile). A tile's sums (its splits added
+// in split order by the last of them, as mma_kernel does) go out at once:
+// Z's entries of the tile in the order of their addresses (the plan's
+// list, ops/tables_cuda.tile_list), SQ, and its columns of (X W) O into
+// Y; the last of a row tile's column tiles to finish (a second counter)
+// then forms Y = (X W) O - M Z from them, as mma_kernel does in-block.
+template <int NCT, int NS>
 __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
     mma_tiles_kernel(const __grid_constant__ MmaArgs p) {
   const Args& a = p.a;
   constexpr int NC = 8 * NCT, LIST = 2 * NC / 32;  // a lane's list entries
   const int k = a.k;
-  const TileLayout ly = tile_layout(k, a.RW, NCT);
+  const TileLayout ly = tile_layout(k, a.RW, NCT, NS);
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   float* sX = sm;
@@ -1615,10 +1623,16 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
   const int rt = tile / a.acc_tiles, at = tile - rt * a.acc_tiles;
   const int row0 = rt * RT;
   const int lo = s * a.CH, hi = min(lo + a.CH, a.m);
-  const bool flag_block = tile == 0;
   const int NY = (k + 7) / 8;
-  const int ny = at == 0 ? NY : 0;  // the tile's n-blocks of Y
+  // the tile's n-blocks of Y: its first ny, in the first ytiles tiles
+  const int ytiles = (NY + NCT - 1) / NCT;
+  const int ny = at < ytiles ? min(NY - at * NCT, NCT) : 0;
   const bool has_y = ny > 0;
+  // col_nz's flags of tile 0's Y columns, set as it forms them (a test
+  // of blockIdx.x alone: deriving it from ytiles in the forming cost
+  // 0.7308 -> 0.7830 ms at 4 x 5000 x 2000 A k=20, NVIDIA H100 80GB HBM3,
+  // 700 W); Y's other tiles' after the loop
+  const bool flag_block = tile == 0;
   const float* D = a.D + chain * a.cD;
   const float* W = a.W + chain * a.cW;
   const float* O = a.O + chain * a.cO;
@@ -1660,15 +1674,15 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
   const bool bulk = a.vec == 2;
   uint64_t* sBar = reinterpret_cast<uint64_t*>(sm + ly.bar);
   if (bulk && tid == 0) {
-    for (int q = 0; q < kStages; ++q) mbar_init(sBar + q, 1);
+    for (int q = 0; q < NS; ++q) mbar_init(sBar + q, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (bulk) __syncthreads();
-  // stage t: partners [lo + t L, + L) into ring slot t % kStages: X (where
+  // stage t: partners [lo + t L, + L) into ring slot t % NS: X (where
   // the tile holds Y) and W rows L apart, O's rows k apart (zeros past hi
   // and past R)
   auto stage = [&](int t) {
-    const int slot = t % kStages, i0 = lo + t * L;
+    const int slot = t % NS, i0 = lo + t * L;
     const int nval = min(L, hi - i0);
     float* x = sX + slot * RT * L;
     float* w = sW + slot * RT * L;
@@ -1710,7 +1724,7 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
     cp_async_commit();
   };
 
-  for (int t = 0; t < kStages - 1; ++t) {
+  for (int t = 0; t < NS - 1; ++t) {
     if (t < n_sub)
       stage(t);
     else if (!bulk)
@@ -1718,15 +1732,15 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
   }
   for (int t = 0; t < n_sub; ++t) {
     if (bulk)
-      mbar_wait(sBar + t % kStages, (t / kStages) & 1);
+      mbar_wait(sBar + t % NS, (t / NS) & 1);
     else
-      cp_async_wait<kStages - 2>();
+      cp_async_wait<NS - 2>();
     __syncthreads();  // stage t is in; every thread is past stage t - 1
-    if (t + kStages - 1 < n_sub)
-      stage(t + kStages - 1);  // into stage t - 1's slot
+    if (t + NS - 1 < n_sub)
+      stage(t + NS - 1);  // into stage t - 1's slot
     else if (!bulk)
       cp_async_commit();
-    const int slot = t % kStages;
+    const int slot = t % NS;
     const float* o = sO + slot * L * k;
     // the tile's [O | Q] for places [4 cm0, 4 cm1) of the stage: warp w
     // n-blocks w + 4 jj, a core matrix at a time, lane l at column l / 4
@@ -1854,7 +1868,24 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
     sP[r * PP + n] = v;
   }
 
+  // the tile's Y columns [y0, y1): ncy of them; in row tile 0 their
+  // col_nz flags, past tile 0's (k > 128) from O's rows of the split
+  const int y0 = at * NC, ncy = has_y ? min(k - y0, NC) : 0, y1 = y0 + ncy;
+  const bool flags_here = tile < ytiles;
+  if (flags_here && !flag_block) {
+    for (int e = tid; e < (hi - lo) * ncy; e += kThreads) {
+      const int i = e / ncy, c = y0 + e - i * ncy;
+      const float v = __ldg(O + (size_t)(lo + i) * k + c);
+      if (v > 0.0f) sFlag[c] = 1;
+      if (v != v) sFlag[k + c] = 1;
+    }
+    __syncthreads();
+  }
   const int k2 = 2 * k;
+  // flag e of the tile's 2 ncy: positive seen, then NaN seen, of [y0, y1)
+  const auto flag_of = [&](int e) {
+    return e < ncy ? y0 + e : k + y0 + e - ncy;
+  };
   if (a.S > 1) {
     const int blk = chain * gridDim.x + tile;
     const size_t slab = (size_t)RT * NC;  // a split's partials
@@ -1864,9 +1895,11 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
       const int r = e / NC;
       mine[e] = sP[r * PP + e - r * NC];
     }
-    if (flag_block)
-      for (int c = tid; c < k2; c += kThreads)
+    if (flags_here)
+      for (int e = tid; e < 2 * ncy; e += kThreads) {
+        const int c = flag_of(e);
         a.flags[((size_t)chain * a.S + s) * k2 + c] = sFlag[c];
+      }
     __threadfence();
     __syncthreads();
     if (tid == 0) *sLast = atomicAdd(&a.counters[blk], 1) == a.S - 1;
@@ -1913,8 +1946,9 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
         q[3] = v.w;
       }
     }
-    if (flag_block)
-      for (int c = tid; c < k2; c += kThreads) {
+    if (flags_here)
+      for (int e = tid; e < 2 * ncy; e += kThreads) {
+        const int c = flag_of(e);
         int any = 0;
         for (int s3 = 0; s3 < a.S; ++s3)
           any |= __ldcg(&a.flags[((size_t)chain * a.S + s3) * k2 + c]);
@@ -1924,19 +1958,24 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
   }
   __syncthreads();
 
-  if (flag_block)
-    for (int c = tid; c < k; c += kThreads)
+  if (flags_here)
+    for (int c = y0 + tid; c < y1; c += kThreads)
       a.col_nz[(size_t)chain * k + c] = sFlag[c] && !sFlag[k + c];
   // the tile's Z entries a warp a row, in the order of their addresses;
-  // SQ on the diagonal; tile 0's (X W) O into Y, for the last tile
+  // SQ on the diagonal; the tile's columns of (X W) O into Y, for the
+  // last tile
   const int kk = k * k;
   const size_t rowg = (size_t)chain * a.R + row0;
-  // this lane's entries of the tile's Z list: (column, address in a row's
-  // k x k, 1 + c on the diagonal), packed; -1 past its end
-  int zl[LIST];
+  // this lane's entries of the tile's Z list: column, the diagonal's mark
+  // (0x80) and address in a row's k x k (from bit 8), packed; -1 past its
+  // end; on the diagonal SQ's column, address / (k + 1), else -1
+  int zl[LIST], sq[LIST];
   const int* list = a.zlist + (size_t)at * 2 * NC;
 #pragma unroll
-  for (int j = 0; j < LIST; ++j) zl[j] = __ldg(list + lane + 32 * j);
+  for (int j = 0; j < LIST; ++j) {
+    zl[j] = __ldg(list + lane + 32 * j);
+    sq[j] = zl[j] >= 0 && (zl[j] & 0x80) ? (zl[j] >> 8) / (k + 1) : -1;
+  }
   for (int r = warp; r < nrows; r += kMmaWarps) {
     const float* pr = sP + r * PP;
     float* zr = a.Z + (rowg + r) * kk;
@@ -1944,17 +1983,16 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
     for (int j = 0; j < LIST; ++j) {
       const int x = zl[j];
       if (x < 0) continue;
-      const float v = pr[x & 0xFF];
-      zr[(x >> 8) & 0xFFF] = v;
-      if (x >> 20) a.SQ[(rowg + r) * k + (x >> 20) - 1] = v;
+      const float v = pr[x & 0x7F];
+      zr[x >> 8] = v;
+      if (sq[j] >= 0) a.SQ[(rowg + r) * k + sq[j]] = v;
     }
   }
   float* Y = a.Y + rowg * k;
-  if (has_y)
-    for (int e = tid; e < nrows * k; e += kThreads) {
-      const int r = e / k;
-      Y[e] = sP[r * PP + e - r * k];
-    }
+  for (int e = tid; e < nrows * ncy; e += kThreads) {
+    const int r = e / ncy, j = e - r * ncy;
+    Y[(size_t)r * k + y0 + j] = sP[r * PP + j];
+  }
   if (a.acc_tiles > 1) {  // the last of the row tile's column tiles on
     int* rows_done = a.counters + (size_t)gridDim.z * gridDim.x;
     const size_t rc = (size_t)chain * (gridDim.x / a.acc_tiles) + rt;
@@ -1971,37 +2009,56 @@ __global__ void __launch_bounds__(kThreads, NCT > 8 ? 2 : 3)
   }
   // Y = (X W) O - M Z, M Z by an fmaf chain over c' ascending, as
   // mma_kernel forms it: the row tile's Z and M rows staged in shared
-  // memory (the ring and the partials are free), `per` rows at a time
+  // memory (the ring and the partials are free), `per` rows at a time,
+  // or where one row's k x k does not fit (k > ~170) a row's Z in chunks
+  // of n2 rows c', the chains carried from chunk to chunk in sMZ
   const float* M = a.M + chain * a.cM + (size_t)row0 * k;
   const float* Z = a.Z + rowg * kk;
-  const int per = max(1, ly.flag / (kk + k));
+  const int per = max(1, ly.flag / (kk + 2 * k));
+  const int n2 = kk + 2 * k <= ly.flag
+                     ? k
+                     : max(4, (ly.flag - 2 * k) / k / 4 * 4);
   for (int r0 = 0; r0 < nrows; r0 += per) {
     const int nr = min(per, nrows - r0);
     float* sZ = sm;
-    float* sMr = sm + nr * kk;
-    __syncthreads();  // the last rows' reads are done
-    if ((kk & 3) == 0) {  // 16-byte pieces: rows of k x k start aligned
-      const float4* z4 = reinterpret_cast<const float4*>(Z + (size_t)r0 * kk);
-      float4* s4 = reinterpret_cast<float4*>(sZ);
+    float* sMr = sm + nr * n2 * k;
+    float* sMZ = sMr + nr * k;
+    for (int c0 = 0; c0 < k; c0 += n2) {
+      const int nc2 = min(n2, k - c0);
+      // rows [r0, r0 + nr) x c' in [c0, c0 + nc2): contiguous, as nr is 1
+      // or nc2 is k
+      const float* zs = Z + (size_t)r0 * kk + (size_t)c0 * k;
+      const int nz = nr * nc2 * k;
+      __syncthreads();  // the last rows' or chunk's reads are done
+      // from L2, not L1 (the other tiles wrote them): in 16-byte pieces
+      // by cp.async.cg, every piece of the pass in flight at once
+      if ((kk & 3) == 0) {  // c0 and n2 are multiples of 4
+        for (int e = tid; e < nz / 4; e += kThreads)
+          cp_async16(sZ + 4 * e, zs + 4 * e, true);
+      } else {
 #pragma unroll 8
-      for (int e = tid; e < nr * kk / 4; e += kThreads) s4[e] = __ldcg(z4 + e);
-    } else {
-#pragma unroll 8
-      for (int e = tid; e < nr * kk; e += kThreads)
-        sZ[e] = __ldcg(Z + (size_t)r0 * kk + e);
-    }
-    for (int e = tid; e < nr * k; e += kThreads)
-      sMr[e] = __ldg(M + (size_t)r0 * k + e);
-    __syncthreads();
-    for (int e = tid; e < nr * k; e += kThreads) {
-      const int r = e / k, c = e - r * k;
-      const float* zc = sZ + r * kk + c;
-      const float* mr = sMr + r * k;
-      float mz = 0.0f;
-      for (int c2 = 0; c2 < k; ++c2)
-        mz = __fmaf_rn(mr[c2], zc[c2 * k], mz);
-      const size_t y = (size_t)r0 * k + e;
-      Y[y] = __fsub_rn(__ldcg(Y + y), mz);
+        for (int e = tid; e < nz; e += kThreads) sZ[e] = __ldcg(zs + e);
+      }
+      if (c0 == 0)
+        for (int e = tid; e < nr * k; e += kThreads)
+          cp_async4(sMr + e, M + (size_t)r0 * k + e, true);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      for (int e = tid; e < nr * k; e += kThreads) {
+        const int r = e / k, c = e - r * k;
+        const float* zc = sZ + r * nc2 * k + c;
+        const float* mr = sMr + r * k + c0;
+        float mz = c0 == 0 ? 0.0f : sMZ[e];
+        for (int c2 = 0; c2 < nc2; ++c2)
+          mz = __fmaf_rn(mr[c2], zc[c2 * k], mz);
+        if (c0 + nc2 < k) {
+          sMZ[e] = mz;
+        } else {
+          const size_t y = (size_t)r0 * k + e;
+          Y[y] = __fsub_rn(__ldcg(Y + y), mz);
+        }
+      }
     }
   }
 }
@@ -2039,10 +2096,11 @@ int launch_mma(const MmaArgs& p, int nch, int smem, cudaStream_t stream) {
   return launch(mma_kernel<K>, smem_set, p, p.a, nch, smem, stream);
 }
 
-template <int NCT>
+template <int NCT, int NS>
 int launch_tiles(const MmaArgs& p, int nch, int smem, cudaStream_t stream) {
   static int smem_set = 0;
-  return launch(mma_tiles_kernel<NCT>, smem_set, p, p.a, nch, smem, stream);
+  return launch(mma_tiles_kernel<NCT, NS>, smem_set, p, p.a, nch, smem,
+                stream);
 }
 
 
@@ -2087,10 +2145,11 @@ int tensor_map(CUtensorMap* map, const float* base, int m, int R, int nch,
 // The plan's fields (ops/tables_cuda.tables_plan) and the tensors: form 0
 // runs rows_kernel<k>, 1 quads_kernel<PQ> (PQ one of ops/tables_cuda.QUADS),
 // 2 mma_kernel<k> with RW row warps (k <= 12), or above mma_tiles_kernel
-// <NCT> in acc_tiles column tiles, whose Z lists zlist holds.
+// <NCT, stages> in acc_tiles column tiles, whose Z lists zlist holds.
 extern "C" int cogaps_tables_launch(
     int nch, int R, int m, int k, int form, int G, int PQ, int TQ,
-    int acc_tiles, int S, int CH, int L, int smq, int RW, int NCT, int smem,
+    int acc_tiles, int S, int CH, int L, int smq, int RW, int NCT,
+    int stages, int smem,
     const float* D, long long cD, const float* W, long long cW,
     const float* M, long long cM, const float* O, long long cO, float* Y,
     float* SQ, float* Z, unsigned char* col_nz, float* part, int* flags,
@@ -2102,16 +2161,19 @@ extern "C" int cogaps_tables_launch(
       form < 0 || form > 2 ||
       (form != 1 && G != 1) ||
       (form != 1 && !tiles && (k > kRowsMaxK || acc_tiles != 1)) ||
-      (tiles && (k > kTilesMaxK || (NCT != 8 && NCT != 16) ||
+      (tiles && ((long long)k * k >= kListMaxKK ||
+                 (NCT != 8 && NCT != 16) ||
+                 (stages != 3 && (stages != 2 || NCT != 16)) ||
                  acc_tiles != (nt + NCT - 1) / NCT || zlist == nullptr ||
                  counters == nullptr)) ||
       (S > 1 && (part == nullptr || counters == nullptr || flags == nullptr)))
     return kBad;
   int RT = kThreads / G;
   if (form == 2) {
-    const int lay_L = tiles ? tile_layout(k, RW, NCT).L : mma_layout(k, RW).L;
-    const int floats =
-        tiles ? tile_layout(k, RW, NCT).floats : mma_layout(k, RW).floats;
+    const int lay_L =
+        tiles ? tile_layout(k, RW, NCT, stages).L : mma_layout(k, RW).L;
+    const int floats = tiles ? tile_layout(k, RW, NCT, stages).floats
+                             : mma_layout(k, RW).floats;
     if ((RW != 1 && RW != 2 && RW != 4) || L != lay_L || CH % L ||
         smem < 4 * floats)
       return kBad;
@@ -2139,8 +2201,9 @@ extern "C" int cogaps_tables_launch(
       if (err2) return err2;
     }
     if (tiles)
-      return NCT == 8 ? launch_tiles<8>(p, nch, smem, s)
-                      : launch_tiles<16>(p, nch, smem, s);
+      return NCT == 8       ? launch_tiles<8, 3>(p, nch, smem, s)
+             : stages == 3 ? launch_tiles<16, 3>(p, nch, smem, s)
+                           : launch_tiles<16, 2>(p, nch, smem, s);
     switch (k) {
       case 1: return launch_mma<1>(p, nch, smem, s);
       case 2: return launch_mma<2>(p, nch, smem, s);

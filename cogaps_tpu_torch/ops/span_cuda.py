@@ -163,6 +163,23 @@ def cluster_size(nch: int, sm_count: int,
     return 1
 
 
+def span_fits(G: int, S: int, k: int, B_a: int, B_p: int) -> bool:
+    """Whether K3 can launch a run of G x S data at k patterns with
+    proposal batches B_a and B_p: block_threads' threads for its column
+    groups (at most MAX_BATCH; k <= 88 at batches up to 1024) and, at
+    every cluster size launch_shape may pick, both samplers' rebuild
+    tiles (rebuild_plan). It asks exactly what those raise on, without
+    raising."""
+    try:
+        threads = block_threads(B_a, B_p, k)
+        for cl in CLUSTER_SIZES:
+            rebuild_plan(G, S, k, threads, cl)
+            rebuild_plan(S, G, k, threads, cl)
+    except ValueError:
+        return False
+    return True
+
+
 class LaunchShape(NamedTuple):
     cl: int
     plan_a: SidePlan

@@ -16,19 +16,22 @@ and Z = W Q on the tensor cores in TF32 with the 3xTF32 split, and Y =
 (X W) O - M Z, four warps a block: 64 rows on wgmma where R > 32 (the
 tensor-core form, "mma"), and for fewer rows 16 or 32 of them on
 mma.sync with the contraction split over the warps (the short-row form,
-"short"); above k = 12 up to TILE_MAX_K the same forms run as
-mma_tiles_kernel<NCT>, [O | Q]'s columns cut into column tiles
-(``TablesPlan.column_tiles``) of 64, or in the tensor-core form 128
-above TILE_WIDE_K, a block's, the tile holding Y's columns staging X as
-well and the last tile of a row tile forming Y; rows_kernel<k> (k <= 12
-below those), a thread a row with all its accumulators in registers;
-quads_kernel<PQ> (k > 12 below those, and above TILE_MAX_K), each thread
-PQ quads of a row's accumulators, G threads a row. quads_kernel computes
-every k on the CUDA cores: it took 2.76 ms at 4 x 5000 x 2000 A k=20 and
-39 ms at k=50, where cuBLAS's tables took 1.52 and 4.90, and the column
-tiles ~0.72 and ~3.95 (NVIDIA H100 80GB HBM3, 700 W; kernel_times.py
---tables); their bound there is the tensor cores'
-(``tables_tc_counts``): 0.112 and 0.642 ms. ``tables_tf32`` is the plain
+"short"); above k = 12 the same forms run as mma_tiles_kernel<NCT, NS>
+(the short-row form up to TILE_MAX_K), [O | Q]'s columns cut into
+column tiles (``TablesPlan.column_tiles``) of 64, or in the tensor-core
+form 128 above TILE_WIDE_K, a block's, the tiles holding Y's columns
+(the first ceil(ceil(k/8) / NCT)) staging X as well and the last tile of
+a row tile forming Y, on a ring of ``stages`` stages; rows_kernel<k> (k
+<= 12 below those), a thread a row with all its accumulators in
+registers; quads_kernel<PQ> (k > 12 below those: m < MMA_MIN_M, R = 1,
+the short-row form above TILE_MAX_K, and past the k whose column tile
+fits a block, ~614), each thread PQ quads of a row's accumulators, G
+threads a row. quads_kernel computes every k on the CUDA cores: it took
+2.76 ms at 4 x 5000 x 2000 A k=20 and 39 ms at k=50, where cuBLAS's
+tables took 1.52 and 4.90, and the column tiles ~0.72 and ~3.95 (NVIDIA
+H100 80GB HBM3, 700 W; kernel_times.py --tables); their bound there is
+the tensor cores' (``tables_tc_counts``): 0.112 and 0.642 ms.
+``tables_tf32`` is the plain
 emulation of mma_kernel's arithmetic (the TF32 halves by cvt.rna's
 rounding, the three products a partner and the float32 sums in the
 kernel's order), for the CPU tests; ``tables_plain`` stays the plain
@@ -58,7 +61,8 @@ from . import cuda_build
 
 THREADS = 128  # csrc/tables.cu's kThreads
 # quads_kernel's PQ; it takes k > 12 only below mma_kernel's MMA_MIN_M
-# partners or MMA_MIN_R rows (GIST A, 1363 x 9) and above TILE_MAX_K
+# partners or MMA_MIN_R rows (GIST A, 1363 x 9), in the short-row form
+# above TILE_MAX_K and past the k whose column tile fits a block
 QUADS = (1, 2, 3, 4, 6, 8, 9, 11, 15, 17, 20)
 ROWS_MAX_K = 12  # rows_kernel's and mma_kernel's K: 1 .. 12
 # mma_kernel from 64 partners and 2 rows: below, 3xTF32's products (up to
@@ -88,13 +92,21 @@ MMA_CHUNK_ROWS, MMA_CHUNK = 12, 512
 # take two blocks an SM and stage W and split its fragments half as
 # often a column: 64 are faster at k=20, 128 at k=50 (PERF.md §6;
 # kernel_times.py --tables --plan TILE_WIDE_K=12 and =64, every tile of
-# 128 and of 64); TILE_WIDE_K lies between. TILE_MAX_K = 64 keeps Y's
-# ceil(k / 8) n-tiles in the first tile, so one block holds all of Y's
-# (X W) O and col_nz's flags. Above, quads_kernel.
+# 128 and of 64); TILE_WIDE_K lies between. The tensor-core form takes
+# every k above 12 (Y's ceil(k / 8) n-tiles over as many tiles as they
+# fill); the short-row form (R <= 32) stops at TILE_MAX_K = 64, since a
+# legal run has k < R there, and quads_kernel takes what a direct call
+# asks beyond.
 TILE_NT, TILE_WIDE_K, TILE_MAX_K = 8, 28, 64
 MAX_G = 32  # threads sharing a row
 SMEM_TARGET = 56 * 1024  # shared memory a block aims under: four an SM
 SMEM_MAX = 232_448  # an H100 block's most (227 KB)
+# a block's most with two an SM: the SM's 228 KB less 1 KB a block,
+# halved. The column tiles' ring of STAGES stages grows with k by its O
+# rows (3 x 32 x 4k bytes) and passes this above k = 74; there it keeps
+# two stages, which fit two blocks an SM up to k = 172 (NVIDIA H100 80GB
+# HBM3: 228 KB of shared memory an SM)
+SMEM_TWO = (233_472 - 2 * 1024) // 2
 MAX_L = 128  # partners a sub-tile stages
 # rows_kernel's and quads_kernel's shortest chunk: 4 R partners, from 64
 # to 256 (a block's sums run in sequence; fewer rows, shorter chunks, more
@@ -111,7 +123,8 @@ class TablesPlan(NamedTuple):
     """How one sampler's tables are built, per chain: blocks of THREADS
     threads. form "mma" or "short": mma_kernel, warps of RW row warps
     (RT = 16 RW rows) and KW = MMA_WARPS / RW partner warps ("short" where
-    KW > 1), stages of L partners (_mma_stage). form "rows": rows_kernel, a
+    KW > 1), stages of L partners (_mma_stage), a ring of `stages` of
+    them, in column tiles of 8 NCT above k = 12. form "rows": rows_kernel, a
     thread a row (G 1, RT = THREADS) and its k + k(k+1)/2 float
     accumulators. form "quads": quads_kernel, G threads a row (RT =
     THREADS / G), each keeping PQ quads (float4 accumulators) of its row's
@@ -139,6 +152,7 @@ class TablesPlan(NamedTuple):
     form: str = "rows"
     RW: int = 0
     NCT: int = 0
+    stages: int = STAGES
 
     @property
     def KW(self) -> int:
@@ -244,27 +258,27 @@ def _mma_floats(k: int, RW: int) -> int:
     return (flags + 2 * k + 2) // 2 * 2 + 2 * STAGES  # and the mbarriers
 
 
-def _tile_floats(k: int, RW: int, nct: int) -> int:
+def _tile_floats(k: int, RW: int, nct: int, stages: int = STAGES) -> int:
     """mma_tiles_kernel's shared memory in floats (csrc/tables.cu's
-    tile_layout): _mma_floats' ring, one column tile's [O | Q] (2 x nct
-    n-blocks x L / 4 core matrices) and its 8 nct column codes; after the
-    loop the block's partials (KW RT rows, 8 nct + 1 apart) in the same
-    space; the flags, two ints, the mbarriers."""
+    tile_layout): _mma_floats' ring at `stages` stages, one column tile's
+    [O | Q] (2 x nct n-blocks x L / 4 core matrices) and its 8 nct column
+    codes; after the loop the block's partials (KW RT rows, 8 nct + 1
+    apart) in the same space; the flags, two ints, the mbarriers."""
     KW = MMA_WARPS // RW
     RT, L = 16 * RW, _mma_stage(RW)
-    staging = (2 * STAGES * RT * L + STAGES * L * k
+    staging = (2 * stages * RT * L + stages * L * k
                + 2 * nct * (L // 4) * CORE + 8 * nct)
     flags = max(staging, KW * RT * (8 * nct + 1))
-    return (flags + 2 * k + 2) // 2 * 2 + 2 * STAGES
+    return (flags + 2 * k + 2) // 2 * 2 + 2 * stages
 
 
 @functools.lru_cache(maxsize=64)
 def tile_list(k: int, nct: int) -> tuple:
     """Each column tile's Z entries in a row, in the order of their
     addresses in the row's k x k: per tile 2 * 8 nct ints (column of
-    the tile | address << 8 | (1 + c) << 20 on the diagonal (c, c),
-    which is SQ's too), -1 past the tile's last; the tiles of
-    tables_plan's column tiles in order."""
+    the tile | 0x80 on the diagonal (c, c), which is SQ's c too |
+    address << 8), -1 past the tile's last; the tiles of tables_plan's
+    column tiles in order. Tiles of Y's columns alone have none."""
     nc, ny8 = 8 * nct, 8 * -(-k // 8)
     nt8 = ny8 + 8 * -(-(k * (k + 1) // 2) // 8)
     out = []
@@ -275,8 +289,8 @@ def tile_list(k: int, nct: int) -> tuple:
                 lo, hi = min(c, c2), max(c, c2)
                 n = ny8 + lo * k - lo * (lo - 1) // 2 + hi - lo - n0
                 if 0 <= n < nc:
-                    ent.append(n | (c * k + c2) << 8
-                               | ((c + 1) << 20 if c == c2 else 0))
+                    ent.append(n | (0x80 if c == c2 else 0)
+                               | (c * k + c2) << 8)
         out.append(ent + [-1] * (2 * nc - len(ent)))
     return tuple(out)
 
@@ -291,29 +305,37 @@ def tables_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
                          f"n_sm={n_sm}")
     qy = -(-k // 4)
     nq = qy + -(-(k * (k + 1) // 2) // 4)
-    if k <= TILE_MAX_K and m >= MMA_MIN_M and R >= MMA_MIN_R:  # mma_kernel
-        RW = 1 if R <= 16 else 2 if R <= 32 else MMA_WARPS
+    RW = 1 if R <= 16 else 2 if R <= 32 else MMA_WARPS
+    if (m >= MMA_MIN_M and R >= MMA_MIN_R
+            and (k <= TILE_MAX_K or RW == MMA_WARPS)):  # mma_kernel
         RT, L = 16 * RW, _mma_stage(RW)
         row_tiles = -(-R // RT)
         # column tiles above 12, wider above TILE_WIDE_K in the
         # tensor-core form (the short form's ring of 64 partners leaves
-        # no room for them)
+        # no room for them), on a ring of two stages where three would
+        # cost the SM its second block
         wide = k > TILE_WIDE_K and RW == MMA_WARPS
         nct = 0 if k <= ROWS_MAX_K else 2 * TILE_NT if wide else TILE_NT
-        nt = -(-k // 8) + -(-(k * (k + 1) // 2) // 8)
-        acc_tiles = -(-nt // nct) if nct else 1
-        want = -(-FILL * n_sm // (row_tiles * acc_tiles))
-        CH = L * -(-m // (want * L))
-        min_chunk = min(MMA_CHUNK, max(2 * L, MMA_CHUNK_ROWS * R))
-        CH = max(CH, L * -(-min_chunk // L))
-        CH = min(CH, L * -(-m // L))
-        S = -(-m // CH)
-        form = "short" if RW < MMA_WARPS else "mma"
-        floats = _tile_floats(k, RW, nct) if nct else _mma_floats(k, RW)
-        return TablesPlan(R=R, m=m, k=k, qy=qy, nq=nq, G=1, PQ=0, RT=RT,
-                          TQ=0, acc_tiles=acc_tiles, row_tiles=row_tiles,
-                          L=L, CH=CH, S=S, smq=0, smem=4 * floats,
-                          form=form, RW=RW, NCT=nct)
+        stages = STAGES
+        if wide and 4 * _tile_floats(k, RW, nct) > SMEM_TWO:
+            stages = 2
+        floats = (_tile_floats(k, RW, nct, stages) if nct
+                  else _mma_floats(k, RW))
+        if 4 * floats <= SMEM_MAX:
+            nt = -(-k // 8) + -(-(k * (k + 1) // 2) // 8)
+            acc_tiles = -(-nt // nct) if nct else 1
+            want = -(-FILL * n_sm // (row_tiles * acc_tiles))
+            CH = L * -(-m // (want * L))
+            min_chunk = min(MMA_CHUNK, max(2 * L, MMA_CHUNK_ROWS * R))
+            CH = max(CH, L * -(-min_chunk // L))
+            CH = min(CH, L * -(-m // L))
+            S = -(-m // CH)
+            form = "short" if RW < MMA_WARPS else "mma"
+            return TablesPlan(R=R, m=m, k=k, qy=qy, nq=nq, G=1, PQ=0,
+                              RT=RT, TQ=0, acc_tiles=acc_tiles,
+                              row_tiles=row_tiles, L=L, CH=CH, S=S, smq=0,
+                              smem=4 * floats, form=form, RW=RW, NCT=nct,
+                              stages=stages)
     if k <= ROWS_MAX_K:  # rows_kernel
         G, PQ, TQ, acc_tiles, smq = 1, 0, 0, 1, 0
     else:
@@ -478,7 +500,7 @@ def build() -> tuple:
     lib, report = cuda_build.load("tables")
     fn = lib.cogaps_tables_launch
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [i] * 16 + [p, ll] * 4 + [p] * 9
+    fn.argtypes = [i] * 17 + [p, ll] * 4 + [p] * 9
     fn.restype = i
     return lib, report
 
@@ -555,7 +577,7 @@ def dense_tables(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
         err = lib.cogaps_tables_launch(
             nch, R, m, k, min(FORMS.index(plan.form), 2), plan.G, plan.PQ,
             plan.TQ, plan.acc_tiles, plan.S, plan.CH, plan.L, plan.smq,
-            plan.RW, plan.NCT, plan.smem,
+            plan.RW, plan.NCT, plan.stages, plan.smem,
             D.data_ptr(), strides[0], invS2.data_ptr(), strides[1],
             M.data_ptr(), strides[2], other.data_ptr(), strides[3],
             Y.data_ptr(), SQ.data_ptr(), Z.data_ptr(), col_nz.data_ptr(),

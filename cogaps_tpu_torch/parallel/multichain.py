@@ -103,17 +103,21 @@ class MultichainEngine(ChainEngine):
         """Whether run_phase takes the fused span: the semantic conditions
         of cogaps_tpu/parallel/multichain.MultichainEngine._fused_ok
         (both factors sampled, no histories, snapshots or PUMP counts,
-        n_samples <= 128), and a table rebuild below the size where the
-        per-call route overtakes it (MAX_SPAN_REBUILD_OPS). Its TPU
-        conditions (backend, mesh, <= 8 chains for the v5e's VMEM) have no
-        counterpart here."""
+        n_samples <= 128), a table rebuild below the size where the
+        per-call route overtakes it (MAX_SPAN_REBUILD_OPS), and a shape
+        K3 can launch (span_cuda.span_fits: above k = 88 its column
+        groups outgrow a block). Its TPU conditions (backend, mesh, <= 8
+        chains for the v5e's VMEM) have no counterpart here."""
         cfg = self.config
         return (cfg.which_matrix_fixed == "N" and self.hist.n_hist == 0
                 and cfg.n_snapshots == 0 and not cfg.take_pump_samples
                 and self.n_samples <= MAX_SPAN_SAMPLES
                 and span_cuda.rebuild_ops(self.n_genes, self.n_samples,
                                           cfg.n_patterns)
-                <= MAX_SPAN_REBUILD_OPS)
+                <= MAX_SPAN_REBUILD_OPS
+                and span_cuda.span_fits(self.n_genes, self.n_samples,
+                                        cfg.n_patterns, self.consts_a.batch,
+                                        self.consts_p.batch))
 
     def run_phase(self, state: ChainState, stats: RunStats, rand,
                   phase: int, start_iter: int = 0,

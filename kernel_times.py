@@ -56,7 +56,7 @@ the distributions (scipy.stats).
 With --quads it times instead the tables kernel's plan at k=20 on
 chip_smoke's 4 x 5000 x 2000 and 16 x 20000 x 100 cases, A and P:
 ops/tables_cuda.tables_plan's choice (mma_kernel in column tiles) and
-quads_kernel<PQ> (its plan for k above TILE_MAX_K, forced), in turns
+quads_kernel<PQ> (forced as --plan FORM=quads forces it), in turns
 (tiles, quads, quads, tiles): the stream's ms a call, events' ms, the
 plan and the worst error against the float64 tables.
 
@@ -70,9 +70,12 @@ worst error
 against the float64 tables over the summed |terms| and whether every
 entry is within 1e-5 of them, the launches a call and the plan's form;
 with the parent's package as DIR, the parent kernel at the same inputs.
-Optional overrides of this checkout's plan constants (name=value,
---plan), to time other chunks; --cases NAME... keeps the cases whose
-names hold one of them.
+Optional overrides of the plan constants of DIR's package (name=value,
+--plan), to time other chunks; FORM=quads forces the CUDA-core kernels
+(rows_kernel up to k = 12, quads_kernel above) by raising MMA_MIN_M past
+every m, so that the column tiles and quads_kernel can be timed in turns
+in one call; --cases NAME... keeps the cases whose names hold one of
+them.
 
 With --chisq it times instead the dense chi^2 (models/dense.
 chisq_from_state): per call at 16 x 20000 x 100 k=10, 4 x 5000 x 2000
@@ -343,6 +346,31 @@ def golden_summary(rows) -> dict:
 
 QUADS_CASES = ("5000x2000 A x4 k=20", "5000x2000 P x4 k=20",
                "20000x100 A x16 k=20", "20000x100 P x16 k=20")
+# --plan FORM=...: the plan constants that force a form; "quads": no
+# mma_kernel, as no m reaches MMA_MIN_M
+PLAN_FORMS = {"quads": {"MMA_MIN_M": 1 << 62}}
+
+
+def set_plan(tables_cuda, overrides) -> dict:
+    """Set the plan constants `overrides` names (NAME=VALUE, or FORM=
+    one of PLAN_FORMS) in the package's tables_cuda; returns the values
+    they had, for restore_plan."""
+    values = {}
+    for item in overrides:
+        name, value = item.split("=")
+        values.update(PLAN_FORMS[value] if name == "FORM"
+                      else {name: int(value)})
+    old = {name: getattr(tables_cuda, name) for name in values}
+    for name, value in values.items():
+        setattr(tables_cuda, name, value)
+    tables_cuda.tables_plan.cache_clear()
+    return old
+
+
+def restore_plan(tables_cuda, old) -> None:
+    for name, value in old.items():
+        setattr(tables_cuda, name, value)
+    tables_cuda.tables_plan.cache_clear()
 
 
 def quads_times(cs, device) -> list:
@@ -352,7 +380,6 @@ def quads_times(cs, device) -> list:
     from cogaps_tpu_torch.models import dense
     from cogaps_tpu_torch.ops import cuda_build, tables_cuda
     n_sm = cuda_build.sm_count(device.index or 0)
-    tile_max = tables_cuda.TILE_MAX_K
     out = []
     for i, (name, R, m, k, nch) in enumerate(cs.TABLES_CASES):
         if name not in QUADS_CASES:
@@ -362,10 +389,8 @@ def quads_times(cs, device) -> list:
         terms = cs.tables_terms(*args)
         got = {}
         for form in ("tiles", "quads", "quads", "tiles"):
-            # no column tiles above ROWS_MAX_K: quads_kernel's plan
-            tables_cuda.TILE_MAX_K = (tile_max if form == "tiles"
-                                      else tables_cuda.ROWS_MAX_K)
-            tables_cuda.tables_plan.cache_clear()
+            old = set_plan(tables_cuda,
+                           ["FORM=quads"] if form == "quads" else [])
             try:
                 plan = tables_cuda.tables_plan(R, m, k, n_sm)
                 Y, SQ, Z, _ = tables_cuda.dense_tables(*args)
@@ -377,8 +402,7 @@ def quads_times(cs, device) -> list:
                 ev = cs.time_calls(lambda: tables_cuda.dense_tables(*args),
                                    20)
             finally:
-                tables_cuda.TILE_MAX_K = tile_max
-                tables_cuda.tables_plan.cache_clear()
+                restore_plan(tables_cuda, old)
             out.append({"case": name, "form": form, "stream_ms": dev,
                         "host_ms": host, "events_ms": ev,
                         "worst_error": err, "within_1e-5": ok,
@@ -399,10 +423,7 @@ def tables_times(cs, device, overrides=(), cases=()) -> list:
     from cogaps_tpu_torch.models import dense
     from cogaps_tpu_torch.ops import cuda_build, tables_cuda
     from cogaps_tpu_torch.probes import bound_ms
-    for item in overrides:
-        name, value = item.split("=")
-        setattr(tables_cuda, name, int(value))
-    tables_cuda.tables_plan.cache_clear()
+    set_plan(tables_cuda, overrides)
     n_sm = cuda_build.sm_count(device.index or 0)
     # an older package has no tensor-core count: its rows carry the
     # float32 bound alone
@@ -567,7 +588,8 @@ def main() -> int:
     ap.add_argument("--tables", action="store_true",
                     help="time the tables kernel at TABLES_CASES instead")
     ap.add_argument("--plan", nargs="*", default=(), metavar="NAME=VALUE",
-                    help="with --tables: plan constants to override")
+                    help="with --tables: plan constants to override, or "
+                         "FORM=quads")
     ap.add_argument("--cases", nargs="*", default=(), metavar="TEXT",
                     help="with --tables: only the cases whose names hold "
                          "one of these")

@@ -1411,6 +1411,8 @@ TABLES_SHAPES = {  # (R, m, k, nch, the plan's form)
     "k20-short-split": (17, 999, 20, 3, "short"),
     "5000x2000-A-k20": (5000, 2000, 20, 4, "mma"),
     "k64-split": (100, 3000, 64, 2, "mma"),
+    "k80": (300, 777, 80, 2, "mma"),
+    "k150-y-two-tiles": (300, 400, 150, 2, "mma"),
     "one-row": (1, 4000, 10, 3, "rows"),
     "modsim-A": (25, 20, 3, 1, "rows"), "modsim-P": (20, 25, 3, 1, "rows"),
     "short-R17-split": (17, 999, 6, 3, "short"),
@@ -1423,7 +1425,9 @@ TABLES_SHAPES = {  # (R, m, k, nch, the plan's form)
 def test_dense_tables_kernel_matches_plain(cuda_device, shape):
     """dense.tables on the card (the tables kernel, one launch, in the
     plan's form: mma_kernel's tensor-core and short-row forms, some with
-    splits, in column tiles above k = 12, rows_kernel, quads_kernel)
+    splits, in column tiles above k = 12, on a ring of two stages at k80
+    and with Y's columns over two tiles at k150, rows_kernel,
+    quads_kernel)
     against exact_tables (float64 sums
     rounded once): every entry of Y, SQ and Z within 1e-5 of its summed
     |terms|, no worse than twice the plain cuBLAS tables' own worst error
@@ -1463,10 +1467,11 @@ def test_dense_tables_kernel_matches_plain(cuda_device, shape):
                                    (100, 20000, 10), (1363, 9, 7),
                                    (9, 1363, 7), (25, 20, 3),
                                    (300, 777, 13), (300, 777, 20),
-                                   (300, 777, 40), (300, 30, 25)],
+                                   (300, 777, 40), (300, 30, 25),
+                                   (300, 777, 100), (300, 400, 150)],
                          ids=["subsets-A", "subsets-P", "20000x100-P",
                               "gist-A", "gist-P", "modsim-A", "k13", "k20",
-                              "k40", "k25-m30"])
+                              "k40", "k25-m30", "k100", "k150"])
 def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
                                                           shape):
     """A chain's tables are the same bits alone, as one of 4 and as one of
@@ -1476,7 +1481,9 @@ def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
     tensor-core form, with splits at subsets-P and 20000x100-P; the
     short-row form, with splits at gist-P; rows_kernel at subsets-A,
     gist-A and modsim-A; the column tiles at k13 and at k20, with
-    splits, and tiles of 128 columns at k40; quads_kernel at k25-m30)."""
+    splits, tiles of 128 columns at k40, on a ring of two stages at k100
+    and k150, Y's columns over two tiles at k150; quads_kernel at
+    k25-m30)."""
     R, m, k = shape
     D, inv, M, O = _tables_case(cuda_device, R, m, k, 16, seed=7)
 

@@ -58,10 +58,18 @@ PLAN_SHAPES = {  # (R, m, k): sampler A rows are genes, P's samples
     "5000x2000-P-k50": (2000, 5000, 50), "k64": (70, 64, 64),
     "k25-m30": (300, 30, 25), "k50-m30": (40, 30, 50),
     "k25-one-row": (1, 4000, 25), "k65": (300, 777, 65),
+    # above k = 64: the tensor-core form's column tiles, Y's over two
+    # tiles at k150; the short-row form's ceiling, and past a block's
+    "5000x2000-A-k80": (5000, 2000, 80), "5000x2000-P-k80": (2000, 5000, 80),
+    "5000x2000-A-k100": (5000, 2000, 100),
+    "5000x2000-P-k100": (2000, 5000, 100), "100x100-k90": (100, 100, 90),
+    "k150": (300, 400, 150), "k65-short": (30, 777, 65),
+    "k615": (5000, 2000, 615),
 }
 # the form tables_plan takes: mma_kernel's tensor-core ("mma") and
 # short-row ("short") forms (in column tiles above k = 12), rows_kernel,
-# quads_kernel (above k = 12 where m < MMA_MIN_M, R = 1 or k > TILE_MAX_K)
+# quads_kernel (above k = 12 where m < MMA_MIN_M, R = 1, in the short-row
+# form above TILE_MAX_K, or where a column tile does not fit a block)
 PLAN_FORMS = {
     "gist-A": "rows", "gist-P": "short", "5000x2000-A": "mma",
     "5000x2000-P": "mma", "20000x100-A": "mma", "20000x100-P": "mma",
@@ -74,7 +82,11 @@ PLAN_FORMS = {
     "5000x2000-P-k20": "mma", "20000x100-A-k20": "mma",
     "20000x100-P-k20": "mma", "5000x2000-A-k50": "mma",
     "5000x2000-P-k50": "mma", "k64": "mma", "k25-m30": "quads",
-    "k50-m30": "quads", "k25-one-row": "quads", "k65": "quads"}
+    "k50-m30": "quads", "k25-one-row": "quads", "k65": "mma",
+    "5000x2000-A-k80": "mma", "5000x2000-P-k80": "mma",
+    "5000x2000-A-k100": "mma", "5000x2000-P-k100": "mma",
+    "100x100-k90": "mma", "k150": "mma", "k65-short": "quads",
+    "k615": "quads"}
 
 
 def test_plan_takes_no_chain_count():
@@ -111,9 +123,16 @@ def test_plan_fits_a_block_and_covers_every_entry(shape):
         assert plan.RT == 16 * plan.RW
         assert plan.L == tables_cuda._mma_stage(plan.RW) >= 16 * plan.KW
         assert plan.CH % plan.L == 0 and plan.G == 1 and plan.PQ == 0
-        floats = (tables_cuda._tile_floats(k, plan.RW, plan.NCT) if plan.NCT
+        floats = (tables_cuda._tile_floats(k, plan.RW, plan.NCT,
+                                           plan.stages) if plan.NCT
                   else tables_cuda._mma_floats(k, plan.RW))
         assert plan.smem == 4 * floats
+        # a ring of three stages, two in wide tiles where three do not
+        # fit two blocks an SM
+        assert plan.stages == (2 if plan.NCT > tables_cuda.TILE_NT and 4
+                               * tables_cuda._tile_floats(
+                                   k, plan.RW, plan.NCT)
+                               > tables_cuda.SMEM_TWO else 3)
         kp = k * (k + 1) // 2  # n-tiles of 8 cover Y's k and Z's kp
         assert plan.NT8 % 8 == 0 and plan.NT8 - 8 < k + kp + 8
         assert plan.NT8 >= 8 * -(-k // 8) + kp
@@ -179,11 +198,12 @@ def test_plan_fills_the_card_where_one_chain_can():
 
 @pytest.mark.parametrize("name", list(PLAN_FORMS))
 def test_plan_picks_the_expected_form(name):
-    """The tensor-core form for 33 rows and more, the short-row form
-    (partners split over the warps) below, up to k = TILE_MAX_K;
-    rows_kernel where the contraction is shorter than MMA_MIN_M partners
-    (the accuracy gate) or at one row, quads_kernel there above k = 12
-    and beyond TILE_MAX_K."""
+    """The tensor-core form for 33 rows and more, at every k whose
+    column tile fits a block (to k = 614), the short-row form (partners
+    split over the warps) below, up to k = TILE_MAX_K; rows_kernel where
+    the contraction is shorter than MMA_MIN_M partners (the accuracy
+    gate) or at one row, quads_kernel there above k = 12 and beyond
+    those."""
     plan = tables_cuda.tables_plan(*PLAN_SHAPES[name], H100_SMS)
     assert plan.form == PLAN_FORMS[name]
     assert (plan.KW > 1) == (plan.form == "short")
@@ -218,7 +238,9 @@ def test_plan_covers_every_row_and_partner_once(shape):
 
 TILE_SHAPES = [(40, 300, 20), (17, 999, 13), (100, 2000, 25), (70, 64, 50),
                (9, 1363, 13), (5000, 2000, 20), (100, 20000, 20),
-               (2000, 5000, 50), (3, 5000, 64), (64, 64, 33)]
+               (2000, 5000, 50), (3, 5000, 64), (64, 64, 33),
+               (5000, 2000, 80), (2000, 5000, 80), (5000, 2000, 100),
+               (2000, 5000, 100), (100, 100, 90), (300, 400, 150)]
 
 
 @pytest.mark.parametrize("shape", TILE_SHAPES,
@@ -226,12 +248,14 @@ TILE_SHAPES = [(40, 300, 20), (17, 999, 13), (100, 2000, 25), (70, 64, 50),
 def test_plan_column_tiles_cover_each_column_once(shape):
     """Above k = 12 (mma_kernel's column tiles): the plan takes no chain
     count; its column tiles, in the grid's order, cover each of the NT8
-    columns once, Y's n-tiles all in the first; its splits cover the
-    contraction once, in order; a block's shared memory and the register
-    estimate fit three blocks an SM up to k = 22 and two above (and in
-    the tensor-core form's tiles of 128 columns above TILE_WIDE_K); every
-    entry of a row's k x k is in exactly one tile's Z list, in address
-    order, SQ's diagonal marked."""
+    columns once, Y's n-tiles in the first tiles they fill (two at k =
+    150); its splits cover the contraction once, in order; a block's
+    shared memory and the register estimate fit three blocks an SM up to
+    k = 22 and two above (and in the tensor-core form's tiles of 128
+    columns above TILE_WIDE_K, on a ring of two stages above k = 74);
+    every entry of a row's k x k is in exactly one tile's Z list, in
+    address order, SQ's diagonal marked, and tiles of Y alone have
+    none."""
     R, m, k = shape
     plan = tables_cuda.tables_plan(R, m, k, H100_SMS)
     # 128 columns a tile, not 64, in the tensor-core form
@@ -243,7 +267,10 @@ def test_plan_column_tiles_cover_each_column_once(shape):
     assert tiles[-1][1] == plan.NT8
     for (a, b), (a2, _) in zip(tiles, tiles[1:]):
         assert a < b == a2 and b - a == plan.NC
-    assert 8 * -(-k // 8) <= plan.NC  # Y's columns in tile 0
+    ny8 = 8 * -(-k // 8)  # Y's columns, in the first y_tiles tiles
+    y_tiles = -(-ny8 // plan.NC)
+    assert (y_tiles > 1) == (k > 128 and wide)
+    assert plan.stages == (2 if wide and k > 74 else 3)
     splits = plan.splits()
     assert splits[0][0] == 0 and splits[-1][1] == m
     assert all(lo < hi == lo2 for (lo, hi), (lo2, _) in zip(splits,
@@ -255,20 +282,22 @@ def test_plan_column_tiles_cover_each_column_once(shape):
     lists = tables_cuda.tile_list(k, plan.NCT)
     assert len(lists) == plan.acc_tiles
     seen = np.zeros(k * k, dtype=np.int32)
-    ny8, kp = 8 * -(-k // 8), k * (k + 1) // 2
+    kp = k * (k + 1) // 2
     for t, ent in enumerate(lists):
         assert len(ent) == 2 * plan.NC
         live = [x for x in ent if x >= 0]
         assert list(ent[len(live):]) == [-1] * (len(ent) - len(live))
-        addr = [(x >> 8) & 0xFFF for x in live]
+        assert bool(live) == (tiles[t][1] > ny8)  # Y's tiles alone: none
+        addr = [x >> 8 for x in live]
         assert addr == sorted(addr)
         for x, e in zip(live, addr):
             seen[e] += 1
             c, c2 = divmod(e, k)
             lo, hi = min(c, c2), max(c, c2)
             n = ny8 + lo * k - lo * (lo - 1) // 2 + hi - lo
-            assert n == tiles[t][0] + (x & 0xFF) and n < ny8 + kp
-            assert (x >> 20) == (c + 1 if c == c2 else 0)
+            assert n == tiles[t][0] + (x & 0x7F) and n < ny8 + kp
+            assert bool(x & 0x80) == (c == c2)  # SQ's c = address / (k+1)
+            assert c != c2 or e == c * (k + 1)
     assert (seen == 1).all()
 
 
@@ -384,18 +413,20 @@ def test_tf32_round_is_cvt_rna():
 @pytest.mark.parametrize("shape", [(20, 96, 3), (17, 999, 6), (9, 1363, 7),
                                    (40, 300, 5), (100, 2000, 4),
                                    (40, 300, 20), (17, 999, 13),
-                                   (100, 2000, 25), (70, 64, 50)],
+                                   (100, 2000, 25), (70, 64, 50),
+                                   (140, 150, 70), (140, 150, 130)],
                          ids=["short-R20", "short-R17-split", "gist-P",
                               "mma-k5", "mma-split", "tiles-k20",
                               "tiles-short-split-k13", "tiles-split-k25",
-                              "tiles-k50"])
+                              "tiles-k50", "tiles-k70", "tiles-y2-k130"])
 def test_tf32_tables_match_jax_per_chain(shape):
     """mma_kernel's arithmetic (tables_tf32: the 3xTF32 products, the sums
     in the plan's order, column tile by column tile above k = 12) on two
     chains at once, each chain against the JAX package's make_phase and
     rebuild_cache, and against the float64 tables, each entry within
     1e-5 of its summed |terms|; the plan's form, with splits at gist-P,
-    mma-split, tiles-short-split-k13 and tiles-split-k25."""
+    mma-split, tiles-short-split-k13 and tiles-split-k25, above k = 64 at
+    tiles-k70 and with Y's columns over two tiles at tiles-y2-k130."""
     R, m, k = shape
     plan = tables_cuda.tables_plan(R, m, k, H100_SMS)
     assert plan.form in ("mma", "short")
@@ -403,6 +434,7 @@ def test_tf32_tables_match_jax_per_chain(shape):
                                       (100, 2000, 4), (17, 999, 13),
                                       (100, 2000, 25)))
     assert (plan.acc_tiles > 1) == (k > tables_cuda.ROWS_MAX_K)
+    assert (8 * -(-k // 8) > plan.NC) == (k == 130)  # Y over two tiles
     D, inv, M, O = _tables_inputs(R, m, k, 2, seed=R + m)
     Y, SQ, Z, col_nz = tables_cuda.tables_tf32(
         *(torch.from_numpy(a) for a in (D, inv, M, O)))
