@@ -87,8 +87,11 @@ Phases:
               with the tensor-core bound (tables_cuda.tables_tc_counts,
               TF32 at 495 TFLOP/s) beside the float32 one, and each
               case's kernel's registers, spills and shared bytes; and
-              quads_kernel's remaining ground, 20000 x 40 A at k=20 and
-              k=39;
+              simt_tiles_kernel's ground (below 64 partners above k =
+              12), 20000 x 40 A at k=20 and k=39 and GIST x1 k=13, each
+              beside quads_kernel forced on the same inputs (its stream
+              ms, and the bits equal), with rows_kernel at 20000 x 40 A
+              k=10 as a yardstick;
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda,
               debug_checks=True): meanChiSq below 2x the golden GIST
               value, the kernel launched at least twice per iteration of
@@ -109,7 +112,11 @@ Phases:
               updates/s, peak device memory, tables launches (two an
               iteration); then the same data at k=20 and at k=100, 50
               iterations per phase, both samplers' tables in column
-              tiles: the same checks;
+              tiles: the same checks; then CoGAPS() on a synthetic
+              20000 x 40 matrix (bulk data of few samples) at k=20, 100 +
+              100 iterations, one chain: a finite, falling chi^2 history,
+              A's tables in simt_tiles_kernel once an iteration, P's in
+              column tiles; seconds, updates/s, peak memory;
   7 sparse  — the iteration time of each sparse mode (dense, ell, xla)
               from one state of a 2000 x 10000 k=10 matrix with 87%
               structural zeros, then CoGAPS(sparse_optimization=True,
@@ -1316,9 +1323,12 @@ TABLES_CASES = (  # (name, rows R, partners m, k, chains): both samplers
     ("100x100 A x1 k=90", 100, 100, 90, 1),
     ("100x100 P x1 k=90", 100, 100, 90, 1),
     ("300x400 A x1 k=150", 300, 400, 150, 1),
-    # quads_kernel's remaining ground: bulk data of 40 samples, m < 64
+    # simt_tiles_kernel's ground (once quads_kernel's): bulk data of 40
+    # samples, m < 64, above k = 12; and rows_kernel on the same data at
+    # k=10, its yardstick
     ("20000x40 A x1 k=20", 20000, 40, 20, 1),
-    ("20000x40 A x1 k=39", 20000, 40, 39, 1))
+    ("20000x40 A x1 k=39", 20000, 40, 39, 1),
+    ("20000x40 A x1 k=10", 20000, 40, 10, 1))
 TABLES_HEADLINE = "5000x2000 A x4"
 
 
@@ -1399,6 +1409,19 @@ def phase_tables(device, report, card, reps=20):
         max_err = max(max_err, diff)
         ok = (ok and err_k <= 2 * err_p and launched == 1
               and torch.equal(phase.col_nz, ep.col_nz))
+        plan = tables_cuda.tables_plan(R, m, k, n_sm)
+        beside = ""
+        if plan.form == "simt":  # quads_kernel on the same inputs
+            quads = tables_cuda.cuda_core_plan(R, m, k, n_sm)
+            got = tables_cuda.dense_tables(*args, plan=quads)
+            same = all(torch.equal(x, y) for x, y in zip(
+                got, (cache.Y, phase.SQ, phase.Z, phase.col_nz)))
+            q_dev, _ = stream_ms(
+                lambda: tables_cuda.dense_tables(*args, plan=quads))
+            ok = ok and same
+            beside = (f"; quads_kernel<{quads.PQ}> forced: device "
+                      f"{q_dev:.4f} ms, bits equal {same}")
+            del got
         del pc, pp, ec, ep, terms, cache, phase
         ms = time_calls(lambda: dense.tables(*args), reps)
         dev, host = stream_ms(lambda: dense.tables(*args))
@@ -1407,7 +1430,6 @@ def phase_tables(device, report, card, reps=20):
         bound, by = bound_ms(*tables_cuda.tables_counts(R, m, k, nch))
         tc, tc_by = bound_ms(*tables_cuda.tables_tc_counts(R, m, k, nch),
                              ops_per_s=H100_TF32_OPS_PER_S)
-        plan = tables_cuda.tables_plan(R, m, k, n_sm)
         regs, spill = ptxas_of(report, tables_symbol(plan))
         rows[name] = (f"{nch} x ({R},{m}) k={k}", ms, plain_ms, bound, by,
                       dev, plain_dev, tc, tc_by)
@@ -1422,7 +1444,7 @@ def phase_tables(device, report, card, reps=20):
             f"plan {tables_form(plan)}"
             f" RT={plan.RT} S={plan.S} CH={plan.CH} L={plan.L}, "
             f"{plan.blocks} blocks a chain, {plan.smem} B shared, ptxas "
-            f"{regs} registers, {spill} bytes of spill stores"
+            f"{regs} registers, {spill} bytes of spill stores{beside}"
             + ("" if ok else "  MISMATCH"))
         if not ok:
             bad.append(name)
@@ -1437,6 +1459,7 @@ def phase_tables(device, report, card, reps=20):
             for q in range(1, tables_cuda.ROWS_MAX_K + 1)}
     regs.update({f"quads_kernel<{q}>": ptxas_of(report, f"quads_kernelILi{q}E")
                  for q in tables_cuda.QUADS})
+    regs["simt_tiles_kernel"] = ptxas_of(report, "simt_tiles_kernel")
     regs.update({f"mma_tiles_kernel<{q}, {ns}>": ptxas_of(
         report, f"mma_tiles_kernelILi{q}ELi{ns}E")
         for q, ns in ((tables_cuda.TILE_NT, tables_cuda.STAGES),
@@ -1462,6 +1485,9 @@ def tables_form(plan):
                 f"KW={plan.KW}")
     if plan.form == "rows":
         return f"rows: rows_kernel<{plan.k}>"
+    if plan.form == "simt":
+        return (f"simt: simt_tiles_kernel RT={plan.RT} G={plan.G}, "
+                f"{plan.acc_tiles} band(s) of at most {plan.smq} of Z's rows")
     return f"quads: quads_kernel<{plan.PQ}> G={plan.G}"
 
 
@@ -1474,6 +1500,8 @@ def tables_symbol(plan):
         return f"mma_kernelILi{plan.k}E"
     if plan.form == "rows":
         return f"rows_kernelILi{plan.k}E"
+    if plan.form == "simt":
+        return "simt_tiles_kernel"
     return f"quads_kernelILi{plan.PQ}E"
 
 
@@ -1541,6 +1569,57 @@ def realistic_run(Ds, k, device, n_it=50, seed=7):
                              f" an iteration")
     if not all(p.NCT and p.form == "mma" for p in plans):
         raise AssertionError(f"k={k} tables not in column tiles: {plans}")
+    return launches
+
+
+def bulk_few_samples_run(device, card, genes=20000, samples=40, k=20,
+                         n_it=100, seed=23):
+    """Phase 6 on bulk data of few samples: CoGAPS() on a synthetic genes
+    x samples matrix (bench_harness.synthetic_dense, from seed) at k
+    patterns, n_it + n_it iterations, one chain on the per-call route,
+    through the public entry point: A's tables (samples < MMA_MIN_M
+    partners) in simt_tiles_kernel, one launch an iteration, P's in
+    mma_tiles_kernel. It fails unless the chi^2 history is finite and
+    falling and the forms launched so. Returns the tables launches."""
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.ops import cuda_build, tables_cuda
+    [D] = synthetic_dense(genes, samples, k, 1, seed)
+    n_sm = cuda_build.sm_count(device.index or 0)
+    plans = [tables_cuda.tables_plan(R, m, k, n_sm)
+             for R, m in ((genes, samples), (samples, genes))]
+    torch.cuda.reset_peak_memory_stats()
+    tables_cuda.dense_tables.launches = 0
+    tables_cuda.dense_tables.by_form = {}
+    t0 = time.perf_counter()
+    res = cogaps_tpu_torch.CoGAPS(D, n_patterns=k, n_iterations=n_it,
+                                  seed=seed, messages=False,
+                                  output_frequency=n_it // 4, device="cuda")
+    elapsed = time.perf_counter() - t0
+    launches = tables_cuda.dense_tables.launches
+    by_form = dict(tables_cuda.dense_tables.by_form)
+    h = np.asarray(res.diagnostics["chisqHistory"], dtype=np.float64)
+    ups = (res.diagnostics["totalUpdates"]
+           / res.diagnostics["totalRunningTime"])
+    log(f"  CoGAPS() {genes}x{samples} k={k} (synthetic, seed {seed}), "
+        f"{n_it}+{n_it} iterations: meanChiSq {res.mean_chi_sq:.1f}, "
+        f"{elapsed:.2f} s in all, {ups:.1f} updates/s over its "
+        f"{res.diagnostics['totalRunningTime']:.2f} s of iterations "
+        f"({res.diagnostics['totalUpdates']} updates), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; tables "
+        f"launches {launches} by form {by_form}, A "
+        + " and P ".join(tables_form(p) for p in plans)
+        + f"; chi^2 history {np.round(h, 1).tolist()}; card: {card}")
+    if not (len(h) > 1 and np.isfinite(h).all() and h[-1] < h[0]
+            and np.isfinite(res.mean_chi_sq)):
+        raise AssertionError(f"{genes}x{samples} k={k}: chi^2 history is "
+                             f"not finite and falling")
+    if (plans[0].form != "simt" or by_form.get("simt") != 2 * n_it
+            or launches != 4 * n_it):
+        raise AssertionError(f"{genes}x{samples} k={k}: tables launches "
+                             f"{by_form}, not A's in simt_tiles_kernel once"
+                             f" an iteration: {plans[0]}")
     return launches
 
 
@@ -2935,6 +3014,8 @@ def main() -> int:
     for k in (20, 100):
         dense_by[f"6 (k={k})"] = realistic_run(Ds, k, device)
     del Ds
+    # bulk data of few samples: A's tables below 64 partners above k = 12
+    dense_by["6 (20000x40 k=20)"] = bulk_few_samples_run(device, card)
 
     # 7. the sparse model through CoGAPS()
     from cogaps_tpu_torch.sparse_engine import resolve_sparse_mode

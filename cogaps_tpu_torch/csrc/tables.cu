@@ -21,7 +21,7 @@
 // grid is (row tiles x accumulator tiles, contraction splits, chains): more
 // chains add blocks and change no block's work. A block covers RT rows of
 // one chain and the partners of one fixed chunk of the contraction, staged
-// in shared memory while the block works on earlier ones. Four kernels,
+// in shared memory while the block works on earlier ones. Five kernels,
 // as the plan says:
 //   - mma_kernel<K> (k <= 12, m >= 64, R >= 2): the products on the
 //     tensor cores in TF32 with the 3xTF32 split (x = big + small, both
@@ -73,9 +73,37 @@
 //   - rows_kernel<K> (k <= 12, the rest): a thread a row, K + K(K+1)/2
 //     float accumulators, the partner's row in registers; per partner
 //     t O_c for Y and (W O_c) O_c' for Z, one fmaf each;
-//   - quads_kernel<PQ> (k > 12 where m < 64 or R = 1, the short-row
-//     form's R <= 32 above k = 64, which only a direct call reaches, and
-//     past the k whose column tile fits a block, ~614): after
+//   - simt_tiles_kernel (12 < k <= 128 where m < 64, at any R): in
+//     place of quads_kernel there (bulk data of few samples: A's tables
+//     at 40 samples, GIST's 9), every entry the same single fmaf chain
+//     over the partners in order, so the same bits. Bound by bytes: Z's
+//     R k^2 floats are ~89% of them at 20000 x 40 k=39, and the FP32
+//     operations (fewer than 64 FMAs an entry) half the bytes' time.
+//     quads_kernel lost to cuBLAS there (0.769 ms against 0.159 at k=39)
+//     as each of a row's G threads formed the residual again, every
+//     block formed its columns anew for 8 rows, each 16-byte load of a
+//     column fed one row's 4 FMAs, and Z went out in scattered 4-byte
+//     stores. Here a block holds one band of Z's rows, all k where RT
+//     rows of k x k sums fit (to k ~ 41), and walks row tiles of RT = 8
+//     RG rows (RG row groups of G threads), as many blocks as the card
+//     holds at once: O staged once, each tile's W, X and M by cp.async
+//     while the tile before is summed (every partner at once: m < 64,
+//     one split). It forms T = (X - M O^T) W once a (row, partner), and
+//     each thread keeps 8 rows x 8 columns (a segment: Y's columns 8b ..
+//     8b + 7, or Z's (c, 8b .. 8b + 7) with b >= c / 8, the pairs c <=
+//     c' once) in registers: per partner two 16-byte loads of the rows'
+//     T or W, two of O's 8 columns and O_c, 8 products O_c O_c' and 64
+//     fmaf. The sums go to shared memory, a pair and its mirror from
+//     one sum: where the band is all k as the tile's rows of Z lie in
+//     memory, copied out in 16-byte pieces; else written in the order
+//     of their addresses in each row (ops/tables_cuda.simt_table's
+//     lists), neighbouring threads on neighbouring addresses. Of a
+//     tile's time the sums take the most, then the residual (its fmaf
+//     chains over k, a barrier's phase), then the writes;
+//   - quads_kernel<PQ> (k > 12 at R = 1 from 64 partners, the short-row
+//     form's R <= 32 above k = 64, which only a direct call reaches,
+//     past the k whose column tile fits a block, ~614, and below 64
+//     partners past k = 128): after
 //     O's rows, a row of "columns" a partner, [O_c | O_c O_c'], formed
 //     once a partner and block, and each thread PQ quads of them (float4
 //     accumulators), G threads sharing a row where its quads exceed PQ or
@@ -89,7 +117,8 @@
 // entries, many loads in flight); no float atomics, so two runs give the
 // same bits.
 //
-// What bounds it on the H100: bytes at k <= 12, the tensor cores above.
+// What bounds it on the H100: bytes at k <= 12, the tensor cores above
+// from 64 partners, bytes again below (simt_tiles_kernel, see above).
 // X and W are read once, 8 bytes an element, against 2 + 4k + k(k+1)
 // float32 operations (152 at k=10: 19 a byte against the CUDA cores' 67e12
 // / 3.35e12 = 20, so rows_kernel could meet its bound only with the FMA
@@ -186,6 +215,12 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void fma4(float s, const float4& v, float4& acc) {
@@ -551,6 +586,261 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------
+// simt_tiles_kernel: k > 12 below MMA_MIN_M partners, on the CUDA cores
+// ---------------------------------------------------------------------
+
+constexpr int kSimtTR = 8;  // ops/tables_cuda.SIMT_TR: a thread's rows
+
+// simt_tiles_kernel's shared memory in floats (ops/tables_cuda.
+// _simt_floats), every part 16-byte aligned: O's m rows KP = 8 ceil(k/8)
+// apart (zeros past k); two buffers (a row tile's, and the next one's in
+// flight) of W's and T's rows transposed (m x RTP: a partner's RT rows
+// side by side) and M's (k x RTP); Y's RT x k sums, the band's Z sums
+// (RT rows of band x k, 4 floats more) and the flags (2k)
+struct SimtLayout {
+  int RTP, KP, buf, w, t, mt, y, z, flag, floats;
+};
+
+__host__ __device__ inline SimtLayout simt_layout(int k, int m, int RT,
+                                                  int band) {
+  SimtLayout l;
+  l.RTP = RT + 4;
+  l.KP = 8 * ((k + 7) / 8);
+  l.w = m * l.KP;
+  l.t = l.w + m * l.RTP;
+  l.mt = l.t + m * l.RTP;
+  l.buf = 2 * m * l.RTP + k * l.RTP;  // a buffer's floats
+  l.y = l.w + 2 * l.buf;
+  l.z = l.y + RT * k;
+  l.flag = l.z + RT * band * k + 4;  // and a 16-byte piece to start in
+  l.floats = l.flag + 2 * k;
+  return l;
+}
+
+// A block: one band of Z's rows [c0, c1) (Y's columns too in band 0) of
+// one chain, over the row tiles w, w + workers, ... of kSimtTR RG rows
+// (RG = kThreads / G row groups of G threads), each tile's W, X and M
+// staged while the one before is summed; O staged once. A segment is 8
+// columns a thread keeps for its group's 8 rows: Y's columns 8b .. 8b +
+// 7 (code b), or Z's (c, 8b .. 8b + 7) for b >= c / 8 (code (c + 1) << 8
+// | b), which hold every pair c <= c' once. The band's table
+// (ops/tables_cuda.simt_table): c0, c1, its segments, its Z entries and
+// where those start, then the segments' codes, then the entries
+// (address in a row's k x k << 16 | the pair's place in the band's
+// sums), in the order of their addresses; none in a band of all k.
+__global__ void __launch_bounds__(kThreads, 4)
+    simt_tiles_kernel(const __grid_constant__ Args a) {
+  const int k = a.k, m = a.m, RT = a.RT, CG = a.G;
+  const SimtLayout ly = simt_layout(k, m, RT, a.smq);
+  const int KP = ly.KP, RTP = ly.RTP;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* sO = sm;
+  float* sY = sm + ly.y;
+  float* sZ = sm + ly.z;
+  int* sFlag = reinterpret_cast<int*>(sm + ly.flag);
+  const int tid = threadIdx.x, chain = blockIdx.z;
+  const int at = blockIdx.x % a.acc_tiles;
+  const int workers = gridDim.x / a.acc_tiles;
+  const int row_tiles = (a.R + RT - 1) / RT;
+  const int* tab = a.zlist + (size_t)at * a.TQ;
+  const int c0 = __ldg(tab), c1 = __ldg(tab + 1);
+  const int nseg = __ldg(tab + 2), nlist = __ldg(tab + 3);
+  const int* segs = tab + 5;
+  const int* list = tab + __ldg(tab + 4);
+  const bool has_y = at == 0, flag_block = blockIdx.x == 0;
+  const float* D = a.D + chain * a.cD;
+  const float* W = a.W + chain * a.cW;
+  const float* M = a.M + chain * a.cM;
+  const float* O = a.O + chain * a.cO;
+
+  // row tile rt's W, X (into T's place) and M into buffer b, by cp.async
+  // (zeros past R), committed
+  const auto stage = [&](int rt, int b) {
+    float* w = sm + ly.w + b * ly.buf;
+    float* t = sm + ly.t + b * ly.buf;
+    float* mt = sm + ly.mt + b * ly.buf;
+    const int row0 = rt * RT, nrows = min(RT, a.R - row0);
+    for (int e = tid; e < RT * m; e += kThreads) {
+      const int r = e / m, j = e - r * m;
+      const bool ok = r < nrows;
+      const size_t off = ok ? (size_t)(row0 + r) * m + j : 0;
+      cp_async4(w + j * RTP + r, W + off, ok);
+      if (has_y) cp_async4(t + j * RTP + r, D + off, ok);
+    }
+    if (has_y)
+      for (int e = tid; e < RT * k; e += kThreads) {
+        const int r = e / k, c = e - r * k;
+        const bool ok = r < nrows;
+        cp_async4(mt + c * RTP + r,
+                  M + (ok ? (size_t)(row0 + r) * k + c : 0), ok);
+      }
+    cp_async_commit();
+  };
+
+  // O's rows once, zeros past k, and the first row tile's rows
+  const int w0 = blockIdx.x / a.acc_tiles;
+  for (int e = tid; e < m * KP; e += kThreads) {
+    const int j = e / KP, c = e - j * KP;
+    cp_async4(sO + e, O + (c < k ? (size_t)j * k + c : 0), c < k);
+  }
+  cp_async_commit();
+  if (w0 < row_tiles) stage(w0, 0);
+  if (flag_block) {
+    for (int c = tid; c < 2 * k; c += kThreads) sFlag[c] = 0;
+    cp_async_wait_all();
+    __syncthreads();
+    for (int e = tid; e < m * k; e += kThreads) {
+      const int j = e / k, c = e - j * k;
+      const float v = sO[j * KP + c];
+      if (v > 0.0f) sFlag[c] = 1;
+      if (v != v) sFlag[k + c] = 1;
+    }
+    __syncthreads();
+    for (int c = tid; c < k; c += kThreads)
+      a.col_nz[(size_t)chain * k + c] = sFlag[c] && !sFlag[k + c];
+  }
+
+  const int rg = tid / CG, s = tid - rg * CG;
+  const int ZS = (c1 - c0) * k;  // a row's band of Z sums
+  const int kk = k * k;
+  const bool tri = c0 == 0 && c1 == k;  // the band is all k
+  // where the band is all k, sZ starts as far into a 16-byte piece as the
+  // chain's rows of Z do (row tiles are 8 RG rows: 8 k^2 floats apart)
+  if (tri) sZ += (int)((size_t)chain * a.R * kk & 3);
+  for (int rt = w0, i = 0; rt < row_tiles; rt += workers, ++i) {
+    const int b = i & 1;
+    if (rt + workers < row_tiles) {  // the next tile, into the other buffer
+      stage(rt + workers, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();  // this tile's rows are in; the last tile's writes read
+    const float* sW = sm + ly.w + b * ly.buf;
+    float* sT = sm + ly.t + b * ly.buf;
+    const float* sMt = sm + ly.mt + b * ly.buf;
+    const int row0 = rt * RT, nrows = min(RT, a.R - row0);
+
+    // the residual once a (row, partner), as quads_kernel forms it: mo by
+    // an fmaf chain over c ascending, then t = (x - mo) w in X's place; a
+    // thread a (row, partner), a warp's lanes on neighbouring rows
+    if (has_y) {
+      for (int e = tid; e < m * RT; e += kThreads) {
+        const int j = e / RT, r = e - j * RT;
+        const float* oj = sO + j * KP;
+        const float* mr = sMt + r;
+        float mo = 0.0f;
+#pragma unroll 4
+        for (int c = 0; c < k; ++c) mo = __fmaf_rn(mr[c * RTP], oj[c], mo);
+        float* t = sT + j * RTP + r;
+        *t = __fmul_rn(__fsub_rn(*t, mo), sW[j * RTP + r]);
+      }
+      __syncthreads();
+    }
+
+    // a thread's segments: s, s + CG, ... of the band's, for rows 8 rg ..
+    // 8 rg + 7; per partner two 16-byte loads of the rows' coefficients
+    // (T for Y's columns, W for Z's), two of O's 8 columns, O_c, 8
+    // products O_c O_c' rounded once (Y's: 1 O_c'), 64 fmaf
+    for (int q = s; q < nseg; q += CG) {
+      const int code = __ldg(segs + q);
+      const int c = (code >> 8) - 1, cb = code & 0xFF;
+      const bool y = c < 0;
+      const float* cf = (y ? sT : sW) + kSimtTR * rg;
+      const float* ob = sO + 8 * cb;
+      const float* oc = sO + (y ? 0 : c);
+      float acc[kSimtTR][8];
+#pragma unroll
+      for (int r = 0; r < kSimtTR; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[r][e] = 0.0f;
+#pragma unroll 2
+      for (int j = 0; j < m; ++j) {
+        const float4 w0v = *reinterpret_cast<const float4*>(cf + j * RTP);
+        const float4 w1v =
+            *reinterpret_cast<const float4*>(cf + j * RTP + 4);
+        const float4 o0 = *reinterpret_cast<const float4*>(ob + j * KP);
+        const float4 o1 = *reinterpret_cast<const float4*>(ob + j * KP + 4);
+        const float f = y ? 1.0f : oc[j * KP];
+        const float qv[8] = {__fmul_rn(f, o0.x), __fmul_rn(f, o0.y),
+                             __fmul_rn(f, o0.z), __fmul_rn(f, o0.w),
+                             __fmul_rn(f, o1.x), __fmul_rn(f, o1.y),
+                             __fmul_rn(f, o1.z), __fmul_rn(f, o1.w)};
+        const float wv[kSimtTR] = {w0v.x, w0v.y, w0v.z, w0v.w,
+                                   w1v.x, w1v.y, w1v.z, w1v.w};
+#pragma unroll
+        for (int r = 0; r < kSimtTR; ++r)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[r][e] = __fmaf_rn(wv[r], qv[e], acc[r][e]);
+      }
+      // into the block's sums: Y's columns below k; Z's pairs c <= c' < k
+      // at (c - c0) k + c' of a row's band, and where the band is all k
+      // their mirrors at c' k + c too (a row's k x k, as Z holds it)
+      const int lo = y ? 0 : c - 8 * cb, hi = k - 8 * cb;  // e in [lo, hi)
+      float* out = y ? sY + kSimtTR * rg * k + 8 * cb
+                     : sZ + kSimtTR * rg * ZS + (c - c0) * k + 8 * cb;
+      const int stride = y ? k : ZS;
+      const bool mirror = !y && tri;
+      float* mir = sZ + kSimtTR * rg * ZS + 8 * cb * k + (y ? 0 : c);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e < lo || e >= hi) continue;
+#pragma unroll
+        for (int r = 0; r < kSimtTR; ++r) out[r * stride + e] = acc[r][e];
+        if (mirror && e > lo)
+#pragma unroll
+          for (int r = 0; r < kSimtTR; ++r)
+            mir[r * ZS + e * k] = acc[r][e];
+      }
+    }
+    __syncthreads();
+
+    // Z: where the band is all k, the tile's rows of Z are one span of
+    // nrows k^2 floats, as in sZ: copied in 16-byte pieces (sZ starts as
+    // far into a piece as the span does); else the band's Z entries of
+    // each row in the order of their addresses (each pair and its mirror
+    // from the one sum), neighbouring threads on neighbouring entries;
+    // SQ on the diagonal; Y
+    const size_t rowg = (size_t)chain * a.R + row0;
+    float* Zg = a.Z + rowg * kk;
+    if (tri) {
+      const int n = nrows * kk, head = (4 - (int)(rowg * kk & 3)) & 3;
+      const int n4 = (n - min(head, n)) / 4;
+      for (int e = tid; e < min(head, n); e += kThreads) Zg[e] = sZ[e];
+      const float4* s4 = reinterpret_cast<const float4*>(sZ + head);
+      float4* z4 = reinterpret_cast<float4*>(Zg + head);
+      for (int e = tid; e < n4; e += kThreads) z4[e] = s4[e];
+      for (int e = head + 4 * n4 + tid; e < n; e += kThreads) Zg[e] = sZ[e];
+    }
+    for (int e = tid; e < nlist; e += kThreads) {  // none where tri
+      const int x = __ldg(list + e);
+      const int addr = x >> 16, idx = x & 0xFFFF;
+      int r = 0;
+      for (; r + kSimtTR <= nrows; r += kSimtTR) {  // 8 loads in flight
+        float v[kSimtTR];
+#pragma unroll
+        for (int q = 0; q < kSimtTR; ++q) v[q] = sZ[(r + q) * ZS + idx];
+#pragma unroll
+        for (int q = 0; q < kSimtTR; ++q)
+          Zg[(size_t)(r + q) * kk + addr] = v[q];
+      }
+      for (; r < nrows; ++r) Zg[(size_t)r * kk + addr] = sZ[r * ZS + idx];
+    }
+    const int nb = c1 - c0;
+    for (int e = tid; e < nrows * nb; e += kThreads) {
+      const int r = e / nb, c = c0 + e - r * nb;
+      a.SQ[(rowg + r) * k + c] = sZ[r * ZS + (c - c0) * k + c];
+    }
+    if (has_y)
+      for (int e = tid; e < nrows * k; e += kThreads)
+        a.Y[rowg * k + e] = sY[e];
+  }
+  cp_async_wait_all();
+}
+
+// ---------------------------------------------------------------------
 // mma_kernel<K>: Y and Z on the tensor cores
 // ---------------------------------------------------------------------
 
@@ -617,11 +907,6 @@ __host__ __device__ inline MmaLayout mma_layout(int k, int RW) {
   l.bar = (l.flag + 2 * k + 2) / 2 * 2;  // 8-byte aligned
   l.floats = l.bar + 2 * kStages;
   return l;
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -2090,6 +2375,43 @@ int launch_quads(const Args& a, int nch, int smem, cudaStream_t stream) {
   return launch(quads_kernel<PQ>, smem_set, a, a, nch, smem, stream);
 }
 
+// simt_tiles_kernel's grid: as many blocks as the card holds at once
+// (its SMs x the blocks an SM takes at this shared memory), each band's
+// row tiles dealt over `workers` blocks of each chain
+int launch_simt(const Args& a, int nch, int smem, cudaStream_t stream) {
+  static int smem_set = 0, n_sm = 0, occ_smem = -1, occ = 1;
+  if (smem > 48 * 1024 && smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        simt_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (smem != occ_smem) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, simt_tiles_kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (occ < 1) occ = 1;
+    occ_smem = smem;
+  }
+  const long long row_tiles = (a.R + a.RT - 1) / a.RT;
+  const long long slots = (long long)occ * n_sm;
+  const long long per =
+      (row_tiles * a.acc_tiles * nch + slots - 1) / slots;  // tiles a block
+  const int workers = (int)((row_tiles + per - 1) / per);
+  const dim3 grid(workers * a.acc_tiles, 1, nch);
+  simt_tiles_kernel<<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int K>
 int launch_mma(const MmaArgs& p, int nch, int smem, cudaStream_t stream) {
   static int smem_set = 0;
@@ -2145,7 +2467,9 @@ int tensor_map(CUtensorMap* map, const float* base, int m, int R, int nch,
 // The plan's fields (ops/tables_cuda.tables_plan) and the tensors: form 0
 // runs rows_kernel<k>, 1 quads_kernel<PQ> (PQ one of ops/tables_cuda.QUADS),
 // 2 mma_kernel<k> with RW row warps (k <= 12), or above mma_tiles_kernel
-// <NCT, stages> in acc_tiles column tiles, whose Z lists zlist holds.
+// <NCT, stages> in acc_tiles column tiles, whose Z lists zlist holds; 3
+// simt_tiles_kernel, G threads a row group, acc_tiles bands of at most
+// smq of Z's rows, whose tables zlist holds, TQ ints each.
 extern "C" int cogaps_tables_launch(
     int nch, int R, int m, int k, int form, int G, int PQ, int TQ,
     int acc_tiles, int S, int CH, int L, int smq, int RW, int NCT,
@@ -2155,12 +2479,19 @@ extern "C" int cogaps_tables_launch(
     float* SQ, float* Z, unsigned char* col_nz, float* part, int* flags,
     int* counters, const int* zlist, void* stream) {
   const bool tiles = form == 2 && k > kRowsMaxK;
+  const bool simt = form == 3;
   const int nt = (k + 7) / 8 + (k * (k + 1) / 2 + 7) / 8;  // n-blocks
   if (nch < 1 || nch > 65535 || R < 1 || m < 0 || k < 1 || k >= 0xFFFF ||
       G < 1 || kThreads % G || S < 1 || S > 65535 || L < 1 || CH < L ||
-      form < 0 || form > 2 ||
-      (form != 1 && G != 1) ||
-      (form != 1 && !tiles && (k > kRowsMaxK || acc_tiles != 1)) ||
+      form < 0 || form > 3 ||
+      (form != 1 && !simt && G != 1) ||
+      (form != 1 && !tiles && !simt && (k > kRowsMaxK || acc_tiles != 1)) ||
+      (simt && (k <= kRowsMaxK || (G != 16 && G != 32 && G != 64 &&
+                                   G != 128) ||
+                S != 1 || acc_tiles < 1 || smq < 1 || smq > k || TQ < 5 ||
+                zlist == nullptr ||
+                smem < 4 * simt_layout(k, m, kSimtTR * kThreads / G, smq)
+                               .floats)) ||
       (tiles && ((long long)k * k >= kListMaxKK ||
                  (NCT != 8 && NCT != 16) ||
                  (stages != 3 && (stages != 2 || NCT != 16)) ||
@@ -2168,7 +2499,7 @@ extern "C" int cogaps_tables_launch(
                  counters == nullptr)) ||
       (S > 1 && (part == nullptr || counters == nullptr || flags == nullptr)))
     return kBad;
-  int RT = kThreads / G;
+  int RT = simt ? kSimtTR * kThreads / G : kThreads / G;
   if (form == 2) {
     const int lay_L =
         tiles ? tile_layout(k, RW, NCT, stages).L : mma_layout(k, RW).L;
@@ -2220,6 +2551,7 @@ extern "C" int cogaps_tables_launch(
       default: return kBad;
     }
   }
+  if (simt) return launch_simt(a, nch, smem, s);
   if (form == 0) {
     switch (k) {
       case 1: return launch_rows<1>(a, nch, smem, s);

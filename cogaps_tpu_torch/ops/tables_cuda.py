@@ -10,7 +10,7 @@ have no Pallas kernel; on the fused route K3 builds the same tables in
 float64 (csrc/span.cu::rebuild_kernel). models/dense.tables dispatches
 here for float32 CUDA tensors and to the plain version for CPU tensors.
 
-Four kernels, as ``tables_plan`` says, from (R, m, k) and the SM count:
+Five kernels, as ``tables_plan`` says, from (R, m, k) and the SM count:
 mma_kernel<k> (k <= 12, m >= MMA_MIN_M, R >= MMA_MIN_R) forms (X W) O
 and Z = W Q on the tensor cores in TF32 with the 3xTF32 split, and Y =
 (X W) O - M Z, four warps a block: 64 rows on wgmma where R > 32 (the
@@ -23,14 +23,23 @@ form 128 above TILE_WIDE_K, a block's, the tiles holding Y's columns
 (the first ceil(ceil(k/8) / NCT)) staging X as well and the last tile of
 a row tile forming Y, on a ring of ``stages`` stages; rows_kernel<k> (k
 <= 12 below those), a thread a row with all its accumulators in
-registers; quads_kernel<PQ> (k > 12 below those: m < MMA_MIN_M, R = 1,
-the short-row form above TILE_MAX_K, and past the k whose column tile
-fits a block, ~614), each thread PQ quads of a row's accumulators, G
-threads a row. quads_kernel computes every k on the CUDA cores: it took
-2.76 ms at 4 x 5000 x 2000 A k=20 and 39 ms at k=50, where cuBLAS's
-tables took 1.52 and 4.90, and the column tiles ~0.72 and ~3.95 (NVIDIA
-H100 80GB HBM3, 700 W; kernel_times.py --tables); their bound there is
-the tensor cores' (``tables_tc_counts``): 0.112 and 0.642 ms.
+registers; simt_tiles_kernel (12 < k <= SIMT_MAX_K where m <
+MMA_MIN_M, at any R: bulk data of few samples), on the CUDA cores with
+the same bits as quads_kernel, each thread 8 rows x 8 columns of [O |
+Q] in registers over every partner, the residual once a (row, partner),
+a block's sums written in address order by ``simt_table``'s lists, whole
+rows of Z where they fit a block and bands of Z's rows (``simt_bands``)
+above; quads_kernel<PQ> (k > 12 below those: R = 1 from MMA_MIN_M
+partners, the short-row form above TILE_MAX_K, past the k whose column
+tile fits a block, ~614, and below MMA_MIN_M partners past SIMT_MAX_K),
+each thread PQ quads of a row's accumulators, G threads a row.
+quads_kernel computes every k on the CUDA cores: it took 2.76 ms at 4 x
+5000 x 2000 A k=20 and 39 ms at k=50, where cuBLAS's tables took 1.52
+and 4.90, and the column tiles ~0.72 and ~3.95 (NVIDIA H100 80GB HBM3,
+700 W; kernel_times.py --tables); their bound there is the tensor
+cores' (``tables_tc_counts``): 0.112 and 0.642 ms. ``cuda_core_plan``
+is rows_kernel's or quads_kernel's plan at any shape, which
+``dense_tables(..., plan=...)`` runs in place of tables_plan's.
 ``tables_tf32`` is the plain
 emulation of mma_kernel's arithmetic (the TF32 halves by cvt.rna's
 rounding, the three products a partner and the float32 sums in the
@@ -60,9 +69,10 @@ import torch
 from . import cuda_build
 
 THREADS = 128  # csrc/tables.cu's kThreads
-# quads_kernel's PQ; it takes k > 12 only below mma_kernel's MMA_MIN_M
-# partners or MMA_MIN_R rows (GIST A, 1363 x 9), in the short-row form
-# above TILE_MAX_K and past the k whose column tile fits a block
+# quads_kernel's PQ; it takes k > 12 only at MMA_MIN_R - 1 rows from
+# MMA_MIN_M partners, in the short-row form above TILE_MAX_K, past the k
+# whose column tile fits a block and below MMA_MIN_M partners past
+# SIMT_MAX_K (simt_tiles_kernel takes GIST A, 1363 x 9, and 20000 x 40)
 QUADS = (1, 2, 3, 4, 6, 8, 9, 11, 15, 17, 20)
 ROWS_MAX_K = 12  # rows_kernel's and mma_kernel's K: 1 .. 12
 # mma_kernel from 64 partners and 2 rows: below, 3xTF32's products (up to
@@ -71,7 +81,8 @@ ROWS_MAX_K = 12  # rows_kernel's and mma_kernel's K: 1 .. 12
 # error), which mma_kernel met only at 1.2-1.5x at 16-25 partners; at
 # one row of 4000 partners it reached 2.05x (3.65e-7 against 1.78e-7,
 # rows_kernel 2.0x on those inputs), and one row is rows_kernel's as
-# before (NVIDIA H100 80GB HBM3, 700 W)
+# before (NVIDIA H100 80GB HBM3, 700 W). Below MMA_MIN_M partners: up to
+# k = 12 rows_kernel, above simt_tiles_kernel to SIMT_MAX_K
 MMA_MIN_M, MMA_MIN_R = 64, 2
 MMA_WARPS = THREADS // 32  # csrc/tables.cu's kMmaWarps
 STAGES = 3  # csrc/tables.cu's kStages: mma_kernel's ring
@@ -116,7 +127,15 @@ MAX_L = 128  # partners a sub-tile stages
 MIN_CHUNK = (64, 256)
 FILL = 2  # blocks an SM that one chain's call aims at
 REG_BASE = 48  # registers a thread holds besides its accumulators
-FORMS = ("rows", "quads", "mma", "short")  # csrc/tables.cu's form: 0, 1, 2
+# csrc/tables.cu's form of each plan form
+FORMS = {"rows": 0, "quads": 1, "mma": 2, "short": 2, "simt": 3}
+# simt_tiles_kernel (k > 12 below MMA_MIN_M partners, up to SIMT_MAX_K):
+# a thread's 8 columns (a segment) for SIMT_TR rows, 64 float
+# accumulators; a block's shared memory under SIMT_SMEM, three blocks an
+# SM (its 228 KB less 1 KB a block): whole rows of Z (k x k) where they
+# fit (to k = 41 at 63 partners, 8 rows), else bands of Z's rows
+SIMT_TR, SIMT_MAX_K = 8, 128
+SIMT_SMEM = (233_472 - 3 * 1024) // 3
 
 
 class TablesPlan(NamedTuple):
@@ -130,9 +149,13 @@ class TablesPlan(NamedTuple):
     THREADS / G), each keeping PQ quads (float4 accumulators) of its row's
     nq = qy + qz (Y's k columns, then Z's k(k+1)/2 pairs c <= c', four a
     quad), a block TQ of them, in acc_tiles tiles, with M's rows staged
-    smq quads apart. The contraction of m partners runs in S chunks of CH
-    (the last shorter), staged L at a time; smem bytes of dynamic shared
-    memory."""
+    smq quads apart. form "simt": simt_tiles_kernel, RT = SIMT_TR RG
+    rows a block in RG row groups of G threads, each thread SIMT_TR rows
+    of 8 columns (a segment) at a time, PQ segments at most; acc_tiles
+    bands of Z's rows (``bands``), at most smq rows each, whose tables
+    (simt_table) are TQ ints each; every partner at once (L = CH = m, S =
+    1). The contraction of m partners runs in S chunks of CH (the last
+    shorter), staged L at a time; smem bytes of dynamic shared memory."""
     R: int
     m: int
     k: int
@@ -170,6 +193,11 @@ class TablesPlan(NamedTuple):
         """mma_kernel's columns a block: all NT8, or a column tile's."""
         return 8 * self.NCT if self.NCT else self.NT8
 
+    def bands(self) -> tuple:
+        """simt_tiles_kernel's bands [c0, c1) of Z's rows, in the order
+        of the grid's accumulator tiles (Y's columns in the first)."""
+        return simt_bands(self.k, self.G, self.smq)
+
     def column_tiles(self) -> list:
         """mma_kernel's column tiles [n0, n1) of the NT8 columns, in the
         order of the grid's accumulator tiles (one where k <= 12)."""
@@ -186,6 +214,8 @@ class TablesPlan(NamedTuple):
         """float32 accumulators a thread keeps: its partials a split."""
         if self.form in ("mma", "short"):
             return self.NC // 2  # a warp's 16 rows x NC over 32 lanes
+        if self.form == "simt":
+            return 8 * SIMT_TR  # a segment's
         if self.PQ == 0:
             return self.k + self.k * (self.k + 1) // 2
         return 4 * self.PQ
@@ -205,6 +235,8 @@ class TablesPlan(NamedTuple):
         rest."""
         if self.NCT:
             return 2 * self.accumulators + 32 + REG_BASE
+        if self.form == "simt":  # and a partner's 8 products and 8 rows
+            return self.accumulators + 16 + REG_BASE
         if self.form in ("mma", "short"):
             return self.accumulators + 2 * self.k + 32 + REG_BASE
         extra = 2 * self.k if self.PQ == 0 else 0
@@ -295,6 +327,112 @@ def tile_list(k: int, nct: int) -> tuple:
     return tuple(out)
 
 
+def _simt_floats(k: int, m: int, RT: int, band: int) -> int:
+    """simt_tiles_kernel's shared memory in floats (csrc/tables.cu's
+    simt_layout): O's m rows 8 ceil(k/8) apart; two buffers (a row tile's
+    and the next one's) of W's and T's rows transposed (m x (RT + 4)) and
+    M's (k x (RT + 4)); Y's RT x k sums, a band's Z sums (RT x band x k,
+    4 floats more) and the flags (2k)."""
+    RTP, KP = RT + 4, 8 * -(-k // 8)
+    return (m * KP + 2 * (2 * m * RTP + k * RTP) + RT * k + RT * band * k
+            + 4 + 2 * k)
+
+
+def _simt_segments(k: int, c0: int, c1: int) -> list:
+    """A band's segments, codes in order: Y's 8-column blocks b (code b)
+    in the band at c0 = 0, then for each of its Z rows c the blocks b >=
+    c / 8 ((c + 1) << 8 | b), which hold each pair c <= c' once."""
+    nb = -(-k // 8)
+    out = list(range(nb)) if c0 == 0 else []
+    for c in range(c0, c1):
+        out += [(c + 1) << 8 | b for b in range(c // 8, nb)]
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def simt_bands(k: int, G: int, band: int) -> tuple:
+    """The bands [c0, c1) of Z's rows: all k where `band` rows fit, else
+    each the most rows, up to `band`, whose segments (Y's in the first)
+    a pass of G threads takes."""
+    if band >= k:
+        return ((0, k),)
+    nb = -(-k // 8)
+    out, c0, n = [], 0, nb
+    for c in range(k):
+        seg = nb - c // 8
+        if c > c0 and (n + seg > G or c - c0 >= band):
+            out.append((c0, c))
+            c0, n = c, 0
+        n += seg
+    out.append((c0, k))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def simt_table(k: int, G: int, band: int) -> tuple:
+    """Each band's table for simt_tiles_kernel, one row of ints a band
+    (padded with -1 to the longest): c0, c1, its segments' count, its Z
+    entries' count and where they start in the row; the segments' codes
+    (_simt_segments); the entries, every address of a row's k x k whose
+    pair (lo, hi) = (min, max) has lo in the band, in address order, as
+    address << 16 | (lo - c0) k + hi, the pair's place in the band's
+    sums (its mirror takes the same). A band of all k has none: the
+    kernel mirrors its sums into rows of Z in shared memory and copies
+    them out."""
+    bands = simt_bands(k, G, band)
+    segs = [_simt_segments(k, c0, c1) for c0, c1 in bands]
+    lists = []
+    for c0, c1 in bands:
+        ent = []
+        for e in range(k * k if len(bands) > 1 else 0):
+            lo, hi = sorted(divmod(e, k))
+            if c0 <= lo < c1:
+                ent.append(e << 16 | (lo - c0) * k + hi)
+        lists.append(ent)
+    start = 5 + max(map(len, segs))
+    width = start + max(map(len, lists))
+    rows = []
+    for (c0, c1), sg, ent in zip(bands, segs, lists):
+        row = [c0, c1, len(sg), len(ent), start] + sg
+        row += [-1] * (start - len(row)) + ent
+        rows.append(tuple(row + [-1] * (width - len(row))))
+    return tuple(rows)
+
+
+def _simt_plan(R: int, m: int, k: int, n_sm: int):
+    """simt_tiles_kernel's plan, or None where no block fits: for RG = 1,
+    2, 4, 8 row groups the bands that fit SIMT_SMEM, taking the fewest
+    bands, then the fewest idle segment places, then the fewest rows; then
+    fewer rows where the blocks do not fill the card FILL times over."""
+    qy = -(-k // 4)
+    nq = qy + -(-(k * (k + 1) // 2) // 4)
+    cands = {}
+    for RG in (1, 2, 4, 8):
+        RT, G = SIMT_TR * RG, THREADS // RG
+        band = (SIMT_SMEM // 4 - _simt_floats(k, m, RT, 0)) // (RT * k)
+        if band < 1:
+            continue
+        bands = simt_bands(k, G, band)
+        band = max(c1 - c0 for c0, c1 in bands)
+        nseg = [len(_simt_segments(k, c0, c1)) for c0, c1 in bands]
+        passes = [-(-n // G) for n in nseg]
+        idle = 1.0 - sum(nseg) / (G * sum(passes))
+        cands[RG] = ((len(bands), idle, RG), RT, G, band, max(passes),
+                     len(bands))
+    if not cands:
+        return None
+    RG = min(cands, key=lambda g: cands[g][0])
+    while (RG // 2 in cands and cands[RG // 2][5] == cands[RG][5]
+           and -(-R // cands[RG][1]) * cands[RG][5] < FILL * n_sm):
+        RG //= 2
+    _, RT, G, band, passes, tiles = cands[RG]
+    L = max(m, 1)
+    return TablesPlan(R=R, m=m, k=k, qy=qy, nq=nq, G=G, PQ=passes, RT=RT,
+                      TQ=len(simt_table(k, G, band)[0]), acc_tiles=tiles,
+                      row_tiles=-(-R // RT), L=L, CH=L, S=1, smq=band,
+                      smem=4 * _simt_floats(k, m, RT, band), form="simt")
+
+
 @functools.lru_cache(maxsize=256)
 def tables_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
     """The plan of one sampler's call at rows R, partners m, k patterns
@@ -336,6 +474,24 @@ def tables_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
                               row_tiles=row_tiles, L=L, CH=CH, S=S, smq=0,
                               smem=4 * floats, form=form, RW=RW, NCT=nct,
                               stages=stages)
+    if ROWS_MAX_K < k <= SIMT_MAX_K and m < MMA_MIN_M:
+        plan = _simt_plan(R, m, k, n_sm)
+        if plan is not None:
+            return plan
+    return cuda_core_plan(R, m, k, n_sm)
+
+
+@functools.lru_cache(maxsize=256)
+def cuda_core_plan(R: int, m: int, k: int, n_sm: int) -> TablesPlan:
+    """rows_kernel's plan (k <= 12) or quads_kernel's (above): what
+    tables_plan takes where neither mma_kernel nor simt_tiles_kernel
+    does, and what a caller may force on any shape (card tests and
+    kernel_times.py, to hold the other forms to it)."""
+    if R < 1 or m < 0 or k < 1 or n_sm < 1:
+        raise ValueError(f"no tables plan for R={R}, m={m}, k={k}, "
+                         f"n_sm={n_sm}")
+    qy = -(-k // 4)
+    nq = qy + -(-(k * (k + 1) // 2) // 4)
     if k <= ROWS_MAX_K:  # rows_kernel
         G, PQ, TQ, acc_tiles, smq = 1, 0, 0, 1, 0
     else:
@@ -506,7 +662,9 @@ def build() -> tuple:
 
 
 _COUNTERS: dict = {}  # device -> int32 counters, zero between launches
-_LISTS: dict = {}  # (device, k, NCT) -> tile_list(k, NCT) on the device
+# (device, k, NCT, G, smq) -> tile_list(k, NCT) or simt_table(k, G, smq)
+# on the device
+_LISTS: dict = {}
 
 
 def _counters(device, n: int) -> torch.Tensor:
@@ -529,11 +687,13 @@ def _lead_stride(name, t, lead, inner) -> int:
 
 
 def dense_tables(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
-                 other: torch.Tensor) -> tuple:
+                 other: torch.Tensor, plan: TablesPlan | None = None
+                 ) -> tuple:
     """(Y, SQ, Z, col_nz) of one update call of the sampler of M, for
     float32 CUDA tensors D, invS2 (..., R, m), M (..., R, k), other (...,
     m, k), with any leading (chain) shape, each tensor's either the
-    call's or one chain for all. One kernel launch."""
+    call's or one chain for all. One kernel launch, as tables_plan says,
+    or as `plan` says (one of this shape's, such as cuda_core_plan's)."""
     R, m = D.shape[-2:]
     k = M.shape[-1]
     dev = M.device
@@ -556,7 +716,11 @@ def dense_tables(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
     col_nz = torch.empty(lead + (k,), dtype=torch.bool, device=dev)
     if nch == 0:
         return Y, SQ, Z, col_nz
-    plan = tables_plan(R, m, k, cuda_build.sm_count(dev.index or 0))
+    if plan is None:
+        plan = tables_plan(R, m, k, cuda_build.sm_count(dev.index or 0))
+    elif (plan.R, plan.m, plan.k) != (R, m, k):
+        raise ValueError(f"a plan of R={plan.R}, m={plan.m}, k={plan.k} "
+                         f"for a call of R={R}, m={m}, k={k}")
     tiles = plan.row_tiles * plan.acc_tiles
     part = flags = counters = zlist = None
     if plan.S > 1:
@@ -564,18 +728,22 @@ def dense_tables(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
                            dtype=f32, device=dev)
         flags = torch.empty(nch * plan.S * 2 * k, dtype=torch.int32,
                             device=dev)
-    if plan.S > 1 or plan.acc_tiles > 1:  # splits', then row tiles' counts
+    if plan.form != "simt" and (plan.S > 1 or plan.acc_tiles > 1):
+        # splits', then row tiles' counts
         counters = _counters(dev, nch * (tiles + plan.row_tiles))
-    if plan.NCT:
-        zlist = _LISTS.get((dev, k, plan.NCT))
+    if plan.NCT or plan.form == "simt":
+        key = (dev, k, plan.NCT, plan.G, plan.smq)
+        zlist = _LISTS.get(key)
         if zlist is None:
-            zlist = torch.tensor(tile_list(k, plan.NCT), dtype=torch.int32,
-                                 device=dev)
-            _LISTS[(dev, k, plan.NCT)] = zlist
+            zlist = torch.tensor(
+                tile_list(k, plan.NCT) if plan.NCT
+                else simt_table(k, plan.G, plan.smq), dtype=torch.int32,
+                device=dev)
+            _LISTS[key] = zlist
     lib, _ = build()
     with torch.cuda.device(dev):
         err = lib.cogaps_tables_launch(
-            nch, R, m, k, min(FORMS.index(plan.form), 2), plan.G, plan.PQ,
+            nch, R, m, k, FORMS[plan.form], plan.G, plan.PQ,
             plan.TQ, plan.acc_tiles, plan.S, plan.CH, plan.L, plan.smq,
             plan.RW, plan.NCT, plan.stages, plan.smem,
             D.data_ptr(), strides[0], invS2.data_ptr(), strides[1],
@@ -590,7 +758,10 @@ def dense_tables(D: torch.Tensor, invS2: torch.Tensor, M: torch.Tensor,
         raise RuntimeError(f"tables kernel launch failed: CUDA error {err} "
                            f"({plan})")
     dense_tables.launches += 1
+    dense_tables.by_form[plan.form] = dense_tables.by_form.get(plan.form,
+                                                               0) + 1
     return Y, SQ, Z, col_nz
 
 
 dense_tables.launches = 0
+dense_tables.by_form = {}  # the launches of each plan form

@@ -73,9 +73,11 @@ with the parent's package as DIR, the parent kernel at the same inputs.
 Optional overrides of the plan constants of DIR's package (name=value,
 --plan), to time other chunks; FORM=quads forces the CUDA-core kernels
 (rows_kernel up to k = 12, quads_kernel above) by raising MMA_MIN_M past
-every m, so that the column tiles and quads_kernel can be timed in turns
-in one call; --cases NAME... keeps the cases whose names hold one of
-them.
+every m and setting SIMT_MAX_K to 0, so that the column tiles or
+simt_tiles_kernel and quads_kernel can be timed in turns in one call;
+--cases NAME... keeps the cases whose names hold one of them (`--cases
+20000x40 "GIST A x1 k=13"`: simt_tiles_kernel's cases and rows_kernel's
+yardstick).
 
 With --chisq it times instead the dense chi^2 (models/dense.
 chisq_from_state): per call at 16 x 20000 x 100 k=10, 4 x 5000 x 2000
@@ -346,9 +348,10 @@ def golden_summary(rows) -> dict:
 
 QUADS_CASES = ("5000x2000 A x4 k=20", "5000x2000 P x4 k=20",
                "20000x100 A x16 k=20", "20000x100 P x16 k=20")
-# --plan FORM=...: the plan constants that force a form; "quads": no
-# mma_kernel, as no m reaches MMA_MIN_M
-PLAN_FORMS = {"quads": {"MMA_MIN_M": 1 << 62}}
+# --plan FORM=...: the plan constants that force a form; "quads": neither
+# mma_kernel, as no m reaches MMA_MIN_M, nor simt_tiles_kernel, as no k
+# is at most SIMT_MAX_K (a package without it ignores that name)
+PLAN_FORMS = {"quads": {"MMA_MIN_M": 1 << 62, "SIMT_MAX_K": 0}}
 
 
 def set_plan(tables_cuda, overrides) -> dict:
@@ -360,17 +363,25 @@ def set_plan(tables_cuda, overrides) -> dict:
         name, value = item.split("=")
         values.update(PLAN_FORMS[value] if name == "FORM"
                       else {name: int(value)})
-    old = {name: getattr(tables_cuda, name) for name in values}
-    for name, value in values.items():
-        setattr(tables_cuda, name, value)
-    tables_cuda.tables_plan.cache_clear()
+    old = {name: getattr(tables_cuda, name) for name in values
+           if hasattr(tables_cuda, name)}
+    for name in old:
+        setattr(tables_cuda, name, values[name])
+    clear_plans(tables_cuda)
     return old
 
 
 def restore_plan(tables_cuda, old) -> None:
     for name, value in old.items():
         setattr(tables_cuda, name, value)
-    tables_cuda.tables_plan.cache_clear()
+    clear_plans(tables_cuda)
+
+
+def clear_plans(tables_cuda) -> None:
+    """Forget the plans made under other constants."""
+    for name in ("tables_plan", "cuda_core_plan"):
+        if hasattr(tables_cuda, name):
+            getattr(tables_cuda, name).cache_clear()
 
 
 def quads_times(cs, device) -> list:

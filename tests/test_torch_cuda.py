@@ -1407,7 +1407,7 @@ TABLES_SHAPES = {  # (R, m, k, nch, the plan's form)
     "k1": (300, 777, 1, 3, "mma"), "k12-split": (200, 3000, 12, 2, "mma"),
     "k13": (500, 700, 13, 2, "mma"), "k25": (300, 777, 25, 2, "mma"),
     "k50": (40, 300, 50, 2, "mma"), "m1": (50, 1, 3, 2, "rows"),
-    "k25-m30": (300, 30, 25, 2, "quads"),
+    "k25-m30": (300, 30, 25, 2, "simt"),
     "k20-short-split": (17, 999, 20, 3, "short"),
     "5000x2000-A-k20": (5000, 2000, 20, 4, "mma"),
     "k64-split": (100, 3000, 64, 2, "mma"),
@@ -1417,7 +1417,17 @@ TABLES_SHAPES = {  # (R, m, k, nch, the plan's form)
     "modsim-A": (25, 20, 3, 1, "rows"), "modsim-P": (20, 25, 3, 1, "rows"),
     "short-R17-split": (17, 999, 6, 3, "short"),
     "m64": (70, 64, 4, 2, "mma"),
-    "subsets-5005-P": (100, 5005, 10, 2, "mma")}
+    "subsets-5005-P": (100, 5005, 10, 2, "mma"),
+    # below MMA_MIN_M partners above k = 12: simt_tiles_kernel, whole
+    # rows of Z or (k50-m30, k128-m63) bands of them
+    "20000x40-A-k20": (20000, 40, 20, 1, "simt"),
+    "20000x40-A-k39": (20000, 40, 39, 1, "simt"),
+    "gist-A-k13-x2": (1363, 9, 13, 2, "simt"),
+    "k20-m37": (1001, 37, 20, 2, "simt"),
+    "k20-one-row": (1, 40, 20, 3, "simt"),
+    "k50-m30": (40, 30, 50, 2, "simt"),
+    "k128-m63": (300, 63, 128, 1, "simt")}
+SIMT_SHAPES = [name for name, s in TABLES_SHAPES.items() if s[4] == "simt"]
 
 
 @pytest.mark.parametrize("shape", list(TABLES_SHAPES.values()),
@@ -1427,7 +1437,7 @@ def test_dense_tables_kernel_matches_plain(cuda_device, shape):
     plan's form: mma_kernel's tensor-core and short-row forms, some with
     splits, in column tiles above k = 12, on a ring of two stages at k80
     and with Y's columns over two tiles at k150, rows_kernel,
-    quads_kernel)
+    simt_tiles_kernel below 64 partners above k = 12)
     against exact_tables (float64 sums
     rounded once): every entry of Y, SQ and Z within 1e-5 of its summed
     |terms|, no worse than twice the plain cuBLAS tables' own worst error
@@ -1463,6 +1473,30 @@ def test_dense_tables_kernel_matches_plain(cuda_device, shape):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("name", SIMT_SHAPES)
+def test_simt_tables_bits_equal_quads(cuda_device, name):
+    """simt_tiles_kernel gives quads_kernel's bits (forced by
+    tables_cuda.cuda_core_plan) on the same inputs at every shape of
+    TABLES_SHAPES it takes: Y, SQ, Z and col_nz equal, each entry one
+    fmaf chain over the partners in order in both; and the same bits
+    again on a second call; one launch each."""
+    from cogaps_tpu_torch.ops import cuda_build, tables_cuda
+    R, m, k, nch, _ = TABLES_SHAPES[name]
+    n_sm = cuda_build.sm_count(cuda_device.index or 0)
+    quads = tables_cuda.cuda_core_plan(R, m, k, n_sm)
+    assert quads.form == "quads" and quads.S == 1
+    assert tables_cuda.tables_plan(R, m, k, n_sm).form == "simt"
+    args = _tables_case(cuda_device, R, m, k, nch, seed=R + m + k)
+    before = tables_cuda.dense_tables.launches
+    got = tables_cuda.dense_tables(*args)
+    again = tables_cuda.dense_tables(*args)
+    want = tables_cuda.dense_tables(*args, plan=quads)
+    assert tables_cuda.dense_tables.launches == before + 3
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, again, want):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
 @pytest.mark.parametrize("shape", [(500, 40, 5), (40, 500, 5),
                                    (100, 20000, 10), (1363, 9, 7),
                                    (9, 1363, 7), (25, 20, 3),
@@ -1482,7 +1516,7 @@ def test_tables_kernel_bits_do_not_follow_the_chain_count(cuda_device,
     short-row form, with splits at gist-P; rows_kernel at subsets-A,
     gist-A and modsim-A; the column tiles at k13 and at k20, with
     splits, tiles of 128 columns at k40, on a ring of two stages at k100
-    and k150, Y's columns over two tiles at k150; quads_kernel at
+    and k150, Y's columns over two tiles at k150; simt_tiles_kernel at
     k25-m30)."""
     R, m, k = shape
     D, inv, M, O = _tables_case(cuda_device, R, m, k, 16, seed=7)

@@ -11,7 +11,12 @@ cover every table entry, and its shared memory and registers fit an H100
 block, at the shapes the per-call route runs (GIST, 5000 x 2000, 20000 x
 100, a 2500 x 2000 sharded block, phase 11's 5005 x 100 subsets, modsim)
 and at edges of m and k; it picks the tensor-core form, the short-row
-form, rows_kernel or quads_kernel as expected; tables_counts on a case
+form, rows_kernel, simt_tiles_kernel or quads_kernel as expected; the
+simt form's grid, row groups and segments reach every (row, column of
+[O | Q]) once, its bands' lists write every entry of Z once (SQ and Y
+too), its shared memory fits three blocks an SM at every k it takes,
+and its arithmetic and layout, emulated, match the JAX package;
+tables_counts on a case
 counted by hand; the dispatcher gives CPU tensors of either float type
 to the plain version without a launch, raises for anything the kernel
 does not take, and the plain version and the emulation of mma_kernel's
@@ -65,11 +70,20 @@ PLAN_SHAPES = {  # (R, m, k): sampler A rows are genes, P's samples
     "5000x2000-P-k100": (2000, 5000, 100), "100x100-k90": (100, 100, 90),
     "k150": (300, 400, 150), "k65-short": (30, 777, 65),
     "k615": (5000, 2000, 615),
+    # below MMA_MIN_M partners above k = 12: simt_tiles_kernel, whole rows
+    # of Z or bands of them (k50-m30, k64-m37, k128-m63), one row, odd m,
+    # R no multiple of the row tile; past SIMT_MAX_K quads_kernel's
+    "20000x40-A-k20": (20000, 40, 20), "20000x40-A-k39": (20000, 40, 39),
+    "k20-one-row": (1, 40, 20), "k20-m37-R1001": (1001, 37, 20),
+    "k64-m37": (100, 37, 64), "k128-m63": (2000, 63, 128),
+    "k13-m9-R1": (1, 9, 13), "k129-m63": (300, 63, 129),
 }
 # the form tables_plan takes: mma_kernel's tensor-core ("mma") and
 # short-row ("short") forms (in column tiles above k = 12), rows_kernel,
-# quads_kernel (above k = 12 where m < MMA_MIN_M, R = 1, in the short-row
-# form above TILE_MAX_K, or where a column tile does not fit a block)
+# simt_tiles_kernel ("simt": above k = 12 where m < MMA_MIN_M, up to
+# SIMT_MAX_K), quads_kernel (above k = 12 at R = 1 from MMA_MIN_M
+# partners, in the short-row form above TILE_MAX_K, where a column tile
+# does not fit a block, and below MMA_MIN_M partners past SIMT_MAX_K)
 PLAN_FORMS = {
     "gist-A": "rows", "gist-P": "short", "5000x2000-A": "mma",
     "5000x2000-P": "mma", "20000x100-A": "mma", "20000x100-P": "mma",
@@ -77,16 +91,18 @@ PLAN_FORMS = {
     "k1": "mma", "k12": "mma", "k25": "mma", "k25-few-rows": "short",
     "k50": "mma", "subsets-A": "mma", "subsets-P": "mma",
     "modsim-A": "rows", "modsim-P": "rows", "m16": "rows",
-    "R17": "short", "R33": "mma", "k13": "mma", "gist-A-k13": "quads",
+    "R17": "short", "R33": "mma", "k13": "mma", "gist-A-k13": "simt",
     "gist-P-k13": "short", "5000x2000-A-k20": "mma",
     "5000x2000-P-k20": "mma", "20000x100-A-k20": "mma",
     "20000x100-P-k20": "mma", "5000x2000-A-k50": "mma",
-    "5000x2000-P-k50": "mma", "k64": "mma", "k25-m30": "quads",
-    "k50-m30": "quads", "k25-one-row": "quads", "k65": "mma",
+    "5000x2000-P-k50": "mma", "k64": "mma", "k25-m30": "simt",
+    "k50-m30": "simt", "k25-one-row": "quads", "k65": "mma",
     "5000x2000-A-k80": "mma", "5000x2000-P-k80": "mma",
     "5000x2000-A-k100": "mma", "5000x2000-P-k100": "mma",
     "100x100-k90": "mma", "k150": "mma", "k65-short": "quads",
-    "k615": "quads"}
+    "k615": "quads", "20000x40-A-k20": "simt", "20000x40-A-k39": "simt",
+    "k20-one-row": "simt", "k20-m37-R1001": "simt", "k64-m37": "simt",
+    "k128-m63": "simt", "k13-m9-R1": "simt", "k129-m63": "quads"}
 
 
 def test_plan_takes_no_chain_count():
@@ -140,6 +156,15 @@ def test_plan_fits_a_block_and_covers_every_entry(shape):
         # column tiles above k = 12, one tile of every column below
         assert (plan.NCT > 0) == (k > tables_cuda.ROWS_MAX_K)
         assert plan.acc_tiles == -(-plan.NT8 // plan.NC)
+        return
+    if plan.form == "simt":  # row groups of G threads, 8 rows a thread
+        assert plan.RT == tables_cuda.SIMT_TR * tables_cuda.THREADS // plan.G
+        assert plan.S == 1 and plan.CH == plan.L == max(m, 1)
+        assert plan.smem == 4 * tables_cuda._simt_floats(k, m, plan.RT,
+                                                         plan.smq)
+        assert plan.smem <= tables_cuda.SIMT_SMEM
+        assert plan.acc_tiles == len(plan.bands())
+        assert plan.accumulators == 64
         return
     assert plan.G * plan.RT == tables_cuda.THREADS
     if plan.PQ == 0:  # rows_kernel: a thread a row, every entry
@@ -202,8 +227,9 @@ def test_plan_picks_the_expected_form(name):
     column tile fits a block (to k = 614), the short-row form (partners
     split over the warps) below, up to k = TILE_MAX_K; rows_kernel where
     the contraction is shorter than MMA_MIN_M partners (the accuracy
-    gate) or at one row, quads_kernel there above k = 12 and beyond
-    those."""
+    gate) or at one row, up to k = 12; above, simt_tiles_kernel below
+    MMA_MIN_M partners up to SIMT_MAX_K, quads_kernel at one row from
+    MMA_MIN_M partners and beyond those."""
     plan = tables_cuda.tables_plan(*PLAN_SHAPES[name], H100_SMS)
     assert plan.form == PLAN_FORMS[name]
     assert (plan.KW > 1) == (plan.form == "short")
@@ -299,6 +325,231 @@ def test_plan_column_tiles_cover_each_column_once(shape):
             assert bool(x & 0x80) == (c == c2)  # SQ's c = address / (k+1)
             assert c != c2 or e == c * (k + 1)
     assert (seen == 1).all()
+
+
+SIMT_SHAPES = [(1363, 9, 13), (20000, 40, 20), (20000, 40, 39),
+               (300, 30, 25), (40, 30, 50), (1, 40, 20), (1, 9, 13),
+               (1001, 37, 20), (100, 37, 64), (2000, 63, 128),
+               (45, 9, 13), (20000, 63, 44), (7, 1, 17)]
+# a card of one SM: the plan's row groups where the rows fill it alone
+SIMT_ONE_SM = [(200, 9, 20), (300, 37, 13), (64, 11, 16)]
+
+
+def _simt_cover(plan):
+    """How many times a row tile of simt_tiles_kernel's grid (its bands),
+    row groups and segments reach each (row of the tile, column of [O |
+    Q]): Y's k columns, then the pairs c <= c' in row-major order."""
+    k, TR = plan.k, tables_cuda.SIMT_TR
+    kp = k * (k + 1) // 2
+    hits = np.zeros((plan.RT, k + kp), dtype=np.int32)
+    table = tables_cuda.simt_table(k, plan.G, plan.smq)
+    assert len(table) == plan.acc_tiles
+    for row in table:
+        c0, c1, nseg = row[:3]
+        for rg in range(plan.RT // TR):
+            for q in range(nseg):
+                code = row[5 + q]
+                c, b = (code >> 8) - 1, code & 0xFF
+                for c2 in range(8 * b, min(8 * b + 8, k)):
+                    if c < 0:
+                        col = c2
+                    elif c2 >= c:
+                        assert c0 <= c < c1
+                        col = k + c * k - c * (c - 1) // 2 + c2 - c
+                    else:
+                        continue
+                    hits[TR * rg:TR * rg + TR, col] += 1
+    return hits
+
+
+@pytest.mark.parametrize("shape", SIMT_SHAPES + SIMT_ONE_SM,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_simt_grid_covers_every_row_and_column_once(shape):
+    """simt_tiles_kernel (m < MMA_MIN_M, 12 < k <= SIMT_MAX_K): its row
+    tiles cover the rows once, and a row tile's bands, row groups and
+    segments reach every (row, column of [O | Q]) once: each of Y's columns and each pair c <= c' of Z's; a
+    band's segments take at most PQ passes of G threads; the bands cover
+    Z's rows in order, Y's columns in the first."""
+    n_sm = 1 if shape in SIMT_ONE_SM else H100_SMS
+    plan = tables_cuda.tables_plan(*shape, n_sm)
+    assert plan.form == "simt" and plan.S == 1
+    assert (plan.RT > tables_cuda.SIMT_TR) == (shape in SIMT_ONE_SM
+                                                or shape[0] == 20000
+                                                and shape[2] == 20)
+    bands = plan.bands()
+    assert bands[0][0] == 0 and bands[-1][1] == plan.k
+    assert all(a < b == a2 for (a, b), (a2, _) in zip(bands, bands[1:]))
+    assert max(b - a for a, b in bands) == plan.smq
+    assert (plan.acc_tiles == 1) == (plan.smq == plan.k)
+    for row in tables_cuda.simt_table(plan.k, plan.G, plan.smq):
+        assert row[2] <= plan.PQ * plan.G
+    assert plan.row_tiles * plan.RT >= plan.R > (plan.row_tiles - 1) * plan.RT
+    assert (_simt_cover(plan) == 1).all()
+
+
+@pytest.mark.parametrize("shape", SIMT_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_simt_lists_write_every_entry_once(shape):
+    """simt_tiles_kernel's epilogue: the bands' lists hold every address
+    of a row's k x k once, in address order within each band, each from
+    its pair's place in the band's sums (a pair and its mirror from one
+    place, inside the band's rows x k); a band of all k has no list, its
+    sums staged at (c, c') and mirrored to (c', c) as Z's rows lie, each
+    address once; SQ's k diagonal entries and Y's k columns once (Y in
+    the first band)."""
+    plan = tables_cuda.tables_plan(*shape, H100_SMS)
+    k = plan.k
+    seen = np.zeros(k * k, dtype=np.int32)
+    sq = np.zeros(k, dtype=np.int32)
+    table = tables_cuda.simt_table(k, plan.G, plan.smq)
+    assert len({len(row) for row in table}) == 1 == len({plan.TQ})
+    assert len(table[0]) == plan.TQ
+    for c0, c1, nseg, nlist, start, *rest in table:
+        row = [c0, c1, nseg, nlist, start] + rest
+        assert 5 + nseg <= start
+        ent = row[start:start + nlist]
+        assert row[start + nlist:] == [-1] * (len(row) - start - nlist)
+        if (c0, c1) == (0, k):  # staged as Z's rows lie: c <= c', mirrored
+            assert nlist == 0 and len(table) == 1
+            for c in range(k):
+                for c2 in range(c, k):
+                    seen[c * k + c2] += 1
+                    seen[c2 * k + c] += c2 > c
+        addr = [x >> 16 for x in ent]
+        assert addr == sorted(addr)
+        for x, a in zip(ent, addr):
+            seen[a] += 1
+            lo, hi = sorted(divmod(a, k))
+            assert c0 <= lo < c1 and (x & 0xFFFF) == (lo - c0) * k + hi
+            assert (x & 0xFFFF) < plan.smq * k
+        sq[c0:c1] += 1
+    assert (seen == 1).all() and (sq == 1).all()
+    assert sum((row[0] == 0) * (row[5] == 0) for row in table) == 1
+
+
+@pytest.mark.parametrize("m", [0, 1, 9, 37, 63])
+def test_simt_fits_a_block_at_every_k(m):
+    """Every k from 13 to SIMT_MAX_K below MMA_MIN_M partners takes
+    simt_tiles_kernel at 1, 1363 and 20000 rows, its shared memory under
+    SIMT_SMEM (three blocks an SM), whole rows of Z where they fit at 8
+    rows a block and bands of at least one row where they do not; above,
+    quads_kernel."""
+    assert tables_cuda.SIMT_MAX_K >= 128
+    for k in range(tables_cuda.ROWS_MAX_K + 1, tables_cuda.SIMT_MAX_K + 2):
+        for R in (1, 1363, 20000):
+            plan = tables_cuda.tables_plan(R, m, k, H100_SMS)
+            if k > tables_cuda.SIMT_MAX_K:
+                assert plan.form == "quads"
+                continue
+            assert plan.form == "simt", (R, m, k)
+            assert plan.smem == 4 * tables_cuda._simt_floats(
+                k, m, plan.RT, plan.smq) <= tables_cuda.SIMT_SMEM
+            assert 3 * (plan.smem + 1024) <= 228 * 1024
+            assert 1 <= plan.smq <= k
+            if plan.acc_tiles > 1:  # whole rows do not fit 8 rows
+                assert 4 * tables_cuda._simt_floats(
+                    k, m, tables_cuda.SIMT_TR, k) > tables_cuda.SIMT_SMEM
+
+
+def test_simt_plan_takes_no_chain_count():
+    """The simt form's plan and tables follow (R, m, k) and the SM count
+    alone: no chain count in tables_plan, simt_bands or simt_table, and
+    the same plan for a shape asked twice."""
+    for fn in (tables_cuda.tables_plan, tables_cuda.simt_bands,
+               tables_cuda.simt_table, tables_cuda.cuda_core_plan):
+        assert all("ch" not in p
+                   for p in inspect.signature(fn).parameters), fn
+    plan = tables_cuda.tables_plan(20000, 40, 39, H100_SMS)
+    tables_cuda.tables_plan.cache_clear()
+    assert tables_cuda.tables_plan(20000, 40, 39, H100_SMS) == plan
+
+
+@pytest.mark.parametrize("shape", [(1363, 9, 13), (300, 30, 25),
+                                   (40, 30, 50), (1001, 37, 20)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_core_plan_forces_quads(shape):
+    """cuda_core_plan gives quads_kernel's plan at the shapes
+    simt_tiles_kernel takes (what the card tests and kernel_times.py
+    hold it to), one split, as quads_kernel has below MMA_MIN_M."""
+    plan = tables_cuda.cuda_core_plan(*shape, H100_SMS)
+    assert plan.form == "quads" and plan.S == 1
+    assert tables_cuda.tables_plan(*shape, H100_SMS).form == "simt"
+
+
+def _simt_emulate(D, W, M, O, plan):
+    """simt_tiles_kernel's sums in float32 as it forms them, on numpy
+    arrays of one chain: T = (D - fmaf chain of M O) W, then per segment
+    and partner in order one fmaf of T (Y) or W (Z) with O_c' or O_c O_c'
+    rounded once; its sums staged by band and written by the bands'
+    lists, or where the band is all k mirrored into rows of Z."""
+    R, m = D.shape
+    k = M.shape[1]
+    f32 = np.float32
+
+    def fmaf(a, b, c):
+        return (a.astype(np.float64) * b + c).astype(f32)
+
+    mo = np.zeros((R, m), f32)
+    for c in range(k):
+        mo = fmaf(M[:, c:c + 1], O[None, :, c], mo)
+    T = ((D - mo) * W).astype(f32)
+    Y = np.zeros((R, k), f32)
+    Z = np.full((R, k * k), np.nan, f32)
+    for c0, c1, nseg, nlist, start, *rest in tables_cuda.simt_table(
+            k, plan.G, plan.smq):
+        row = [c0, c1, nseg, nlist, start] + rest
+        tri = (c0, c1) == (0, k)
+        sums = np.full((R, (c1 - c0) * k), np.nan, f32)
+        for code in row[5:5 + nseg]:
+            c, b = (code >> 8) - 1, code & 0xFF
+            for c2 in range(8 * b, min(8 * b + 8, k)):
+                q = O[:, c2] if c < 0 else (O[:, c] * O[:, c2]).astype(f32)
+                acc = np.zeros(R, f32)
+                for j in range(m):
+                    acc = fmaf(T[:, j] if c < 0 else W[:, j], q[j], acc)
+                if c < 0:
+                    Y[:, c2] = acc
+                elif c2 >= c:
+                    sums[:, (c - c0) * k + c2] = acc
+                    if tri:
+                        sums[:, c2 * k + c] = acc
+        if tri:
+            Z = sums.copy()
+        for x in row[start:start + nlist]:
+            Z[:, x >> 16] = sums[:, x & 0xFFFF]
+    Z = Z.reshape(R, k, k)
+    return Y, np.diagonal(Z, axis1=1, axis2=2).copy(), Z.reshape(R * k, k)
+
+
+@pytest.mark.parametrize("shape", [(30, 9, 13), (17, 37, 20), (9, 30, 50),
+                                   (1, 40, 20)],
+                         ids=["m9-k13", "m37-k20", "bands-k50", "one-row"])
+def test_simt_sums_match_jax(shape):
+    """simt_tiles_kernel's arithmetic and layout (_simt_emulate: the
+    residual, fmaf chains over the partners in order, the bands' sums and
+    lists) against the JAX package's make_phase and rebuild_cache, each
+    entry within 1e-5 of its summed |terms|, Z exactly symmetric."""
+    R, m, k = shape
+    plan = tables_cuda.tables_plan(R, m, k, H100_SMS)
+    assert plan.form == "simt"
+    assert (plan.acc_tiles > 1) == (k == 50)
+    D, inv, M, O = (x[0] for x in _tables_inputs(R, m, k, 1, seed=R + m))
+    Y, SQ, Z = _simt_emulate(D, inv, M, O, plan)
+    jp = jdense.make_phase(jnp.asarray(inv), jnp.asarray(O))
+    jY = np.asarray(jdense.rebuild_cache(
+        jnp.asarray(D), jnp.asarray(inv), jnp.asarray(M),
+        jnp.asarray(O)).Y)
+    d, w, mm, o = (x.astype(np.float64) for x in (D, inv, M, O))
+    y_terms = ((np.abs(d) + mm @ o.T) * w) @ o
+    z_terms = (w @ (o[:, :, None] * o[:, None, :]).reshape(m, k * k)
+               ).reshape(R * k, k)
+    for got, want, terms in ((Y, jY, y_terms),
+                             (SQ, np.asarray(jp.SQ), w @ (o * o)),
+                             (Z, np.asarray(jp.Z), z_terms)):
+        assert np.all(np.abs(got.astype(np.float64) - want)
+                      <= 1e-5 * terms + 1e-30)
+    Z3 = Z.reshape(R, k, k)
+    np.testing.assert_array_equal(Z3, Z3.transpose(0, 2, 1))
 
 
 def test_tables_counts_by_hand():
