@@ -55,15 +55,20 @@ Phases:
               sampling against its plain version (ops/span.py): equal atom
               tables and counters, mass, M and the running sums within
               1e-5 (on a mismatch, one-iteration spans locate the first
-              iteration that differs); its rebuild alone against numpy
-              float64 tables rounded once, bit for bit, at
-              tools/probe_rebuild.py's shape (384 x 9, k=7), at GIST
-              (1 and 16 chains) and at 20000 x 100, k=10, 16 chains, with
-              the cluster size and plans it ran and the float64
-              torch.bmm of its contractions as yardstick; times per
-              span, per chunk and per iteration, the kernel's time with
-              every budget 0 (no sweeps), and ptxas's registers and
-              spills of span_kernel and rebuild_kernel;
+              iteration that differs), and the same at phase 11's subset
+              shape (4 x 5005 x 100, k=10, 3-iteration spans); its
+              rebuild alone against numpy float64 tables rounded once,
+              bit for bit, at tools/probe_rebuild.py's shape (384 x 9,
+              k=7), at GIST (1 and 16 chains), at 4 x 5005 x 100 k=10
+              and at 20000 x 100, k=10, 16 chains, with the cluster size
+              and plans it ran and the float64 torch.bmm of its
+              contractions as yardstick; times per span, per chunk and
+              per iteration, the kernel's time with every budget 0 (no
+              sweeps), the cluster size, shared memory and the sweep
+              stage's placement of each sampler, the DMMA instructions
+              of span.cu's machine code (cuobjdump -sass; none fails),
+              and ptxas's registers and spills of span_kernel and
+              rebuild_kernel;
               the per-call tables kernel (csrc/tables.cu, through
               models/dense.tables) at GIST x1 and x16, 4 x 5000 x 2000
               k=10, 16 x 20000 x 100 k=10, one 2500 x 2000 block of
@@ -1167,6 +1172,76 @@ def rebuild_check(name, Ds, k, seed, device, reps=20):
             "bound": bound, "by": by}
 
 
+def sass_counts(lib, opcode):
+    """{function: how many of its instructions are `opcode`} in a built
+    library's machine code (cuobjdump -sass), for the functions that
+    have any."""
+    import shutil
+    from pathlib import Path
+    from cogaps_tpu_torch.ops import cuda_build
+    tool = (shutil.which("cuobjdump")
+            or str(Path(cuda_build._nvcc()).parent / "cuobjdump"))
+    sass = subprocess.run([tool, "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        n = len(re.findall(rf"\b{opcode}\b", body))
+        if n:
+            counts[name.strip()] = n
+    return counts
+
+
+def span_subsets_check(device, n_warm=20, n_it=3, seed=51):
+    """K3 against its plain version at phase 11's subset shape, 4 chains
+    of 5005 x 100 at k=10 (the launch shape GWCoGAPS's free stage takes),
+    n_it-iteration spans in equilibration and in sampling from a state
+    after n_warm per-call iterations: equal atom tables and counters,
+    mass, M and the running sums within 1e-5. Returns the largest
+    difference."""
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, SAMPLING, ChainEngine,
+                                         PhiloxRandom)
+    from cogaps_tpu_torch.ops import span, span_cuda
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    Ds = synthetic_dense(5005, 100, 10, 4, seed)
+    cfg = cogaps_tpu_torch.CogapsParams(
+        n_patterns=10, n_iterations=200, seed=seed,
+        output_frequency=0).engine_config(5005, 100)
+    eng = MultichainEngine(stack_device_data(Ds, None, cfg, device), cfg,
+                           device)
+    seeds = [seed + c for c in range(4)]
+    state, stats = ChainEngine.run_phase(
+        eng, eng.init_state(), eng.init_stats(), PhiloxRandom(seeds, device),
+        EQUILIBRATION, 0, n_warm)
+    shape = span_cuda.launch_shape(
+        0, device, 4, 5005, 100, 10, span_cuda.block_threads(
+            eng.consts_a.batch, eng.consts_p.batch, 10),
+        caps=(eng.consts_a.capacity, eng.consts_p.capacity))
+    log(f"  K3 at 4 x 5005x100 k=10: clusters of {shape.cl} CTAs, "
+        f"{4 * shape.cl} SMs; plans A {tuple(shape.plan_a)} P "
+        f"{tuple(shape.plan_p)}; the sweep stage's placement: A "
+        f"{shape.place_a.describe()}; P {shape.place_p.describe()}")
+    worst = 0.0
+    for phase, it0 in ((EQUILIBRATION, n_warm), (SAMPLING, 0)):
+        args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, phase,
+                eng.data, it0, n_it, state, stats)
+        out_k = span_cuda.run_span(*args, PhiloxRandom(seeds, device))
+        out_p = span.run_span_plain(*args, PhiloxRandom(seeds, device))
+        torch.cuda.synchronize()
+        problems, err = compare_span(
+            f"4 x 5005x100 k=10, {n_it} iterations from {it0} of phase "
+            f"{phase}", out_k, out_p)
+        worst = max(worst, err)
+        if problems:
+            raise AssertionError(f"K3 and its plain version disagree at 4 "
+                                 f"x 5005x100 (phase {phase}): {problems}")
+    return worst
+
+
 def phase_span(device, report, reps=5, n_chains=16, seed=21):
     """K3 against its plain version on GIST (n_chains chains, as phase 5
     runs it; 5-iteration spans from a state after 50 per-call
@@ -1231,6 +1306,7 @@ def phase_span(device, report, reps=5, n_chains=16, seed=21):
                                       out_k, True)
     if failed:
         raise AssertionError(f"K3 and its plain version disagree: {failed}")
+    max_err = max(max_err, span_subsets_check(device))
     warm = rand()  # the budget normals of 256 iterations, drawn once
 
     def run(phase, it0, n_it):
@@ -1248,9 +1324,22 @@ def phase_span(device, report, reps=5, n_chains=16, seed=21):
         NoSweeps(seeds, device)), "span_kernel", reps) / span_cuda.CHUNK
     tables_ms = device_ms(lambda: span_cuda.rebuild_tables(
         eng.data, state.M_a, state.M_p), "rebuild_kernel", reps)
-    span_cl = span_cuda.launch_shape(
+    span_shape = span_cuda.launch_shape(
         0, device, n_chains, G, S, k, span_cuda.block_threads(
-            eng.consts_a.batch, eng.consts_p.batch, k)).cl
+            eng.consts_a.batch, eng.consts_p.batch, k),
+        caps=(eng.consts_a.capacity, eng.consts_p.capacity))
+    span_cl = span_shape.cl
+    lib, _ = span_cuda.build()
+    dmma = sass_counts(lib, "DMMA")
+    log(f"  K3 launch at GIST x{n_chains}: clusters of {span_cl}, "
+        f"{span_shape.smem} B dynamic and {lib.cogaps_span_static_smem(0)} "
+        f"B static shared memory; the sweep stage's placement: A "
+        f"{span_shape.place_a.describe()}; P "
+        f"{span_shape.place_p.describe()}; DMMA instructions by function "
+        f"(cuobjdump -sass): {dmma}")
+    if not any(n for f, n in dmma.items() if "rebuild" in f
+               or "span_kernel" in f):
+        raise AssertionError("no DMMA in span.cu's rebuild")
     log(f"  K3 GIST x{n_chains}: {span_ms:.4f} ms per 5-iteration sampling "
         f"span ({span_ms / 5:.4f} ms per iteration), plain "
         f"{plain_ms[SAMPLING]:.1f} ms (equilibration {plain_ms[0]:.1f} ms),"
@@ -1276,6 +1365,9 @@ def phase_span(device, report, reps=5, n_chains=16, seed=21):
         "gist": rebuild_check("GIST (1363 x 9, k=7)", [D], 7, 2, device),
         "gist_x16": rebuild_check(f"GIST x{n_chains}", [D] * n_chains, 7, 3,
                                   device),
+        "subsets_x4": rebuild_check(
+            "phase 11's subsets, 5005 x 100, k=10, x4",
+            synthetic_dense(5005, 100, 10, 4, 51), 10, 5, device, reps=5),
         "wide_x16": rebuild_check(
             f"20000 x 100, k=10, x{n_chains}",
             synthetic_dense(20000, 100, 10, n_chains, 45), 10, 4, device,

@@ -22,46 +22,56 @@
 // engine.PhiloxRandom gives the per-call path.
 //
 // Table rule: every table entry is a float64 sum over the float32 operands,
-// rounded once to float32. Products of two floats are exact in float64, so
-// the order of the sum (this kernel's tiles and cluster ranks, cuBLAS in
-// the plain version) reaches the float32 result only when the sum lies
-// within a few float64 ulps of a float32 rounding boundary; decisions,
-// which sit on float thresholds, then match the plain version's. The A
-// sampler's pair term is a Z table (G k^2 floats), not the TPU kernel's
-// on-the-fly dot over the invS2 row: the sweep is then K1's, on the same
-// tables as its plain version.
+// rounded once to float32. The order of every sum follows from the
+// sampler's shape (rows NR, partners m, k) alone -- never from the cluster
+// size, the chain count or a chain's index -- so a chain's tables have the
+// same bits alone and beside any other chains. The order reaches the
+// float32 result only when a sum lies within a few float64 ulps of a
+// float32 rounding boundary; decisions, which sit on float thresholds,
+// then match the plain version's (cuBLAS in float64). The A sampler's pair
+// term is a Z table (G k^2 floats), not the TPU kernel's on-the-fly dot
+// over the invS2 row: the sweep is then K1's, on the same tables as its
+// plain version.
 //
 // Design: one thread-block cluster of CL CTAs per chain
-// (span_cuda.cluster_size: the largest power of two <= 8 with every
-// chain's cluster resident; chains are independent, so nothing waits on
-// another cluster). The sweeps are sequential and run on the cluster's
-// rank-0 CTA as in K1, one thread a proposal lane; the table rebuilds,
-// which are float64 contractions, run on every CTA of the cluster, and
-// cluster barriers separate the steps. One sampler's rebuild (rows r <
-// NR, partners j < m, data X and weights W (NR, m), factor M (NR, k),
-// partner factor O (m, k)) forms, per row,
-//   Y[r,c]  = sum_j R[r,j] O[j,c],  R[r,j] = (X[r,j] - M[r,:].O[j,:]) W[r,j]
-//   Z[r,c,c'] = sum_j W[r,j] O[j,c] O[j,c']  (c <= c'; SQ[r,c] = Z[r,c,c])
-// as one product of [R | W] with the staged columns [O | O_c O_c'] in
-// float64 (span_cuda.rebuild_plan sets the split):
-//   - the rows (A side: genes) or the partners (P side: genes again) are
-//     split over the cluster's CTAs, whichever dimension is longer;
-//   - a CTA stages a tile of partners (O and its pair products; once, if
-//     all its partners fit) and of rows (W and the residual R, formed
-//     there: no R in device memory) in shared memory, and each thread
-//     accumulates a 2-row x 4-column register tile over the tile's
-//     partners, `lanes` threads splitting the partner sum only where rows
-//     are few; the tile's sums leave through shared memory, row by row;
-//   - a partner split writes float64 partials to its CTA's own slots,
-//     added after a cluster barrier in rank order (no atomics: two runs
-//     give the same bits) and rounded once.
+// (span_cuda.cluster_size: the largest of 16 -- a non-portable size --
+// 8, 4, 2 and 1 whose chains the card keeps resident, one CTA an SM;
+// chains are independent, so nothing waits on another cluster). Cluster
+// barriers separate the steps; the shared memory past a small fixed part
+// is one region that the rebuild's tiles and the sweep's staged state
+// take in turn.
+//   - The table rebuilds, float64 contractions, run on every CTA of the
+//     cluster. One sampler's rebuild (rows r < NR, partners j < m, data X
+//     and weights W (NR, m), factor M (NR, k), partner factor O (m, k))
+//     forms, per row,
+//       Y[r,c]  = sum_j R[r,j] O[j,c],  R[r,j] = (X[r,j] - M[r,:].O[j,:]) W[r,j]
+//       Z[r,c,c'] = sum_j W[r,j] O[j,c] O[j,c']  (c <= c'; SQ[r,c] = Z[r,c,c])
+//     as one product of [R | W] with the columns [O | O_c O_c'] (Y's k
+//     columns, then the k(k+1)/2 pairs, each part padded to 8) on the FP64
+//     tensor cores: mma.sync m16n8k4 .f64, a warp an item of 16 rows by up
+//     to kNTW column tiles of 8, accumulating in registers over the
+//     partners 4 at a time in order (the instruction adds its four
+//     products one at a time, each rounded as by an FMA: a sum is the
+//     chain of FMAs over its partners in order). span_cuda.rebuild_plan sets the
+//     work: the partners fall into chunks (one below 256 partners where
+//     rows are many) whose float64 partials are added in chunk order after
+//     a cluster barrier (no atomics); units of (row tile, chunk) are dealt
+//     to the cluster's CTAs in contiguous runs of equal length. A CTA
+//     stages a unit's partner values, their pair products and a tile of
+//     rows (W, and the residual R formed there: no R in device memory) in
+//     shared memory, the partners tile_j at a time; a chunk that fits one
+//     tile is staged once for the CTA's units that share it.
+//   - The sweeps are sequential and run on the cluster's rank-0 CTA, one
+//     thread a proposal lane, on K1's staged state: span_cuda.sweep_plan
+//     places claims, hole flags, the atom table, Y, SQ, M and Z in shared
+//     memory as ops/sweep_cuda.smem_plan does for K1, dense_model.cuh's
+//     stage_chain copies them in after the rebuild, and mass, elem and M
+//     go back to device memory after the sweeps (Y is rebuilt, not kept).
+//     A sampler of at most 32 lanes sweeps on one warp (sweep_chain's
+//     one-warp form), the CTA's other warps waiting at the barrier after.
 // What bounds it on the H100 (chip_smoke.py phase 3, PERF.md): at GIST
-// x16 the sweeps, ~80% of an iteration (dependent global loads and ~20
-// block barriers a sweep, on one SM a chain); the rebuild is latency
-// bound there (~9 partners a gene). At 20000 x 100 the rebuild's float64
-// operations and its staging take most of the span; 16 chains get
-// clusters of 4 (the card keeps fewer than 16 clusters of 8 resident),
-// so half the SMs idle.
+// x16 the sweeps, dependent reads and block barriers on one SM a chain;
+// at 20000 x 100 the rebuild's float64 operations and its staging.
 
 #include <cooperative_groups.h>
 
@@ -76,14 +86,19 @@ using cogaps::kNOut;
 // staged entries a thread loads before it uses them: global reads in
 // flight together instead of one round trip each
 constexpr int kUnroll = 4;
+// column tiles of 8 a warp's item holds (span_cuda.NTW)
+constexpr int kNTW = 3;
+// ints of one sampler's launch plan: SidePlan, then the sweep's placement
+constexpr int kPlanInts = 6 + cogaps::kNPlaced;
 
-// One sampler's rebuild split (span_cuda.rebuild_plan).
+// One sampler's rebuild plan (span_cuda.rebuild_plan).
 struct SidePlan {
-  int split_rows;  // rows over the cluster (else partners)
-  int per_rank;    // rows or partners of one CTA
-  int tile_rows;   // rows staged a pass (even)
-  int tile_j;      // partners staged a pass
-  int lanes;       // threads splitting one output's partner sum
+  int cj;         // partners of a chunk (a multiple of 4; the last shorter)
+  int nchunk;     // chunks, their partials added in chunk order
+  int tile_rows;  // rows of a unit (a multiple of 16: 16 a warp item)
+  int tile_j;     // partners staged a pass (a multiple of 4)
+  int cb_wave;    // column blocks a pass over the partners takes
+  int ncb;        // column blocks of the [O | O_c O_c'] columns
 };
 
 // Both samplers' rebuilds of every chain.
@@ -94,7 +109,8 @@ struct Rebuild {
   const float* inv;    // (nch, G, S) = 1/S^2
   const float* D_t;    // (nch, S, G)
   const float* inv_t;  // (nch, S, G)
-  double* part;        // (nch, CL, min(G, S), npad) partner-split partials
+  double* part;        // (nch, part_stride) chunk partials
+  long long part_stride;
   float* Ya;           // (nch, G, K) tables of the A sampler
   float* SQa;
   float* Za;  // (nch, G*K, K)
@@ -122,19 +138,24 @@ struct SpanArgs {
   int* budget_p;
 };
 
-// Output columns of a row: Y in column groups [0, gy), the pairs c <= c'
-// of Z in [gy, gy + gz), four columns a group.
+// Output columns of a row: Y's k in column tiles [0, ny), then the pairs
+// c <= c' of Z in [ny, nt), eight columns a tile.
 struct Cols {
-  int K, kp, gy, ng, npad;
+  int K, kp, ny, nt, ncols;
   __device__ explicit Cols(int K_) : K(K_), kp(K_ * (K_ + 1) / 2) {
-    gy = (K + 3) / 4;
-    ng = gy + (kp + 3) / 4;
-    npad = 4 * ng;
+    ny = (K + 7) / 8;
+    nt = ny + (kp + 7) / 8;
+    ncols = 8 * nt;
   }
 };
 
+// first column tile of column block b of ncb (span_cuda.block_start)
+__device__ __forceinline__ int block_start(int nt, int ncb, int b) {
+  return b * nt / ncb;
+}
+
 // The CTA's shared memory: the pair table, col_nz flags and column norms,
-// then one sampler's staged tiles.
+// then the region the rebuild's tiles and the sweep's state take in turn.
 struct Smem {
   int* pair;      // (kp,) c | c' << 16
   int* flags;     // (K,) O[j, c] > 0 for one of this CTA's partners
@@ -174,11 +195,11 @@ __device__ __forceinline__ void put(const Cols& cc, const int* pair, int r,
                                     float* Z) {
   const int K = cc.K;
   const float f = (float)v;
-  if (col < 4 * cc.gy) {
+  if (col < 8 * cc.ny) {
     if (col < K) Y[(size_t)r * K + col] = f;
     return;
   }
-  const int q = col - 4 * cc.gy;
+  const int q = col - 8 * cc.ny;
   if (q >= cc.kp) return;
   const int c = pair[q] & 0xffff, c2 = pair[q] >> 16;
   Z[((size_t)r * K + c) * K + c2] = f;
@@ -186,195 +207,217 @@ __device__ __forceinline__ void put(const Cols& cc, const int* pair, int r,
   if (c == c2) SQ[(size_t)r * K + c] = f;
 }
 
-// Index of the pair c <= c2 among a row's Z columns (fill_pairs' order).
-__device__ __forceinline__ int pair_index(int K, int c, int c2) {
-  return c * K - c * (c - 1) / 2 + c2 - c;
+// c += a b on the FP64 tensor cores, the products added to c one at a
+// time in k order, each rounded as by an FMA: a warp's 16 x 4 tile of A
+// (row-major: a thread's a0 at row lane / 4, column lane % 4, a1 eight
+// rows down) times its 4 x 8 tile of B (b at row lane % 4, column lane /
+// 4) into its 16 x 8 tile of C (c0, c1 at row lane / 4, columns
+// 2 (lane % 4) and one more; c2, c3 eight rows down).
+__device__ __forceinline__ void dmma(double (&c)[4], double a0, double a1,
+                                     double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+      "{%4,%5}, {%6}, {%0,%1,%2,%3};"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
-// Rows [0, nr) of a tile's sums (Os, (nr, npad)) rounded once into the
-// tables Y, SQ and Z of those rows, each written in its own order.
-__device__ void write_tables(const Cols& cc, const double* Os, int nr,
-                             float* Y, float* SQ, float* Z) {
-  const int K = cc.K, ny = 4 * cc.gy, t = threadIdx.x, nt = blockDim.x;
-  for (int e = t; e < nr * K; e += nt) {
-    const int row = e / K, c = e - row * K;
-    const double* o = Os + (size_t)row * cc.npad;
-    Y[e] = (float)o[c];
-    SQ[e] = (float)o[ny + pair_index(K, c, c)];
-  }
-  for (int e = t; e < nr * K * K; e += nt) {
-    const int row = e / (K * K), c = (e / K) % K, c2 = e % K;
-    Z[e] = (float)Os[(size_t)row * cc.npad + ny +
-                     pair_index(K, min(c, c2), max(c, c2))];
-  }
-}
-
-// One sampler's tables (the rule and the split above) by every CTA of the
+// One sampler's tables (the rule and the plan above) by every CTA of the
 // cluster: called by all their threads after a cluster barrier that
-// follows the writes of M and O; ends with a cluster barrier.
-__device__ void rebuild(const SidePlan& pl, int NR, int m, int K,
-                        const float* X, const float* W, const float* M,
-                        const float* O, float* Y, float* SQ, float* Z,
-                        int* colnz, double* part) {
+// follows the writes of M and O; ends with a cluster barrier. A call of
+// its own: ptxas spills less (~300 bytes in it, ~250 in the kernels,
+// against ~800 inlined) and on an H100 the rebuild ran up to 15% faster.
+__device__ __noinline__ void rebuild(const SidePlan& pl, int NR, int m,
+                                     int K, const float* X, const float* W,
+                                     const float* M, const float* O,
+                                     float* Y, float* SQ, float* Z,
+                                     int* colnz, double* part) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int t = threadIdx.x, nt = blockDim.x;
+  const int t = threadIdx.x, nth = blockDim.x;
   const int rank = (int)cluster.block_rank(), CL = (int)cluster.num_blocks();
   const Cols cc(K);
   const Smem sm = carve(K);
-  // an odd row stride: a warp's 64-bit reads down a column of the row
-  // tiles hit distinct banks
-  const int bstride = cc.npad + 2, astride = pl.tile_j | 1;
-  double* Bs = sm.tiles;                            // (tile_j, bstride)
-  double* Rs = Bs + (size_t)pl.tile_j * bstride;    // (tile_rows, astride)
-  double* Ws = Rs + (size_t)pl.tile_rows * astride;
-  double* Ms = Ws + (size_t)pl.tile_rows * astride;  // (tile_rows, K)
-  double* Os = Ms + (size_t)pl.tile_rows * K;        // (tile_rows, npad)
-  int r_lo = 0, r_hi = NR, j_lo = 0, j_hi = m;
-  if (pl.split_rows) {
-    r_lo = min(NR, rank * pl.per_rank);
-    r_hi = min(NR, r_lo + pl.per_rank);
-  } else {
-    j_lo = min(m, rank * pl.per_rank);
-    j_hi = min(m, j_lo + pl.per_rank);
-  }
-  for (int c = t; c < K; c += nt) sm.flags[c] = 0;
-  // this thread's item: row pair (rp, rp + half), column group g, lane
-  // jl; a warp's lanes run over rows and partners at one column group, so
-  // its partner-tile reads are broadcasts
-  const int L = pl.lanes, half = pl.tile_rows / 2;
-  const int jl = t % L, rp = (t / L) % half, g = t / L / half;
-  const bool active = g < cc.ng;
-  const double* A = g < cc.gy ? Rs : Ws;
-  const int col0 = 4 * g;
-
-  // a CTA whose partners fit one tile stages them once
-  const bool one_tile = j_hi - j_lo <= pl.tile_j;
-  for (int rt0 = r_lo; rt0 < r_hi; rt0 += pl.tile_rows) {
-    const int nr = min(pl.tile_rows, r_hi - rt0);
-    double acc0[4] = {0.0, 0.0, 0.0, 0.0}, acc1[4] = {0.0, 0.0, 0.0, 0.0};
-    __syncthreads();  // the last pass's reads of Ms and the flags' reset
-    for (int e = t; e < pl.tile_rows * K; e += nt) {
-      const int row = e / K;
-      Ms[e] = row < nr ? (double)M[(size_t)(rt0 + row) * K + e - row * K]
-                       : 0.0;
-    }
-    for (int jt0 = j_lo; jt0 < j_hi; jt0 += pl.tile_j) {
-      const int nj = min(pl.tile_j, j_hi - jt0);
-      __syncthreads();  // Bs, Rs and Ws are free
-      if (!one_tile || rt0 == r_lo) {
-        // the partner values, then their pair products from them
-        const int ny = 4 * cc.gy;
-        for (int e0 = t; e0 < nj * ny; e0 += kUnroll * nt) {
-          float o[kUnroll];
+  // row strides of 4 mod 8 doubles: a warp's fragment reads hit distinct
+  // banks in each half-warp; factor rows and partner values padded with
+  // zeros to kp4 columns, the residual's products four at a time
+  const int kp4 = (K + 3) & ~3, kstride = 8 * ((kp4 + 7) / 8) + 4;
+  const int astride = 8 * ((pl.tile_j + 7) / 8) + 4;
+  const int wave_nt = pl.cb_wave * ((cc.nt + pl.ncb - 1) / pl.ncb);
+  const int bstride = 8 * wave_nt + 4;
+  double* Ms = sm.tiles;                             // (tile_rows, kstride)
+  double* Ov = Ms + (size_t)pl.tile_rows * kstride;  // (tile_j, kstride)
+  double* Bs = Ov + (size_t)pl.tile_j * kstride;     // (tile_j, bstride)
+  double* Rs = Bs + (size_t)pl.tile_j * bstride;     // (tile_rows, astride)
+  double* Ws = Rs + (size_t)pl.tile_rows * astride;  // (tile_rows, astride)
+  for (int c = t; c < K; c += nth) sm.flags[c] = 0;
+  const int n_rt = (NR + pl.tile_rows - 1) / pl.tile_rows;
+  const int n_units = n_rt * pl.nchunk;
+  const int u_lo = rank * n_units / CL, u_hi = (rank + 1) * n_units / CL;
+  const int n_waves = (pl.ncb + pl.cb_wave - 1) / pl.cb_wave;
+  const int nsub = pl.tile_rows / 16;
+  // this warp's item in a pass: rows [16 sub, 16 sub + 16) of the unit,
+  // column block wcb of the pass's
+  const int warp = t >> 5, g = (t & 31) >> 2, tq = t & 3;
+  const int sub = warp % nsub, wcb = warp / nsub;
+  int staged = -1;  // the (chunk, pass) whose partners Ov and Bs hold
+  for (int u = u_lo; u < u_hi; ++u) {
+    const int ch = u / n_rt, r0 = (u - ch * n_rt) * pl.tile_rows;
+    const int nr = min(pl.tile_rows, NR - r0);
+    const int j0 = ch * pl.cj, nj_ch = min(pl.cj, m - j0);
+    const bool one_tile = nj_ch <= pl.tile_j;
+    for (int wave = 0; wave < n_waves; ++wave) {
+      const int cb0 = wave * pl.cb_wave;
+      const int cb1 = min(pl.ncb, cb0 + pl.cb_wave);
+      const int wn0 = block_start(cc.nt, pl.ncb, cb0);
+      const int wcols = 8 * (block_start(cc.nt, pl.ncb, cb1) - wn0);
+      const bool need_r = wn0 < cc.ny;  // Y's columns in this pass
+      const int cb = cb0 + wcb;
+      const bool active = wcb < pl.cb_wave && cb < cb1;
+      const int n_lo = active ? block_start(cc.nt, pl.ncb, cb) : 0;
+      const int n_cnt = active ? block_start(cc.nt, pl.ncb, cb + 1) - n_lo : 0;
+      const bool item_r = n_lo < cc.ny, item_w = n_lo + n_cnt > cc.ny;
+      double acc[kNTW][4];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {  // the loads first
-            const int e = e0 + u * nt, j = e / ny, c = e - j * ny;
-            o[u] = e < nj * ny && c < K ? O[(size_t)(jt0 + j) * K + c]
-                                        : F(0.0);
+      for (int n = 0; n < kNTW; ++n)
+        acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0;
+      for (int jt = 0; jt < nj_ch; jt += pl.tile_j) {
+        const int nj = min(pl.tile_j, nj_ch - jt), nj4 = (nj + 3) & ~3;
+        const int njb = (nj + 7) / 8;  // blocks of 8 partners, zero-padded
+        const int jg = j0 + jt, key = ch * n_waves + wave;
+        const bool stage_b = !one_tile || staged != key;
+        const bool first = wave == 0 && jt == 0;  // the unit's first pass
+        __syncthreads();  // the tiles are free
+        if (first)  // the unit's factor rows
+          for (int e = t; e < pl.tile_rows * kp4; e += nth) {
+            const int row = e / kp4, c = e - row * kp4;
+            Ms[(size_t)row * kstride + c] =
+                row < nr && c < K ? (double)M[(size_t)(r0 + row) * K + c]
+                                  : 0.0;
+          }
+        if (stage_b)  // the partner values
+          for (int e = t; e < 8 * njb * kp4; e += nth) {
+            const int j = e / kp4, c = e - j * kp4;
+            const float o =
+                j < nj && c < K ? O[(size_t)(jg + j) * K + c] : F(0.0);
+            if (o > F(0.0)) sm.flags[c] = 1;
+            Ov[(size_t)j * kstride + c] = (double)o;
+          }
+        if (first || stage_b) __syncthreads();
+        if (stage_b) {  // the pass's columns from the partner values
+          for (int e = t; e < nj4 * wcols; e += nth) {
+            const int j = e / wcols, col = 8 * wn0 + e - j * wcols;
+            const double* o = Ov + (size_t)j * kstride;
+            double v = 0.0;
+            if (col < 8 * cc.ny) {
+              if (col < K) v = o[col];
+            } else if (col - 8 * cc.ny < cc.kp) {
+              const int pq = sm.pair[col - 8 * cc.ny];
+              v = o[pq & 0xffff] * o[pq >> 16];  // exact
+            }
+            Bs[(size_t)j * bstride + e - j * wcols] = v;
+          }
+          staged = one_tile ? key : -1;
+        }
+        // the row tiles: W, and the residual R = (X - M O^T) W, its
+        // products M O^T on the tensor cores (the chain over c in order),
+        // a warp 16 rows by 8 partners at a time
+        for (int it = warp; it < nsub * njb; it += nth >> 5) {
+          const int rs = 16 * (it % nsub), js = 8 * (it / nsub);
+          float x[4], w[4];  // rows rs + g and 8 down, partners js + 2 tq
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {  // the loads first
+            const int row = rs + g + 8 * (i >> 1), j = js + 2 * tq + (i & 1);
+            const size_t at = (size_t)(r0 + row) * m + jg + j;
+            const bool in = row < nr && j < nj;
+            x[i] = in && need_r ? X[at] : F(0.0);
+            w[i] = in ? W[at] : F(0.0);
+          }
+          double ap[4] = {0.0, 0.0, 0.0, 0.0};
+          if (need_r) {
+            const double* ma = Ms + (size_t)(rs + g) * kstride + tq;
+            const double* ob = Ov + (size_t)(js + g) * kstride + tq;
+            for (int q = 0; q < kp4; q += 4)
+              dmma(ap, ma[q], ma[q + 8 * kstride], ob[q]);
           }
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const int e = e0 + u * nt, j = e / ny, c = e - j * ny;
-            if (e >= nj * ny) break;
-            if (o[u] > F(0.0)) sm.flags[c] = 1;
-            Bs[(size_t)j * bstride + c] = (double)o[u];
+          for (int h = 0; h < 2; ++h) {
+            const size_t at = (size_t)(rs + g + 8 * h) * astride + js + 2 * tq;
+            const double w0 = (double)w[2 * h], w1 = (double)w[2 * h + 1];
+            if (need_r)
+              *(double2*)(Rs + at) =
+                  make_double2(((double)x[2 * h] - ap[2 * h]) * w0,
+                               ((double)x[2 * h + 1] - ap[2 * h + 1]) * w1);
+            *(double2*)(Ws + at) = make_double2(w0, w1);
           }
         }
         __syncthreads();
-        const int nz = cc.npad - ny;
-        for (int e = t; e < nj * nz; e += nt) {
-          const int j = e / nz, q = e - j * nz;
-          double* Bj = Bs + (size_t)j * bstride;
-          double v = 0.0;
-          if (q < cc.kp) {
-            const int pq = sm.pair[q];
-            v = Bj[pq & 0xffff] * Bj[pq >> 16];  // exact
+        if (active) {
+          const double* ra = Rs + (size_t)(16 * sub + g) * astride + tq;
+          const double* wa = Ws + (size_t)(16 * sub + g) * astride + tq;
+          const double* bb = Bs + (size_t)tq * bstride + 8 * (n_lo - wn0) + g;
+          const size_t a8 = (size_t)8 * astride;
+          for (int kk = 0; kk < nj4; kk += 4) {
+            const double r0v = item_r ? ra[kk] : 0.0;
+            const double r1v = item_r ? ra[kk + a8] : 0.0;
+            const double w0v = item_w ? wa[kk] : 0.0;
+            const double w1v = item_w ? wa[kk + a8] : 0.0;
+            const double* b = bb + (size_t)kk * bstride;
+#pragma unroll
+            for (int n = 0; n < kNTW; ++n)
+              if (n < n_cnt) {
+                const bool y = n_lo + n < cc.ny;
+                dmma(acc[n], y ? r0v : w0v, y ? r1v : w1v, b[8 * n]);
+              }
           }
-          Bj[ny + q] = v;
         }
       }
-      // the row tiles: W, and R from the partner values staged above
-      for (int e0 = t; e0 < pl.tile_rows * nj; e0 += kUnroll * nt) {
-        float x[kUnroll], w[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {  // the loads first
-          const int e = e0 + u * nt, row = e / nj;
-          const size_t at = (size_t)(rt0 + row) * m + jt0 + e - row * nj;
-          const bool in = e < pl.tile_rows * nj && row < nr;
-          x[u] = in ? X[at] : F(0.0);
-          w[u] = in ? W[at] : F(0.0);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int e = e0 + u * nt, row = e / nj, j = e - row * nj;
-          if (e >= pl.tile_rows * nj) break;
-          const double* Mr = Ms + row * K;
-          const double* Oj = Bs + (size_t)j * bstride;
-          double ap = 0.0;
-          for (int c = 0; c < K; ++c) ap = __fma_rn(Mr[c], Oj[c], ap);
-          const double wd = (double)w[u];
-          Rs[(size_t)row * astride + j] = ((double)x[u] - ap) * wd;
-          Ws[(size_t)row * astride + j] = wd;
-        }
-      }
-      __syncthreads();
+      // this warp's sums: the tables where the chunk is the only one,
+      // else the chunk's float64 partials
       if (active) {
-        const double* a0 = A + (size_t)rp * astride;
-        const double* a1 = A + (size_t)(rp + half) * astride;
-        for (int j = jl; j < nj; j += L) {
-          const double x0 = a0[j], x1 = a1[j];
-          const double2* b =
-              (const double2*)(Bs + (size_t)j * bstride + col0);
-          const double2 b01 = b[0], b23 = b[1];
-          acc0[0] = __fma_rn(x0, b01.x, acc0[0]);
-          acc0[1] = __fma_rn(x0, b01.y, acc0[1]);
-          acc0[2] = __fma_rn(x0, b23.x, acc0[2]);
-          acc0[3] = __fma_rn(x0, b23.y, acc0[3]);
-          acc1[0] = __fma_rn(x1, b01.x, acc1[0]);
-          acc1[1] = __fma_rn(x1, b01.y, acc1[1]);
-          acc1[2] = __fma_rn(x1, b23.x, acc1[2]);
-          acc1[3] = __fma_rn(x1, b23.y, acc1[3]);
+#pragma unroll
+        for (int n = 0; n < kNTW; ++n) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int row = 16 * sub + 8 * mt + g;
+            const int col = 8 * (n_lo + n) + 2 * tq;
+            if (n >= n_cnt || row >= nr) continue;
+            const double v0 = acc[n][2 * mt], v1 = acc[n][2 * mt + 1];
+            if (pl.nchunk == 1) {
+              put(cc, sm.pair, r0 + row, col, v0, Y, SQ, Z);
+              put(cc, sm.pair, r0 + row, col + 1, v1, Y, SQ, Z);
+            } else {
+              *(double2*)(part + ((size_t)ch * NR + r0 + row) * cc.ncols +
+                          col) = make_double2(v0, v1);
+            }
+          }
         }
       }
     }
-    // the lanes' sums into lane 0, in a fixed order (lanes divides 32)
-    for (int off = L / 2; off > 0; off >>= 1)
-      for (int q = 0; q < 4; ++q) {
-        acc0[q] = acc0[q] + __shfl_xor_sync(0xffffffffu, acc0[q], off);
-        acc1[q] = acc1[q] + __shfl_xor_sync(0xffffffffu, acc1[q], off);
-      }
-    // the tile's sums through shared memory, then out row by row
-    if (active && jl == 0)
-      for (int q = 0; q < 4; ++q) {
-        Os[(size_t)rp * cc.npad + col0 + q] = acc0[q];
-        Os[(size_t)(rp + half) * cc.npad + col0 + q] = acc1[q];
-      }
-    __syncthreads();
-    if (pl.split_rows)
-      write_tables(cc, Os, nr, Y + (size_t)rt0 * K, SQ + (size_t)rt0 * K,
-                   Z + (size_t)rt0 * K * K);
-    else
-      for (int e = t; e < nr * cc.npad; e += nt)
-        part[((size_t)rank * NR + rt0) * cc.npad + e] = Os[e];
   }
-  if (pl.split_rows) {  // every CTA saw every partner: rank 0's flags do
-    __syncthreads();
-    if (rank == 0)
-      for (int c = t; c < K; c += nt) colnz[c] = sm.flags[c];
-  } else {
-    cluster.sync();  // every rank's partials and flags are written
-    if (rank == 0)
-      for (int c = t; c < K; c += nt) {
-        int any = 0;
-        for (int q = 0; q < CL; ++q) any |= *cluster.map_shared_rank(
-                                                &sm.flags[c], q);
-        colnz[c] = any;
-      }
-    const size_t n_out = (size_t)NR * cc.npad;
-    for (size_t e = (size_t)rank * nt + t; e < n_out; e += (size_t)CL * nt) {
+  cluster.sync();  // every rank's partials and flags are written
+  if (rank == 0)
+    for (int c = t; c < K; c += nth) {
+      int any = 0;
+      for (int q = 0; q < CL; ++q)
+        any |= *cluster.map_shared_rank(&sm.flags[c], q);
+      colnz[c] = any;
+    }
+  if (pl.nchunk > 1) {  // the chunks' partials in chunk order, rounded once
+    const size_t n_out = (size_t)NR * cc.ncols;
+    for (size_t e = (size_t)rank * nth + t; e < n_out;
+         e += (size_t)CL * nth) {
+      const int col = (int)(e % cc.ncols);
+      if (col < 8 * cc.ny ? col >= K : col - 8 * cc.ny >= cc.kp) continue;
       double v = __ldcg(part + e);
-      for (int q = 1; q < CL; ++q) v = v + __ldcg(part + q * n_out + e);
-      put(cc, sm.pair, (int)(e / cc.npad), (int)(e % cc.npad), v, Y, SQ, Z);
+      int q = 1;
+      for (; q + 8 <= pl.nchunk; q += 8) {  // eight loads in flight at once
+        double r[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) r[i] = __ldcg(part + (q + i) * n_out + e);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v = v + r[i];
+      }
+      for (; q < pl.nchunk; ++q) v = v + __ldcg(part + q * n_out + e);
+      put(cc, sm.pair, (int)(e / cc.ncols), col, v, Y, SQ, Z);
     }
   }
   cluster.sync();
@@ -388,7 +431,7 @@ __device__ void rebuild_side(const Rebuild& rb, bool a_side,
   const size_t chain = blockIdx.x / CL;
   const int G = rb.G, S = rb.S, K = rb.K;
   const size_t GS = (size_t)G * S, GK = (size_t)G * K, SK = (size_t)S * K;
-  double* part = rb.part + chain * CL * min(G, S) * Cols(K).npad;
+  double* part = rb.part + chain * rb.part_stride;
   const float* Ma = M_a + chain * GK;
   const float* Mp = M_p + chain * SK;
   if (a_side)
@@ -426,28 +469,40 @@ __device__ void fold_counts(const SpanArgs& s, int chain, int row,
   }
 }
 
-// Rank 0's sweeps of the A (a_side) or P sampler in iteration it, and
-// their counters. A call of its own: ptxas then spills ~270 bytes in it
-// and ~300 in the kernel, against ~900-1000 with the sweeps inlined
-// beside the rebuilds, and on an H100 the sweeps ran as fast or up to 9%
-// faster. It takes everything from the kernel's arguments, which are
-// __grid_constant__ so that nothing is copied for the call (copied, the
-// sweeps ran 7% slower).
+
+// Rank 0's sweeps of the A (a_side) or P sampler in iteration it, on the
+// state p0.smem places in shared memory, and their counters. A call of
+// its own: ptxas then spills less in it and in the kernel than with the
+// sweeps inlined beside the rebuilds. It takes everything from the
+// kernel's arguments, which are __grid_constant__ so that nothing is
+// copied for the call.
 __device__ __noinline__ void sweep_side(const SpanArgs& s,
                                         const cogaps::SweepArgs& p0,
                                         bool a_side, int it) {
+  __shared__ cogaps::SweepShared sh;  // one for both samplers and forms
   const int chain = blockIdx.x / (int)cg::this_cluster().num_blocks();
   const int K = s.rb.K;
   const size_t nb = (size_t)(a_side ? s.rb.G : s.rb.S) * K;
-  cogaps::DenseModel model{K, (a_side ? s.rb.Ya : s.rb.Yp) + chain * nb,
-                           (a_side ? s.rb.SQa : s.rb.SQp) + chain * nb,
-                           (a_side ? s.rb.Za : s.rb.Zp) + chain * nb * K};
   cogaps::SweepArgs p = p0;
   p.temp = s.phase == 0 ? fminf(F(1.0), F(2 * it) / F(s.n_iterations))
                         : F(1.0);
   p.key1 = stream_key(s.phase, it, a_side ? 0 : 1);
-  cogaps::sweep_chain(p, model, chain);
+  // the tables were written by the cluster's CTAs in this launch: Z that
+  // stays global is read through L1, not the read-only path
+  const cogaps::StagedChain st = cogaps::stage_chain(
+      p, reinterpret_cast<unsigned char*>(carve(K).tiles), chain,
+      (a_side ? s.rb.Ya : s.rb.Yp) + chain * nb,
+      (a_side ? s.rb.SQa : s.rb.SQp) + chain * nb,
+      (a_side ? s.rb.Za : s.rb.Zp) + chain * nb * K, false);
+  __syncthreads();  // every thread's copies, for the sweeping threads
+  if (p.B <= 32) {
+    if (threadIdx.x < 32)
+      cogaps::sweep_chain<true>(p, st.ch, st.model, chain, sh);
+  } else {
+    cogaps::sweep_chain<false>(p, st.ch, st.model, chain, sh);
+  }
   __syncthreads();
+  cogaps::unstage_chain(p, st, false);
   if (threadIdx.x == 0) fold_counts(s, chain, a_side ? 0 : 1, p0.out);
 }
 
@@ -487,7 +542,7 @@ __device__ void accumulate(const SpanArgs& s, const float* M_a,
   if (rank == 0 && t == 0) s.n_stat[chain] += 1;
 }
 
-__global__ void __launch_bounds__(cogaps::kMaxB)
+__global__ void __launch_bounds__(cogaps::kMaxB, 1)
     span_kernel(const __grid_constant__ SpanArgs s,
                 const __grid_constant__ cogaps::SweepArgs pa0,
                 const __grid_constant__ cogaps::SweepArgs pp0) {
@@ -514,11 +569,25 @@ __global__ void __launch_bounds__(cogaps::kMaxB)
 // The tables of both samplers from one state, without sweeping: the
 // counterpart of tools/probe_rebuild.py's check of the TPU kernel's
 // in-kernel rebuild contractions.
-__global__ void __launch_bounds__(cogaps::kMaxB)
+__global__ void __launch_bounds__(cogaps::kMaxB, 1)
     rebuild_kernel(const Rebuild rb, const float* Ma, const float* Mp) {
   fill_pairs(rb.K);
   rebuild_side(rb, true, Ma, Mp);
   rebuild_side(rb, false, Ma, Mp);
+}
+
+const void* kernel_fn(int kernel) {
+  return kernel == 0 ? (const void*)span_kernel : (const void*)rebuild_kernel;
+}
+
+// Sizes past the portable 8 are allowed; the shared memory asked for.
+cudaError_t set_attributes(const void* fn, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  return e;
 }
 
 cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int n_ctas,
@@ -543,8 +612,7 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int n_ctas,
 template <class... Params, class... Args>
 int launch_clusters(void (*kernel)(Params...), int nch, int cl, int threads,
                     int smem, void* stream, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e = set_attributes((const void*)kernel, smem);
   if (e == cudaSuccess)  // the rest of the SM's 256 KB stays L1 for the sweeps
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -559,25 +627,26 @@ int launch_clusters(void (*kernel)(Params...), int nch, int cl, int threads,
 }
 
 SidePlan side_plan(const int* v) {
-  return SidePlan{v[0], v[1], v[2], v[3], v[4]};
+  return SidePlan{v[0], v[1], v[2], v[3], v[4], v[5]};
 }
 
 Rebuild make_rebuild(int G, int S, int K, const int* plan, const float* D,
                      const float* inv, const float* D_t, const float* inv_t,
-                     double* part, float* Ya, float* SQa, float* Za,
-                     float* Yp, float* SQp, float* Zp, int* colnz_a,
-                     int* colnz_p) {
+                     double* part, long long part_stride, float* Ya,
+                     float* SQa, float* Za, float* Yp, float* SQp, float* Zp,
+                     int* colnz_a, int* colnz_p) {
   Rebuild rb;
   rb.G = G;
   rb.S = S;
   rb.K = K;
   rb.a = side_plan(plan);
-  rb.p = side_plan(plan + 5);
+  rb.p = side_plan(plan + kPlanInts);
   rb.D = D;
   rb.inv = inv;
   rb.D_t = D_t;
   rb.inv_t = inv_t;
   rb.part = part;
+  rb.part_stride = part_stride;
   rb.Ya = Ya;
   rb.SQa = SQa;
   rb.Za = Za;
@@ -601,10 +670,8 @@ bool bad_shape(int nch, int cl, int threads) {
 // (kernel 0) or rebuild_kernel (1).
 extern "C" int cogaps_span_max_clusters(int kernel, int cl, int threads,
                                         int smem, int* n_clusters) {
-  const void* fn = kernel == 0 ? (const void*)span_kernel
-                               : (const void*)rebuild_kernel;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const void* fn = kernel_fn(kernel);
+  const cudaError_t e = set_attributes(fn, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -612,7 +679,16 @@ extern "C" int cogaps_span_max_clusters(int kernel, int cl, int threads,
   return (int)cudaOccupancyMaxActiveClusters(n_clusters, fn, &cfg);
 }
 
-// plan: the A side's then the P side's SidePlan fields, five ints each.
+// Static shared memory of span_kernel (kernel 0) or rebuild_kernel (1), in
+// bytes, or a negative CUDA error.
+extern "C" int cogaps_span_static_smem(int kernel) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel_fn(kernel));
+  return e == cudaSuccess ? (int)a.sharedSizeBytes : -(int)e;
+}
+
+// plan: the A side's then the P side's kPlanInts ints: SidePlan's fields,
+// then the sweep's kNPlaced byte offsets (-1: global).
 extern "C" int cogaps_span_launch(
     int nch, int G, int S, int K, int n_it, int phase, int it0,
     int n_iterations, int B_a, int C_a, int B_p, int C_p, int local_moves,
@@ -624,10 +700,10 @@ extern "C" int cogaps_span_launch(
     int* elem_p, int* n_p, float* Ma, float* Mp, float* a_sum,
     float* a_sumsq, float* p_sum, float* p_sumsq, int* n_stat,
     long long* upd, int* prop, int* acc, int* sweeps, double* part,
-    float* Ya, float* SQa, float* Za, float* Yp, float* SQp, float* Zp,
-    int* colnz_a, int* colnz_p, int* budget_a, int* budget_p, int* out_a,
-    int* out_p, int* claims_a, int* claims_p, const long long* key0,
-    void* stream) {
+    long long part_stride, float* Ya, float* SQa, float* Za, float* Yp,
+    float* SQp, float* Zp, int* colnz_a, int* colnz_p, int* budget_a,
+    int* budget_p, int* out_a, int* out_p, int* claims_a, int* claims_p,
+    const long long* key0, void* stream) {
   if (bad_shape(nch, cl, threads) || B_a < 1 || B_a > threads || B_p < 1 ||
       B_p > threads || n_it < 1)
     return (int)cudaErrorInvalidValue;
@@ -636,8 +712,8 @@ extern "C" int cogaps_span_launch(
   s.phase = phase;
   s.it0 = it0;
   s.n_iterations = n_iterations;
-  s.rb = make_rebuild(G, S, K, plan, D, inv, D_t, inv_t, part, Ya, SQa, Za,
-                      Yp, SQp, Zp, colnz_a, colnz_p);
+  s.rb = make_rebuild(G, S, K, plan, D, inv, D_t, inv_t, part, part_stride,
+                      Ya, SQa, Za, Yp, SQp, Zp, colnz_a, colnz_p);
   s.z = z;
   s.a_sum = a_sum;
   s.a_sumsq = a_sumsq;
@@ -650,14 +726,18 @@ extern "C" int cogaps_span_launch(
   s.sweeps = sweeps;
   s.budget_a = budget_a;
   s.budget_p = budget_p;
-  const cogaps::SweepArgs pa = cogaps::make_args(
+  cogaps::SweepArgs pa = cogaps::make_args(
       nch, B_a, C_a, G, K, local_moves, alpha_nb_a, dom_len_a, F(1.0), lam_a,
       mgm_a, budget_a, mass_a, elem_a, n_a, Ma, colnz_a, claims_a, out_a,
       nullptr, 0, key0, 0u);
-  const cogaps::SweepArgs pp = cogaps::make_args(
+  cogaps::SweepArgs pp = cogaps::make_args(
       nch, B_p, C_p, S, K, local_moves, alpha_nb_p, dom_len_p, F(1.0), lam_p,
       mgm_p, budget_p, mass_p, elem_p, n_p, Mp, colnz_p, claims_p, out_p,
       nullptr, 0, key0, 0u);
+  for (int i = 0; i < cogaps::kNPlaced; ++i) {
+    pa.smem[i] = plan[6 + i];
+    pp.smem[i] = plan[kPlanInts + 6 + i];
+  }
   return launch_clusters(span_kernel, nch, cl, threads, smem, stream, s, pa,
                          pp);
 }
@@ -666,11 +746,12 @@ extern "C" int cogaps_span_rebuild(
     int nch, int G, int S, int K, int threads, int cl, int smem,
     const int* plan, const float* D, const float* inv, const float* D_t,
     const float* inv_t, const float* Ma, const float* Mp, double* part,
-    float* Ya, float* SQa, float* Za, int* colnz_a, float* Yp, float* SQp,
-    float* Zp, int* colnz_p, void* stream) {
+    long long part_stride, float* Ya, float* SQa, float* Za, int* colnz_a,
+    float* Yp, float* SQp, float* Zp, int* colnz_p, void* stream) {
   if (bad_shape(nch, cl, threads)) return (int)cudaErrorInvalidValue;
-  const Rebuild rb = make_rebuild(G, S, K, plan, D, inv, D_t, inv_t, part,
-                                  Ya, SQa, Za, Yp, SQp, Zp, colnz_a, colnz_p);
+  const Rebuild rb =
+      make_rebuild(G, S, K, plan, D, inv, D_t, inv_t, part, part_stride, Ya,
+                   SQa, Za, Yp, SQp, Zp, colnz_a, colnz_p);
   return launch_clusters(rebuild_kernel, nch, cl, threads, smem, stream, rb,
                          Ma, Mp);
 }

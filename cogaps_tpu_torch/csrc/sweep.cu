@@ -30,49 +30,6 @@ namespace {
 
 using cogaps::SweepArgs;
 
-// a chain's array: its staged copy in shared memory, if the plan put it
-// there, else its slice of the global array
-template <class T>
-__device__ __forceinline__ T* placed(const SweepArgs& p, unsigned char* smem,
-                                     int a, T* global) {
-  return p.smem[a] < 0 ? global : reinterpret_cast<T*>(smem + p.smem[a]);
-}
-
-// Starts copying n 4-byte values from global src to shared dst (16-byte
-// aligned) by the whole block: asynchronous copies (cp.async) that keep
-// every thread's loads in flight at once, 16 bytes each where src is
-// aligned too. wait_staged() ends them.
-template <class T>
-__device__ __forceinline__ void stage_in(T* dst, const T* src, int n) {
-  static_assert(sizeof(T) == 4, "4-byte values");
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  int i0 = 0;
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    for (int i = threadIdx.x; i < n / 4; i += blockDim.x)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       s + 16 * i),
-                   "l"(src + 4 * i)
-                   : "memory");
-    i0 = n / 4 * 4;
-  }
-  for (int i = i0 + threadIdx.x; i < n; i += blockDim.x)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s + 4 * i),
-                 "l"(src + i)
-                 : "memory");
-}
-
-__device__ __forceinline__ void wait_staged() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// n values from the staged copy src back to global dst by the whole block
-template <class T>
-__device__ __forceinline__ void write_back(T* __restrict__ dst,
-                                           const T* __restrict__ src, int n) {
-#pragma unroll 4
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
 template <int kThreads>
 __global__ void __launch_bounds__(kThreads)
     sweep_kernel(const __grid_constant__ SweepArgs p, float* Y,
@@ -81,38 +38,11 @@ __global__ void __launch_bounds__(kThreads)
   constexpr bool kWarp = kThreads == 32;
   const int chain = blockIdx.x;
   const size_t nb = (size_t)chain * p.NB;
-  const cogaps::Chain g = cogaps::chain_of(p, chain);
-  cogaps::Chain ch = g;
-  ch.rmin = placed(p, smem, cogaps::kRmin, g.rmin);
-  ch.amin = placed(p, smem, cogaps::kAmin, g.amin);
-  ch.hole_flag = placed(p, smem, cogaps::kHole, g.hole_flag);
-  ch.mass = placed(p, smem, cogaps::kMass, g.mass);
-  ch.elem = placed(p, smem, cogaps::kElem, g.elem);
-  ch.M = placed(p, smem, cogaps::kM, g.M);
-  float* const Yg = Y + nb;
-  const float* const SQg = SQ + nb;
-  const float* const Zg = Z + nb * p.K;
-  const cogaps::DenseModel model{p.K, placed(p, smem, cogaps::kY, Yg),
-                                 placed(p, smem, cogaps::kSQ, SQg),
-                                 placed(p, smem, cogaps::kZ, Zg),
-                                 p.smem[cogaps::kZ] < 0};
-  // stage in (the claims are cleared where they lie by chain_begin, whose
-  // barrier also ends the staging)
-  if (ch.mass != g.mass) stage_in(ch.mass, g.mass, p.C);
-  if (ch.elem != g.elem) stage_in(ch.elem, g.elem, p.C);
-  if (ch.M != g.M) stage_in(ch.M, g.M, p.NB);
-  if (model.Y != Yg) stage_in(model.Y, Yg, p.NB);
-  if (model.SQ != SQg) stage_in(const_cast<float*>(model.SQ), SQg, p.NB);
-  if (model.Z != Zg)
-    stage_in(const_cast<float*>(model.Z), Zg, p.NB * p.K);
-  wait_staged();
-  cogaps::sweep_chain<kWarp>(p, ch, model, chain);
-  // write back what the sweeps change (chain_end's barrier follows the
-  // last sweep)
-  if (ch.mass != g.mass) write_back(g.mass, ch.mass, p.C);
-  if (ch.elem != g.elem) write_back(g.elem, ch.elem, p.C);
-  if (ch.M != g.M) write_back(g.M, ch.M, p.NB);
-  if (model.Y != Yg) write_back(Yg, model.Y, p.NB);
+  const cogaps::StagedChain st =
+      cogaps::stage_chain(p, smem, chain, Y + nb, SQ + nb, Z + nb * p.K, true);
+  cogaps::sweep_chain<kWarp>(p, st.ch, st.model, chain);
+  // chain_end's barrier follows the last sweep
+  cogaps::unstage_chain(p, st, true);
 }
 
 // One launch of the width class kThreads with `smem_bytes` of dynamic

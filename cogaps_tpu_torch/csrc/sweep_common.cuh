@@ -29,8 +29,9 @@
 // atomicMin claims of the lane id in per-chain row and slot tables; the
 // lanes that claimed reset their entries after the keep test. A Chain's
 // arrays (claims, hole flags, atom table, M) lie wherever its pointers
-// say: csrc/sweep.cu points them at staged copies in shared memory,
-// atlas.cu and span.cu at the update call's global arrays. The four
+// say: csrc/sweep.cu and span.cu point them at staged copies in shared
+// memory where a plan puts them (dense_model.cuh's stage_chain), atlas.cu
+// at the update call's global arrays. The four
 // inclusive prefix sums of a sweep are block scans (warp shuffles plus
 // one shared array of warp totals), the last two with two counts each in
 // the halves of an int; the counters are warp ballots added to shared
@@ -305,14 +306,16 @@ __device__ __forceinline__ void tally(bool flag, int* slot) {
 }
 
 // Claim tables cleared and counters zeroed before a chain's first sweep.
+// A one-warp sweep (kWarp) runs on the block's first warp, which may be
+// one of several (csrc/span.cu): its loops stride by 32.
 template <bool kWarp = false>
 __device__ __forceinline__ void chain_begin(const SweepArgs& p,
                                             const Chain& ch, SweepShared& sh,
                                             int chain) {
-  const int lane = threadIdx.x;
-  for (int i = lane; i <= p.NR; i += blockDim.x) ch.rmin[i] = kBig;
-  for (int i = lane; i <= p.C; i += blockDim.x) ch.amin[i] = kBig;
-  for (int i = lane; i < p.C; i += blockDim.x) ch.hole_flag[i] = 0;
+  const int lane = threadIdx.x, nt = kWarp ? 32 : (int)blockDim.x;
+  for (int i = lane; i <= p.NR; i += nt) ch.rmin[i] = kBig;
+  for (int i = lane; i <= p.C; i += nt) ch.amin[i] = kBig;
+  for (int i = lane; i < p.C; i += nt) ch.hole_flag[i] = 0;
   if (lane == 0) {
     sh.n = p.n[chain];
     sh.done = 0;
@@ -642,11 +645,10 @@ __device__ __forceinline__ void sweep_back(const SweepArgs& p,
 }
 
 // One block's whole update(nSteps) for `chain` on the arrays of `ch`:
-// every sweep until the budget is spent.
+// every sweep until the budget is spent, its state across sweeps in sh.
 template <bool kWarp = false, class Model>
 __device__ void sweep_chain(const SweepArgs& p, const Chain& ch,
-                            Model& model, int chain) {
-  __shared__ SweepShared sh;
+                            Model& model, int chain, SweepShared& sh) {
   chain_begin<kWarp>(p, ch, sh, chain);
   int s = 0;
   for (;; ++s) {
@@ -659,10 +661,12 @@ __device__ void sweep_chain(const SweepArgs& p, const Chain& ch,
   chain_end<kWarp>(p, sh, chain, s);
 }
 
-// The same on the update call's global arrays.
-template <class Model>
-__device__ void sweep_chain(const SweepArgs& p, Model& model, int chain) {
-  sweep_chain(p, chain_of(p, chain), model, chain);
+// The same with a SweepShared of its own.
+template <bool kWarp = false, class Model>
+__device__ void sweep_chain(const SweepArgs& p, const Chain& ch,
+                            Model& model, int chain) {
+  __shared__ SweepShared sh;
+  sweep_chain<kWarp>(p, ch, model, chain, sh);
 }
 
 // Fills the SweepArgs fields every launch passes in the same order.

@@ -20,33 +20,44 @@ against a few microseconds to launch it, so 50 is kept.
 counterpart of tools/probe_rebuild.py, which checked the TPU kernel's
 in-kernel rebuild contractions.
 
-Both kernels run one thread-block cluster per chain (``cluster_size``),
-and each sampler's table rebuild is split over the cluster's CTAs as
-``rebuild_plan`` says; ``rebuild_tables_split`` is the plain model of that
-split. The kernel is built from csrc/span.cu (with csrc/sweep_common.cuh
-and csrc/dense_model.cuh) by ops/cuda_build.py at first use.
+Both kernels run one thread-block cluster per chain (``cluster_size``,
+up to 16 CTAs). Each sampler's table rebuild runs on the FP64 tensor
+cores, its work dealt over the cluster's CTAs as ``rebuild_plan`` says
+and its sums in an order of the shape alone (``chunks``;
+``rebuild_tables_split`` is the plain model of that order); the sweeps
+run on the rank-0 CTA on the state ``sweep_plan`` places in its shared
+memory, as K1's ``smem_plan`` does. The kernel is built from
+csrc/span.cu (with csrc/sweep_common.cuh and csrc/dense_model.cuh) by
+ops/cuda_build.py at first use.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from .. import engine
 from . import cuda_build
 from .span import SpanTables, rebuild_tables_plain, run_span_plain
-from .sweep_cuda import MAX_BATCH, KernelState
+from .sweep_cuda import (MAX_BATCH, PLACED, SMEM_BLOCK, STATIC_SMEM,
+                         KernelState, SmemPlan, pack)
 
 CHUNK = 50
-# cluster sizes tried, largest first: powers of two up to the portable 8
-CLUSTER_SIZES = (8, 4, 2, 1)
-MAX_TILE_ROWS = 128  # rows a rebuild pass stages
-MAX_TILE_J = 256     # partners a rebuild pass stages
+# cluster sizes tried, largest first: powers of two up to 16, past the
+# portable 8 (csrc/span.cu allows non-portable sizes)
+CLUSTER_SIZES = (16, 8, 4, 2, 1)
+NTW = 3  # column tiles of 8 a warp's item holds (csrc/span.cu::kNTW)
+# the partner chunks of a sampler's sums: at most MAX_CHUNK partners a
+# chunk; below FEW_ROWS rows, up to CHUNK_UNITS chunks of at least
+# MIN_CHUNK partners, so that a cluster's CTAs share the work
+MAX_CHUNK = 256
+MIN_CHUNK = 64
+FEW_ROWS = 256
+CHUNK_UNITS = 8
 TILE_BYTES = 160 * 1024  # shared memory of one sampler's staged tiles
-SYNC_STEPS = 8  # a tile pass's barriers and staging, in partner steps
 
 
 def rebuild_ops(G: int, S: int, k: int) -> int:
@@ -62,13 +73,26 @@ def rebuild_ops(G: int, S: int, k: int) -> int:
 
 def column_groups(k: int) -> tuple:
     """(gy, gz): the groups of four output columns of a table row, Y's k
-    columns and the k(k+1)/2 pairs c <= c' of Z (csrc/span.cu::Cols)."""
+    columns and the k(k+1)/2 pairs c <= c' of Z."""
     return -(-k // 4), -(-(k * (k + 1) // 2) // 4)
+
+
+def column_tiles(k: int) -> tuple:
+    """(ny, nt): the tiles of eight output columns of a table row as
+    csrc/span.cu::Cols lays them out: Y's k columns in [0, ny), then the
+    k(k+1)/2 pairs c <= c' of Z, nt in all."""
+    ny = -(-k // 8)
+    return ny, ny + -(-(k * (k + 1) // 2) // 8)
+
+
+def block_start(nt: int, ncb: int, b: int) -> int:
+    """The first column tile of column block b of ncb (csrc/span.cu)."""
+    return b * nt // ncb
 
 
 def block_threads(B_a: int, B_p: int, k: int) -> int:
     """Threads of each CTA: the wider sampler's proposal lanes, and at
-    least one thread per output column group, in whole warps."""
+    least one thread per group of four output columns, in whole warps."""
     t = 32 * -(-max(B_a, B_p, sum(column_groups(k))) // 32)
     if t > MAX_BATCH:
         raise ValueError(f"k={k} has more table column groups than "
@@ -76,79 +100,128 @@ def block_threads(B_a: int, B_p: int, k: int) -> int:
     return t
 
 
-class SidePlan(NamedTuple):
-    """One sampler's rebuild split over a cluster (csrc/span.cu::SidePlan).
-    Rank q of the cluster takes rows (split_rows) or partners
-    [q * per_rank, (q + 1) * per_rank); it stages tile_rows x tile_j
-    tiles, and `lanes` threads split one output's partner sum."""
+def chunks(NR: int, m: int) -> tuple:
+    """(cj, n): the partner chunks of one sampler's sums (NR rows, m
+    partners): n chunks of cj partners, a multiple of 4, the last shorter.
+    Each chunk's float64 sums run over its partners in order, four at a
+    time; the kernel adds the chunks' partials in chunk order. They
+    follow from the shape alone, so a sum's order never depends on the
+    cluster size or the chains beside it: one chunk up to MAX_CHUNK
+    partners where rows are many, and below FEW_ROWS rows up to
+    CHUNK_UNITS chunks of at least MIN_CHUNK, work for a cluster's CTAs."""
+    n = -(-m // MAX_CHUNK)
+    if NR < FEW_ROWS:
+        n = max(n, min(CHUNK_UNITS, -(-m // MIN_CHUNK)))
+    cj = 4 * -(-(-(-m // n)) // 4)
+    return cj, -(-m // cj)
 
-    split_rows: bool
-    per_rank: int
+
+class SidePlan(NamedTuple):
+    """One sampler's rebuild plan (csrc/span.cu::SidePlan). Units of
+    (row tile of tile_rows rows, chunk of cj partners) are dealt to a
+    cluster's CTAs in contiguous runs of equal length, chunk-major; a CTA stages a
+    unit's partners tile_j at a time, and its warps take items of 16 rows
+    by one of the ncb column blocks, cb_wave blocks a pass over the
+    partners."""
+
+    cj: int
+    nchunk: int
     tile_rows: int
     tile_j: int
-    lanes: int
+    cb_wave: int
+    ncb: int
+
+
+def rebuild_bytes(plan: SidePlan, k: int) -> int:
+    """Shared memory of a CTA's rebuild tiles (csrc/span.cu::rebuild), in
+    doubles' bytes: factor rows (tile_rows, kstride) and partner values
+    (tile_j, kstride), k padded to a multiple of 4; the pass's columns
+    (tile_j, bstride); R and W (tile_rows, astride). Each stride is 4 mod
+    8 doubles."""
+    _, nt = column_tiles(k)
+    kstride = 8 * -(-(-(-k // 4) * 4) // 8) + 4
+    astride = 8 * -(-plan.tile_j // 8) + 4
+    wave_nt = plan.cb_wave * -(-nt // plan.ncb)
+    bstride = 8 * wave_nt + 4
+    return 8 * ((plan.tile_rows + plan.tile_j) * kstride
+                + plan.tile_j * bstride + 2 * plan.tile_rows * astride)
 
 
 def rebuild_plan(NR: int, m: int, k: int, threads: int, cl: int) -> SidePlan:
-    """The split of one sampler's rebuild (NR table rows, m partners) over
-    a cluster of `cl` CTAs of `threads` threads. The longer of rows and
-    partners is split over the CTAs (rows when cl is 1). Lanes (threads
-    splitting one output's partner sum) are used only where a CTA's rows
-    are too few to give each thread a column group of a row: elsewhere
-    each sum runs over the partners in order, as the plain version's
-    product does (a split sum rounded 2 of 32 M float32 entries the
-    other way at 20000 x 100, k=10, x16 on an H100). Partners go in one
-    tile, staged once, or in balanced tiles of at most MAX_TILE_J, rows
-    in balanced tiles: whichever, with the lanes, takes the fewest serial
-    partner steps, counting a tile pass as SYNC_STEPS more."""
-    gy, gz = column_groups(k)
-    ng, npad = gy + gz, 4 * (gy + gz)
-    split_rows = cl == 1 or NR >= m
-    per_rank = -(-(NR if split_rows else m) // cl)
-    rows, parts = (per_rank, m) if split_rows else (NR, per_rank)
-    words = TILE_BYTES // 8  # doubles of the staged tiles
-    cap = min(MAX_TILE_ROWS, 2 * (threads // ng))
-
-    def fit_rows(tile_j):  # rows whose R, W, M, out tiles fit by tile_j
-        left = words - tile_j * (npad + 2)
-        return max(left // (2 * (tile_j + 1) + k + npad) // 2 * 2, 0)
-
-    j_cap, tr = 0, min(cap, rows + rows % 2)
-    while j_cap < 1 and tr >= 2:  # partners beside tr rows, fewer if need be
-        j_cap = min(MAX_TILE_J, (words - tr * (2 + k + npad))
-                    // (npad + 2 + 2 * tr))
-        tr = tr // 4 * 2
-    if j_cap < 1:
-        raise ValueError(f"k={k}: a partner tile does not fit {TILE_BYTES} "
-                         "bytes")
-    tile_js = {-(-parts // -(-parts // j_cap))}
-    if parts <= MAX_TILE_J and fit_rows(parts) >= 2:
-        tile_js.add(parts)
-    best = None
-    for tile_j in sorted(tile_js):
-        for lanes in ((1, 2, 4, 8, 16, 32) if rows * ng < threads else (1,)):
-            tr = min(cap, fit_rows(tile_j), 2 * (threads // (ng * lanes)))
-            if tr < 2 or (lanes > 1 and lanes > tile_j):
-                break
-            n_tiles = -(-rows // tr)
-            tile_rows = 2 * -(-(-(-rows // n_tiles)) // 2)
-            steps = n_tiles * -(-parts // tile_j) * (-(-tile_j // lanes)
-                                                     + SYNC_STEPS)
-            if best is None or steps < best[0]:
-                best = (steps, tile_rows, tile_j, lanes)
-    return SidePlan(split_rows, per_rank, *best[1:])
+    """The rebuild of one sampler (NR table rows, m partners) on a cluster
+    of `cl` CTAs of `threads` threads. The chunks, which set the order
+    of every sum, come from the shape alone (chunks()); the rest only
+    deals the work. Column blocks hold up to NTW column tiles, evened out;
+    a pass takes as many blocks as there are warps, and rows in items of
+    16 for the warps left, in row tiles of equal size -- at least as many
+    units as CTAs where the rows allow, a multiple of cl where there is
+    one chunk. Partners go in tiles of a multiple of 8 (the residual's
+    products take 8 at a time): the whole chunk where it fits TILE_BYTES,
+    else the most that fit (at least 32, or the chunk), rows or column
+    blocks a pass given up first."""
+    _, nt = column_tiles(k)
+    ncb = -(-nt // NTW)
+    warps = threads // 32
+    cj, nchunk = chunks(NR, m)
+    cb_wave = min(ncb, warps)
+    subs = -(-NR // 16)
+    n_rt = -(-subs // max(1, warps // cb_wave))
+    if n_rt * nchunk < cl:
+        n_rt = min(subs, -(-cl // nchunk))
+    elif nchunk == 1:
+        n_rt = min(subs, cl * -(-n_rt // cl))
+    nsub = -(-subs // n_rt)
+    while True:
+        tile_j = 8 * -(-cj // 8)
+        while tile_j > 8 and rebuild_bytes(
+                SidePlan(cj, nchunk, 16 * nsub, tile_j, cb_wave, ncb),
+                k) > TILE_BYTES:
+            tile_j -= 8
+        plan = SidePlan(cj, nchunk, 16 * nsub, tile_j, cb_wave, ncb)
+        fits = rebuild_bytes(plan, k) <= TILE_BYTES
+        if fits and (tile_j >= min(8 * -(-cj // 8), 32)
+                     or (nsub == 1 and cb_wave == 1)):
+            return plan
+        if nsub > 1:
+            nsub -= 1
+        elif cb_wave > 1:
+            cb_wave -= 1
+        else:
+            raise ValueError(f"k={k}: a partner tile does not fit "
+                             f"{TILE_BYTES} bytes")
 
 
-def smem_bytes(plans, k: int) -> int:
-    """Dynamic shared memory of a CTA (csrc/span.cu::carve): the pair
-    table, col_nz flags and column norms, then the larger side's tiles:
-    partners (tile_j, npad + 2), R and W (tile_rows, tile_j + 1), factor
-    rows (tile_rows, k) and sums (tile_rows, npad), in doubles."""
-    npad = 4 * sum(column_groups(k))
-    fixed = (4 * (k * (k + 1) // 2 + 2 * k) + 15) // 16 * 16
-    return fixed + max(8 * (p.tile_j * (npad + 2)
-                            + p.tile_rows * (2 * (p.tile_j + 1) + k + npad))
-                       for p in plans)
+def fixed_bytes(k: int) -> int:
+    """The fixed part of a CTA's dynamic shared memory (csrc/span.cu::
+    carve): the pair table, col_nz flags and column norms."""
+    return (4 * (k * (k + 1) // 2 + 2 * k) + 15) // 16 * 16
+
+
+def sweep_plan(NR: int, k: int, C: int) -> SmemPlan:
+    """Where the sweep stage keeps one sampler's chain state on the
+    cluster's rank-0 CTA: sweep_cuda.pack's groups in order, as
+    smem_plan places them for K1, in the shared memory past the fixed
+    part that the rebuild's tiles take in turn (the same budget beside
+    the static part, SweepShared)."""
+    return pack(NR, k, C, budget=SMEM_BLOCK - STATIC_SMEM - fixed_bytes(k))
+
+
+def smem_bytes(plans, k: int, places=()) -> int:
+    """Dynamic shared memory of a CTA (csrc/span.cu::carve): the fixed
+    part, then the largest of the sides' rebuild tiles and sweep
+    placements, which take the region in turn."""
+    return fixed_bytes(k) + max([rebuild_bytes(p, k) for p in plans]
+                                + [pl.nbytes for pl in places])
+
+
+def part_stride(G: int, S: int, k: int, plan_a: SidePlan,
+                plan_p: SidePlan) -> int:
+    """Doubles of a chain's chunk partials (csrc/span.cu::Rebuild.part):
+    the larger side's (nchunk, NR, 8 nt), where it has more than one
+    chunk."""
+    ncols = 8 * column_tiles(k)[1]
+    return max([1] + [p.nchunk * NR * ncols for p, NR in
+                      ((plan_a, G), (plan_p, S)) if p.nchunk > 1])
 
 
 def cluster_size(nch: int, sm_count: int,
@@ -185,21 +258,37 @@ class LaunchShape(NamedTuple):
     plan_a: SidePlan
     plan_p: SidePlan
     smem: int
+    place_a: Optional[SmemPlan] = None  # the sweeps' (span_kernel only)
+    place_p: Optional[SmemPlan] = None
 
     def plan_ints(self) -> list:
-        return [int(x) for x in (*self.plan_a, *self.plan_p)]
+        """Each side's SidePlan, then its sweep's byte offsets (-1:
+        global), as csrc/span.cu reads them."""
+        out = []
+        for plan, place in ((self.plan_a, self.place_a),
+                            (self.plan_p, self.place_p)):
+            out += [int(x) for x in plan]
+            out += [-1 if place is None or off is None else int(off)
+                    for off in (place.slots if place is not None
+                                else (None,) * len(PLACED))]
+        return out
 
 
 def launch_shape(kernel: int, device, nch: int, G: int, S: int, k: int,
-                 threads: int) -> LaunchShape:
-    """The cluster size, both sides' plans and the shared memory of a
-    launch of span_kernel (kernel 0) or rebuild_kernel (1) on `device`."""
+                 threads: int, caps=None) -> LaunchShape:
+    """The cluster size, both sides' plans, the sweeps' placements (of
+    span_kernel: `caps`, the samplers' atom capacities) and the shared
+    memory of a launch of span_kernel (kernel 0) or rebuild_kernel (1) on
+    `device`."""
     lib, _ = build()
+    places = (() if caps is None else
+              (sweep_plan(G, k, caps[0]), sweep_plan(S, k, caps[1])))
 
     def shape(cl):
         plans = (rebuild_plan(G, S, k, threads, cl),
                  rebuild_plan(S, G, k, threads, cl))
-        return LaunchShape(cl, *plans, smem_bytes(plans, k))
+        return LaunchShape(cl, *plans, smem_bytes(plans, k, places),
+                           *places)
 
     def max_active(cl):
         n = ctypes.c_int(0)
@@ -217,8 +306,9 @@ def launch_shape(kernel: int, device, nch: int, G: int, S: int, k: int,
 
 
 def _partials(nch: int, shape: LaunchShape, G: int, S: int, k: int, dev):
-    """The partner-split sides' float64 partials (csrc/span.cu::Rebuild)."""
-    return torch.empty((nch, shape.cl, min(G, S), 4 * sum(column_groups(k))),
+    """The chunk partials (csrc/span.cu::Rebuild.part), (nch, stride)."""
+    return torch.empty((nch, part_stride(G, S, k, shape.plan_a,
+                                         shape.plan_p)),
                        dtype=torch.float64, device=dev)
 
 
@@ -227,15 +317,19 @@ def build() -> tuple:
     (ctypes library, compiler report)."""
     lib, report = cuda_build.load("span")
     ptr, i = ctypes.c_void_p, ctypes.c_int
+    ll = ctypes.c_longlong
     fn = lib.cogaps_span_launch
-    fn.argtypes = [i] * 16 + [ptr] + [ctypes.c_float] * 4 + [ptr] * 43
+    fn.argtypes = ([i] * 16 + [ptr] + [ctypes.c_float] * 4 + [ptr] * 27
+                   + [ll] + [ptr] * 16)
     fn.restype = i
     fn = lib.cogaps_span_rebuild
-    fn.argtypes = [i] * 7 + [ptr] * 17
+    fn.argtypes = [i] * 7 + [ptr] * 8 + [ll] + [ptr] * 9
     fn.restype = i
     fn = lib.cogaps_span_max_clusters
     fn.argtypes = [i] * 4 + [ptr]
     fn.restype = i
+    lib.cogaps_span_static_smem.argtypes = [i]
+    lib.cogaps_span_static_smem.restype = i
     return lib, report
 
 
@@ -310,9 +404,11 @@ def _run_kernel(cfg, consts_a, consts_p, phase, data, it0, n_it, state,
         (NCH, S, K), (NCH, S, K), (NCH, S * K, K))]  # Y, SQ, Z of P
     colnz = torch.empty((2, NCH, K), dtype=i32, device=dev)
     threads = block_threads(consts_a.batch, consts_p.batch, K)
-    shape = launch_shape(0, dev, NCH, G, S, K, threads)
+    shape = launch_shape(0, dev, NCH, G, S, K, threads,
+                         caps=(consts_a.capacity, consts_p.capacity))
     part = _partials(NCH, shape, G, S, K, dev)
-    plan = (ctypes.c_int * 10)(*shape.plan_ints())
+    ints = shape.plan_ints()
+    plan = (ctypes.c_int * len(ints))(*ints)
     lib, _ = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = [x.data_ptr() for x in (
@@ -337,7 +433,7 @@ def _run_kernel(cfg, consts_a, consts_p, phase, data, it0, n_it, state,
                 st_p.elem.data_ptr(), st_p.n.data_ptr(), st_a.M.data_ptr(),
                 st_p.M.data_ptr(), *(x.data_ptr() for x in sums),
                 *(x.data_ptr() for x in counts), part.data_ptr(),
-                *(x.data_ptr() for x in scratch), colnz[0].data_ptr(),
+                part.shape[1], *(x.data_ptr() for x in scratch), colnz[0].data_ptr(),
                 colnz[1].data_ptr(), budget[0].data_ptr(),
                 budget[1].data_ptr(), st_a.out.data_ptr(),
                 st_p.out.data_ptr(), st_a.scratch.data_ptr(),
@@ -381,13 +477,15 @@ def rebuild_tables(data: engine.DeviceData, M_a: torch.Tensor,
     shape = launch_shape(1, dev, NCH, G, S, K, threads)
     part = _partials(NCH, shape, G, S, K, dev)
     lib, _ = build()
+    ints = shape.plan_ints()
     with torch.cuda.device(dev):
         err = lib.cogaps_span_rebuild(
             NCH, G, S, K, threads, shape.cl, shape.smem,
-            (ctypes.c_int * 10)(*shape.plan_ints()), data.D.data_ptr(),
+            (ctypes.c_int * len(ints))(*ints), data.D.data_ptr(),
             data.invS2.data_ptr(), data.D_t.data_ptr(),
             data.invS2_t.data_ptr(), M_a.data_ptr(), M_p.data_ptr(),
-            part.data_ptr(), *(x.data_ptr() for x in out[:3]),
+            part.data_ptr(), part.shape[1],
+            *(x.data_ptr() for x in out[:3]),
             colnz[0].data_ptr(), *(x.data_ptr() for x in out[3:]),
             colnz[1].data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -402,9 +500,10 @@ rebuild_tables.launches = 0
 def rebuild_tables_split(data: engine.DeviceData, M_a: torch.Tensor,
                          M_p: torch.Tensor, cl: int,
                          threads: int = MAX_BATCH) -> SpanTables:
-    """The plain model of the kernel's split (rebuild_plan) over a cluster
-    of `cl` CTAs: each rank's float64 sums over its rows or partners; a
-    partner split's partials added in rank order, then rounded once."""
+    """The plain model of the kernel's order of sums (rebuild_plan) on a
+    cluster of `cl` CTAs: each chunk's float64 sums over its partners,
+    the chunks added in chunk order, then rounded once. The chunks come
+    from the shape alone, so `cl` and `threads` change nothing here."""
     K = M_a.shape[-1]
     threads = block_threads(threads, 1, K)
 
@@ -413,24 +512,15 @@ def rebuild_tables_split(data: engine.DeviceData, M_a: torch.Tensor,
         plan = rebuild_plan(NR, m, K, threads, cl)
         X, W, M, O = (x.double() for x in (X, W, M, O))
         OO = (O.unsqueeze(-1) * O.unsqueeze(-2)).flatten(-2)
-        n = NR if plan.split_rows else m
-        sums = []
-        for q in range(cl):
-            s = slice(q * plan.per_rank, min(n, (q + 1) * plan.per_rank))
-            if plan.split_rows:
-                x, w, mm, o, oo = (X[..., s, :], W[..., s, :], M[..., s, :],
-                                   O, OO)
-            else:
-                x, w, mm, o, oo = (X[..., s], W[..., s], M, O[..., s, :],
-                                   OO[..., s, :])
-            r = (x - mm @ o.transpose(-1, -2)) * w
-            sums.append((r @ o, w @ (o * o), w @ oo))
-        if plan.split_rows:
-            Y, SQ, Z = (torch.cat(t, dim=-2) for t in zip(*sums))
-        else:
-            Y, SQ, Z = sums[0]
-            for y, sq, z in sums[1:]:
-                Y, SQ, Z = Y + y, SQ + sq, Z + z
+        R = (X - M @ O.transpose(-1, -2)) * W
+        sums = None
+        for q in range(plan.nchunk):
+            s = slice(q * plan.cj, min(m, (q + 1) * plan.cj))
+            part = (R[..., s] @ O[..., s, :], W[..., s] @ (O * O)[..., s, :],
+                    W[..., s] @ OO[..., s, :])
+            sums = part if sums is None else tuple(
+                a + b for a, b in zip(sums, part))
+        Y, SQ, Z = sums
         return (Y.float(), SQ.float(),
                 Z.float().reshape(*Z.shape[:-2], -1, K), O.amax(dim=-2) > 0.0)
 

@@ -33,17 +33,50 @@ from . import multihost
 
 # the fused span's domain: the JAX package's semantic condition
 MAX_SPAN_SAMPLES = 128
-# and its size, in span_cuda.rebuild_ops a chain an iteration: the span's
-# iteration grows with its float64 table rebuilds (a thread-block cluster
-# a chain), the per-call route's with its float32 matmuls from a host
-# floor. profile_iter, two runs on NVIDIA H100 80GB HBM3 cards at 700.00
-# W, 16 chains, wall ms an iteration fused : per-call: 2000x32 k=7 (17.3
-# M) 0.6304 : 1.1816 and 0.6641 : 3.0654; 4000x64 k=7 (69.1 M) 0.9390 :
-# 1.2002 and 0.9570 : 1.6913; 6000x100 k=10 (284 M) 1.9506 : 3.1173;
-# 10000x100 k=10 (474 M) 2.9241 : 2.8071 and 3.0245 : 3.3227; 20000x100
-# k=10 (948 M) 5.5095 : 4.8534 and 5.5512 : 4.8791. The span wins up to
-# 284 M, the two trade places near 474 M, per-call wins beyond.
-MAX_SPAN_REBUILD_OPS = 300_000_000
+# and its size: the float64 rebuild operations a chain an iteration
+# (span_cuda.rebuild_ops) up to which the span's iteration beats the
+# per-call route's, by chain count (the first entry whose count is at
+# least the program's chains; the last beyond). The span's iteration
+# grows with its rebuilds, split over the CTAs of a chain's cluster -- 16
+# up to 7 chains on an H100, 4 at 16 -- and its sweeps, one SM a chain;
+# the per-call route's from a host floor, so its wall moves by up to
+# 0.8 ms between runs. profile_iter --gate, both routes in one call on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, wall ms an iteration per-call :
+# fused, 16 chains: GIST k=10 (5.8 M) 1.3977 : 0.5657, k=20 (18.9 M)
+# 1.4983 : 1.0083; 2000x32 k=10 (30.3 M) 1.9196 : 0.7829; 5005x100 k=10
+# (237 M) 1.5641 : 1.6220 (two earlier calls 1.9858 : 1.8098 and 1.8514
+# : 1.7567); 6000x100 k=10 (284 M) 1.8258 : 1.9176, k=20 (926 M) 2.1929
+# : 6.2081; 10000x100 k=10 (474 M) 1.7584 : 2.9157; 20000x100 (948 M)
+# 1.8942 : 5.3702. 4 chains: GIST k=10 1.8684 : 0.4916; 2000x32 2.0429 :
+# 0.6604; 5005x100 1.4443 : 0.9498; 6000x100 2.1152 : 1.0916, k=20
+# 1.9545 : 3.2196; 10000x100 2.9392 : 1.4944; 20000x100 1.8314 : 2.5762.
+# At 16 chains the two routes trade places within the per-call wall's
+# spread from 237 M; the limit sits below, where the per-call route also
+# keeps the card idle more (0.67 device ms an iteration against 1.51 at
+# 5005x100). The operations order the k = 20 rows as the k = 10 ones, so
+# k needs no term of its own.
+MAX_SPAN_REBUILD_OPS = ((4, 500_000_000), (16, 200_000_000))
+
+
+def max_span_rebuild_ops(n_chains: int) -> int:
+    """The fused route's limit on span_cuda.rebuild_ops for a launch of
+    n_chains chains (MAX_SPAN_REBUILD_OPS)."""
+    for count, limit in MAX_SPAN_REBUILD_OPS:
+        if n_chains <= count:
+            return limit
+    return MAX_SPAN_REBUILD_OPS[-1][1]
+
+
+def span_size_ok(G: int, S: int, k: int, n_chains: int, B_a: int,
+                 B_p: int) -> bool:
+    """The size half of the fused route's gate: n_chains chains of G x S
+    data at k patterns and batches B_a, B_p are cheaper in spans
+    (max_span_rebuild_ops) and K3 can launch them (span_cuda.span_fits:
+    above k = 88 its column groups outgrow a block)."""
+    return (span_cuda.rebuild_ops(G, S, k) <= max_span_rebuild_ops(n_chains)
+            and span_cuda.span_fits(G, S, k, B_a, B_p))
+
+
 # every leaf of a multichain state is sharded along its chain dimension
 CHAIN_SPEC = (ChainState(atoms_a=AtomTable(0, 0, 0),
                          atoms_p=AtomTable(0, 0, 0), M_a=0, M_p=0),
@@ -103,21 +136,20 @@ class MultichainEngine(ChainEngine):
         """Whether run_phase takes the fused span: the semantic conditions
         of cogaps_tpu/parallel/multichain.MultichainEngine._fused_ok
         (both factors sampled, no histories, snapshots or PUMP counts,
-        n_samples <= 128), a table rebuild below the size where the
-        per-call route overtakes it (MAX_SPAN_REBUILD_OPS), and a shape
-        K3 can launch (span_cuda.span_fits: above k = 88 its column
-        groups outgrow a block). Its TPU conditions (backend, mesh, <= 8
-        chains for the v5e's VMEM) have no counterpart here."""
+        n_samples <= 128), and span_size_ok for the program's chains: a
+        table rebuild below the size where the per-call route overtakes
+        the span at that chain count, and a shape K3 can launch. The
+        count is the mesh's total, so that every rank takes the route
+        one process would, and a chain's bits do not follow the rank
+        count. Its TPU conditions (backend, mesh, <= 8 chains for the
+        v5e's VMEM) have no counterpart here."""
         cfg = self.config
         return (cfg.which_matrix_fixed == "N" and self.hist.n_hist == 0
                 and cfg.n_snapshots == 0 and not cfg.take_pump_samples
                 and self.n_samples <= MAX_SPAN_SAMPLES
-                and span_cuda.rebuild_ops(self.n_genes, self.n_samples,
-                                          cfg.n_patterns)
-                <= MAX_SPAN_REBUILD_OPS
-                and span_cuda.span_fits(self.n_genes, self.n_samples,
-                                        cfg.n_patterns, self.consts_a.batch,
-                                        self.consts_p.batch))
+                and span_size_ok(self.n_genes, self.n_samples,
+                                 cfg.n_patterns, self.n_chains_total,
+                                 self.consts_a.batch, self.consts_p.batch))
 
     def run_phase(self, state: ChainState, stats: RunStats, rand,
                   phase: int, start_iter: int = 0,

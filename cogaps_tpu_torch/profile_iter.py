@@ -1,6 +1,8 @@
 """Where an iteration of the dense engine spends its time on a CUDA card.
 
-Run from the root of a checkout: ``python -m cogaps_tpu_torch.profile_iter``.
+Run from the root of a checkout: ``python -m cogaps_tpu_torch.profile_iter
+[--gate]``; --gate runs both routes at GATE_CONFIGS instead, the shapes
+that set the fused route's gate (parallel/multichain.py).
 
 For each configuration and route -- per-call (an iteration is ~80
 separate device operations, ChainEngine.run_phase), per-call with the
@@ -149,11 +151,47 @@ def profile_config(name: str, Ds, k: int, n_iterations: int, window: int,
     }
 
 
+# the fused route's gate (parallel/multichain.py), measured by both routes:
+# (name, (genes, samples, seed) or None for GIST, k, chains, iterations,
+# timed window)
+GATE_CONFIGS = tuple(
+    (f"{'GIST' if spec is None else f'{spec[0]}x{spec[1]}'} k={k}, "
+     f"{nch} chains", spec, k, nch, n_it, window)
+    for spec, n_it, window, ks in (
+        (None, 400, 50, (10, 20)), ((2000, 32, 43), 100, 30, (10,)),
+        ((5005, 100, 51), 40, 10, (10,)), ((6000, 100, 47), 40, 10, (10, 20)),
+        ((10000, 100, 46), 40, 10, (10,)), ((20000, 100, 45), 40, 10, (10,)))
+    for k in ks for nch in (16, 4)
+    if k == 10 or nch == 16 or spec is not None)
+
+
+def gate_rows(device, gist) -> list:
+    """Both routes' rows (per-call, fused) of GATE_CONFIGS."""
+    rows = []
+    for name, spec, k, nch, n_it, window in GATE_CONFIGS:
+        Ds = ([gist] * nch if spec is None
+              else synthetic_dense(spec[0], spec[1], k, nch, spec[2]))
+        for route in ("per-call", "fused"):
+            rows.append(profile_config(name, Ds, k, n_it, window, device,
+                                       route))
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--gate", action="store_true",
+                    help="both routes at GATE_CONFIGS, the fused gate's "
+                         "shapes, instead")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: torch.cuda.is_available() is false")
     device = torch.device("cuda")
     gist, _, _ = parsers.read_matrix(GIST_CSV)
+    if args.gate:
+        gate_rows(device, gist)
+        return
     configs = [  # the fused span applies to few samples, not 2000
         ("GIST k=7, 1 chain", [gist], 7, 2000, 100, ROUTES),
         ("GIST k=7, 16 chains", [gist] * 16, 7, 2000, 100, ROUTES),

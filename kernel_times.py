@@ -2,7 +2,8 @@
 checkouts of the package in one run.
 
     python3 kernel_times.py [--root DIR] [--placements | --profile |
-                             --golden N | --quads | --tables | --chisq]
+                             --golden N | --quads | --tables | --chisq |
+                             --span]
                             [--out FILE]
 
 times the cogaps_tpu_torch package found in DIR (default: the checkout
@@ -87,6 +88,11 @@ with the number of chains whose chi^2 differs in bits from the same
 chain's alone; and whole per-call runs (ChainEngine.run_phase, 250
 equilibration iterations) at 16 x 20000 x 100 and GIST x16 with a chi^2
 every 5 and every 250 iterations and with none.
+
+With --span it splits K3 instead (span_split), at GIST x16, 4 x 5005 x
+100 k=10 (phase 11's subsets) and 16 x 20000 x 100 k=10: span_kernel's
+device ms an iteration with and without sweeps (every budget 0),
+rebuild_kernel alone, the launch shapes and the bounds.
 
 To compare a change with its parent on one card, unpack the parent
 (`git archive`) into a git-ignored directory and run this script on
@@ -201,6 +207,101 @@ def span_time(cs, device, n_chains=16, seed=21, reps=5):
             eng.data, 0, span_cuda.CHUNK, state, stats, warm)
     return cs.device_ms(lambda: span_cuda.run_span(*args), "span_kernel",
                         reps) / span_cuda.CHUNK
+
+
+# (name, (genes, samples, chains, seed) or None for GIST, k, chains,
+# n_iterations, per-call warm-up iterations): K3 at GIST x16 (phase 5),
+# at phase 11's subset shape and at the wide rebuild's shape
+SPAN_CASES = (
+    ("GIST x16", None, 7, 16, 2000, 50),
+    ("4 x 5005x100 k=10", (5005, 100, 51), 10, 4, 200, 50),
+    ("16 x 20000x100 k=10", (20000, 100, 45), 10, 16, 40, 20))
+
+
+def span_split(cs, device, reps=3):
+    """K3 split into its parts, a case of SPAN_CASES at a time, from the
+    state after the warm-up's per-call equilibration iterations:
+    span_kernel's device ms an iteration of a CHUNK-iteration sampling
+    span, the same span with every budget 0 (rebuilds, statistics and
+    counters: no sweep), their difference (the sweeps), rebuild_kernel
+    alone on the same state (both samplers' tables once), the updates
+    an iteration, the launch shapes (cluster size, threads, shared
+    memory, SMs) and the bounds (chip_smoke.span_bound_ms,
+    rebuild_bound_ms)."""
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, SAMPLING, ChainEngine,
+                                         PhiloxRandom)
+    from cogaps_tpu_torch.io import parsers
+    from cogaps_tpu_torch.ops import span_cuda
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    gist = parsers.read_matrix(cs.GIST_CSV)[0]
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {}
+    for name, spec, k, nch, n_iterations, n_warm in SPAN_CASES:
+        Ds = ([gist] * nch if spec is None else
+              synthetic_dense(spec[0], spec[1], k, nch, spec[2]))
+        G, S = Ds[0].shape
+        cfg = cogaps_tpu_torch.CogapsParams(
+            n_patterns=k, n_iterations=n_iterations, seed=21,
+            output_frequency=0).engine_config(G, S)
+        eng = MultichainEngine(stack_device_data(Ds, None, cfg, device), cfg,
+                               device)
+        seeds = list(range(21, 21 + nch))
+
+        class NoSweeps(PhiloxRandom):
+            def budget_normals(self, phase, start, n):
+                return torch.full((nch, n, 2), -1e30, device=device)
+
+        state, stats = ChainEngine.run_phase(
+            eng, eng.init_state(), eng.init_stats(),
+            PhiloxRandom(seeds, device), EQUILIBRATION, 0, n_warm)
+        args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, SAMPLING,
+                eng.data, 0, span_cuda.CHUNK, state, stats)
+        warm = PhiloxRandom(seeds, device)
+        after = span_cuda.run_span(*args, warm)
+        per_it = 1.0 / span_cuda.CHUNK
+        span_ms = cs.device_ms(lambda: span_cuda.run_span(*args, warm),
+                               "span_kernel", reps) * per_it
+        bare = NoSweeps(seeds, device)
+        bare_ms = cs.device_ms(lambda: span_cuda.run_span(*args, bare),
+                               "span_kernel", reps) * per_it
+        rebuild_ms = cs.device_ms(lambda: span_cuda.rebuild_tables(
+            eng.data, state.M_a, state.M_p), "rebuild_kernel", reps)
+        threads = span_cuda.block_threads(eng.consts_a.batch,
+                                          eng.consts_p.batch, k)
+        shapes = {}
+        caps = (eng.consts_a.capacity, eng.consts_p.capacity)
+        for kernel, t in ((0, threads),
+                          (1, span_cuda.block_threads(1024, 1, k))):
+            try:  # the sweeps' placements, where the package has them
+                sh = span_cuda.launch_shape(kernel, device, nch, G, S, k, t,
+                                            caps=caps if kernel == 0
+                                            else None)
+            except TypeError:
+                sh = span_cuda.launch_shape(kernel, device, nch, G, S, k, t)
+            shapes[("span_kernel", "rebuild_kernel")[kernel]] = {
+                "cl": sh.cl, "ctas": sh.cl * nch, "threads": t,
+                "smem": sh.smem, "plan_a": list(sh.plan_a),
+                "plan_p": list(sh.plan_p)}
+        bound, by = cs.span_bound_ms(G, S, k, nch, span_cuda.CHUNK,
+                                     (state, stats), after, True)
+        out[name] = {
+            "span_ms_per_iter": span_ms, "no_sweeps_ms_per_iter": bare_ms,
+            "sweeps_ms_per_iter": span_ms - bare_ms,
+            "rebuild_kernel_ms": rebuild_ms,
+            "updates_per_iter": float((after[1].upd - stats.upd).sum())
+            * per_it,
+            "atoms": [int(state.atoms_a.n.sum()), int(state.atoms_p.n.sum())],
+            "batches": [eng.consts_a.batch, eng.consts_p.batch],
+            "span_bound_ms_per_iter": bound * per_it, "span_bound_by": by,
+            "rebuild_bound_ms": cs.rebuild_bound_ms(G, S, k, nch),
+            "n_sm": n_sm, "shapes": shapes}
+        print(json.dumps({name: out[name]}), flush=True)
+        del eng, state, stats, after
+    return out
 
 
 def atlas_times(cs, device, reps=5):
@@ -607,6 +708,9 @@ def main() -> int:
     ap.add_argument("--chisq", action="store_true",
                     help="time chi^2 calls and runs with a chi^2 history "
                          "instead")
+    ap.add_argument("--span", action="store_true",
+                    help="split K3 into rebuilds and sweeps at SPAN_CASES "
+                         "instead")
     args = ap.parse_args()
     import chip_smoke as cs  # this checkout's, before DIR goes on the path
     root = os.path.abspath(args.root)
@@ -624,7 +728,7 @@ def main() -> int:
     device = torch.device("cuda")
     t0 = time.perf_counter()
     if (args.profile or args.golden or args.quads or args.chisq
-            or args.tables):
+            or args.tables or args.span):
         record = {"root": root, "card": cs.nvidia_smi()}
         if args.profile:
             record["profile"] = profile_times(device)
@@ -636,6 +740,8 @@ def main() -> int:
         elif args.tables:
             record["tables"] = tables_times(cs, device, args.plan,
                                             args.cases)
+        elif args.span:
+            record["span"] = span_split(cs, device)
         else:
             record["chisq"] = chisq_times(cs, device)
         record["seconds"] = time.perf_counter() - t0

@@ -29,11 +29,16 @@ with budgets 0, 37 and 400; two of its fast-mode runs agree bit for bit,
 and a launch the card refuses raises. The fused-span kernel
 (K3, csrc/span.cu) is held to its plain version (ops/span.py) over whole
 iterations in both phases, at the cluster size its rule picks and at each
-of 8, 4, 2 and 1 CTAs a chain: equal atom tables and counters, mass, M and
-the running sums within 1e-5; its rebuild alone to the plain tables, bit
-for bit, at GIST x16, 2000 x 128 k=10, k = 1 and 12, and at 1 to 200
-chains; two runs give the same bits, and a cluster launch the card
-refuses raises; a fused run broken off mid-chunk and resumed from a
+of 16, 8, 4, 2 and 1 CTAs a chain, and at phase 11's 4 x 5005 x 100 k=10:
+equal atom tables and counters, mass, M and the running sums within
+1e-5; its rebuild alone to the plain tables, bit for bit, at GIST x16,
+2000 x 128 k=10, k = 1 and 12, and at 1 to 200 chains, and to numpy's
+float64 tables rounded once at 4 x 5005 x 100 and 16 x 20000 x 100; a
+chain's fused run gives the same bits at clusters of 16 alone and
+beside eleven others at a smaller size; its static shared memory is
+what the plans leave for it; two runs give the same bits, and a cluster
+launch the card refuses raises; a fused run broken off mid-chunk and
+resumed from a
 checkpoint gives the bits of the run without a break. Chains of one seed
 draw alike in fast mode, and as a one-chain launch of that seed does
 (the distributed runs' subset chains). The command line without
@@ -701,7 +706,7 @@ def assert_span_same(out_k, out_p):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("cl", [None, 8, 4, 2, 1])
+@pytest.mark.parametrize("cl", [None, 16, 8, 4, 2, 1])
 @pytest.mark.parametrize("phase", [0, 1])
 def test_span_kernel_matches_plain(cuda_device, monkeypatch, phase, cl):
     """Seven iterations in chunks of three: three launches; at the cluster
@@ -774,25 +779,25 @@ def test_span_rebuild_shapes(cuda_device, G, S, k, nch):
 
 @pytest.mark.parametrize("nch", [1, 16, 32, 64, 200])
 def test_span_rebuild_cluster_sizes(cuda_device, nch):
-    """Chain counts that take clusters of 8 down to 1 (span_cuda.
+    """Chain counts that take clusters of 16 down to 1 (span_cuda.
     cluster_size on the card): the tables stay bit-equal."""
     shape = span_cuda.launch_shape(1, cuda_device, nch, 1363, 9, 7, 1024)
-    assert shape.cl in (1, 2, 4, 8)
+    assert shape.cl in span_cuda.CLUSTER_SIZES
     if nch == 1:
-        assert shape.cl == 8
+        assert shape.cl == 16
     if nch == 200:
         assert shape.cl == 1
     assert_rebuild_equal(*rebuild_case(cuda_device, 1363, 9, 7, nch))
 
 
-@pytest.mark.parametrize("cl", [8, 4, 2, 1])
+@pytest.mark.parametrize("cl", [16, 8, 4, 2, 1])
 def test_span_rebuild_each_forced_cluster_size(cuda_device, monkeypatch, cl):
     monkeypatch.setattr(span_cuda, "cluster_size", lambda *a: cl)
     assert_rebuild_equal(*rebuild_case(cuda_device, 2000, 128, 10, 2))
     assert_rebuild_equal(*rebuild_case(cuda_device, 1363, 9, 7, 3))
 
 
-@pytest.mark.parametrize("cl", [8, 4, 2, 1])
+@pytest.mark.parametrize("cl", [16, 8, 4, 2, 1])
 def test_span_rebuild_gwcogaps_subsets_any_cluster_size(cuda_device,
                                                         monkeypatch, cl):
     """GWCoGAPS's free stage at 20000 x 100, k=10: four 5005-gene subset
@@ -802,6 +807,122 @@ def test_span_rebuild_gwcogaps_subsets_any_cluster_size(cuda_device,
     chain's bits do not follow how many chains share its launch."""
     monkeypatch.setattr(span_cuda, "cluster_size", lambda *a: cl)
     assert_rebuild_equal(*rebuild_case(cuda_device, 5005, 100, 10, 4))
+
+
+@pytest.mark.parametrize("phase", [0, 1])
+def test_span_kernel_matches_plain_at_the_subset_shape(cuda_device, phase):
+    """Phase 11's launch shape, four 5005 x 100 chains at k=10 (GWCoGAPS's
+    free stage; clusters of 16 where the card holds four): a 3-iteration
+    span in each phase equals ops/span.py decision for decision."""
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.engine import (EQUILIBRATION, ChainEngine,
+                                         PhiloxRandom)
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    from cogaps_tpu_torch.params import CogapsParams
+    cfg = CogapsParams(n_patterns=10, n_iterations=200,
+                       output_frequency=0).engine_config(5005, 100)
+    eng = MultichainEngine(stack_device_data(
+        synthetic_dense(5005, 100, 10, 4, 51), None, cfg, cuda_device), cfg,
+        cuda_device)
+    assert eng._fused_ok() or span_cuda.span_fits(
+        5005, 100, 10, eng.consts_a.batch, eng.consts_p.batch)
+    seeds = [51, 52, 53, 54]
+    st, ss = ChainEngine.run_phase(eng, eng.init_state(), eng.init_stats(),
+                                   PhiloxRandom(seeds, cuda_device),
+                                   EQUILIBRATION, 0, 20)
+    args = (eng.config, eng.consts_a, eng.consts_p, eng.hist, phase,
+            eng.data, 20 if phase == 0 else 0, 3, st, ss)
+    out_k = span_cuda.run_span(*args, PhiloxRandom(seeds, cuda_device))
+    out_p = span.run_span_plain(*args, PhiloxRandom(seeds, cuda_device))
+    torch.cuda.synchronize()
+    assert_span_same(out_k, out_p)
+    assert (out_k[1].upd > ss.upd).all()
+
+
+def numpy_tables(D, inv, M_a, M_p):
+    """Both samplers' tables of one chain in numpy float64, each entry
+    rounded once to float32 (ops/span.SpanTables' fields)."""
+    def side(X, W, M, O):
+        R = (X - M @ O.T) * W
+        Z = W @ (O[:, :, None] * O[:, None, :]).reshape(len(O), -1)
+        return (R @ O, W @ (O * O), Z.reshape(-1, O.shape[1]),
+                O.max(axis=0) > 0)
+
+    D, inv, M_a, M_p = (x.astype(np.float64) for x in (D, inv, M_a, M_p))
+    out = side(D, inv, M_a, M_p) + side(D.T, inv.T, M_p, M_a)
+    return [x if x.dtype == bool else x.astype(np.float32) for x in out]
+
+
+@pytest.mark.parametrize("G,S,k,nch", [(5005, 100, 10, 4),
+                                       (20000, 100, 10, 16)],
+                         ids=["subsets-x4", "wide-x16"])
+def test_span_rebuild_equals_numpy_rounded_once(cuda_device, G, S, k, nch):
+    """The rebuild alone (its products on the FP64 tensor cores) gives
+    numpy's float64 tables rounded once to float32, bit for bit, chain by
+    chain, at phase 11's subset shape and at 16 x 20000 x 100."""
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.engine import _device_data
+    rs = np.random.default_rng(6)
+    D = np.stack(synthetic_dense(G, S, k, nch, 45))
+    inv = (1.0 / np.maximum(0.1 * D, 0.1) ** 2).astype(np.float32)
+    M_a = rs.gamma(2.0, 1.0, (nch, G, k)).astype(np.float32)
+    M_p = rs.gamma(2.0, 1.0, (nch, S, k)).astype(np.float32)
+    one = np.ones(nch, np.float32)
+    got = [x.cpu().numpy() for x in span_cuda.rebuild_tables(
+        _device_data(D, inv, one, one, one, one, cuda_device),
+        torch.as_tensor(M_a, device=cuda_device),
+        torch.as_tensor(M_p, device=cuda_device))]
+    for c in range(nch):
+        want = numpy_tables(D[c], inv[c], M_a[c], M_p[c])
+        for name, x, y in zip(span.SpanTables._fields, got, want):
+            assert np.array_equal(x[c], y), (name, c,
+                                             int((x[c] != y).sum()))
+
+
+def test_span_chain_bits_across_cluster_sizes(cuda_device):
+    """Twelve chains take clusters of 8 (twelve of 16 outgrow the card's
+    132 SMs) and one chain alone takes 16: each chain's fused phases give
+    the same bits either way, since every table sum runs in an order of
+    the shape alone."""
+    from cogaps_tpu_torch.bench_harness import synthetic_dense
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.parallel.multichain import (MultichainEngine,
+                                                      stack_device_data)
+    from cogaps_tpu_torch.params import CogapsParams
+    Ds = synthetic_dense(600, 100, 5, 12, 3)
+    cfg = CogapsParams(n_patterns=5, n_iterations=20,
+                       output_frequency=0).engine_config(600, 100)
+    threads = span_cuda.block_threads(cfg.batch_a, cfg.batch_p, 5)
+    caps = (cfg.capacity_a, cfg.capacity_p)
+    cls = [span_cuda.launch_shape(0, cuda_device, n, 600, 100, 5, threads,
+                                  caps=caps).cl for n in (1, 12)]
+    assert cls[0] == 16 and cls[1] < 16, cls
+    runs = []
+    for group in (Ds, Ds[7:8]):
+        eng = MultichainEngine(stack_device_data(group, None, cfg,
+                                                 cuda_device), cfg,
+                               cuda_device)
+        assert eng._fused_ok()
+        st, ss = eng.init_state(), eng.init_stats()
+        rand = PhiloxRandom([9] * len(group), cuda_device)
+        for phase in (EQUILIBRATION, SAMPLING):
+            st, ss = eng.run_phase(st, ss, rand, phase)
+        runs.append((st, ss))
+    (st, ss), (st1, ss1) = runs
+    for x, y in ((st.M_a[7], st1.M_a[0]), (st.M_p[7], st1.M_p[0]),
+                 (st.atoms_a.elem[7], st1.atoms_a.elem[0]),
+                 (ss.a_sum[7], ss1.a_sum[0]), (ss.upd[7], ss1.upd[0])):
+        assert torch.equal(x, y)
+
+
+def test_span_static_smem_within_the_plan(cuda_device):
+    """span_kernel's static shared memory (the sweep stage's SweepShared)
+    is what span_cuda's plans leave for it (sweep_cuda.STATIC_SMEM)."""
+    lib, _ = span_cuda.build()
+    for kernel in (0, 1):
+        used = lib.cogaps_span_static_smem(kernel)
+        assert 0 <= used <= sweep_cuda.STATIC_SMEM, (kernel, used)
 
 
 def test_span_kernel_is_deterministic(cuda_device):
@@ -825,11 +946,11 @@ def test_span_kernel_is_deterministic(cuda_device):
 
 
 def test_span_refused_cluster_launch_raises(cuda_device, monkeypatch):
-    """Clusters of 16 CTAs (beyond the portable 8, not enabled): the card
+    """Clusters of 32 CTAs (beyond the card's largest, 16): the card
     refuses the launch, the wrappers raise, and nothing falls back."""
     from cogaps_tpu_torch.engine import PhiloxRandom
     eng, st, ss, seeds = span_case(cuda_device, n_warm=2)
-    monkeypatch.setattr(span_cuda, "cluster_size", lambda *a: 16)
+    monkeypatch.setattr(span_cuda, "cluster_size", lambda *a: 32)
     before = (span_cuda.run_span.launches, span_cuda.rebuild_tables.launches)
     with pytest.raises(RuntimeError, match="CUDA error"):
         span_cuda.run_span(eng.config, eng.consts_a, eng.consts_p, eng.hist,

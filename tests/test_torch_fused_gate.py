@@ -8,7 +8,13 @@ to the per-call route, whose tables kernel takes any k; at 100 x 100
 with one chain, k = 88 still takes the span and k = 89 and 90 do not.
 At k = 90 the multichain engine's phases are the per-call route's bits,
 and CoGAPS() on the same data and seed ends with a finite meanChiSq and
-the same factors."""
+the same factors.
+
+The gate's size rule (multichain.span_size_ok) reads the chain count:
+each row that `python -m cogaps_tpu_torch.profile_iter --gate` measured
+on an H100 (both routes at 16 and at 4 chains, k = 10 and 20) goes to
+the route that was faster there, and a mesh's ranks take the route of
+the whole program."""
 
 import numpy as np
 import pytest
@@ -58,10 +64,10 @@ def test_span_fits_what_k3_can_launch(k, fits):
 @pytest.mark.parametrize("k,fused", [(88, True), (89, False), (90, False)])
 def test_fused_gate_follows_k3(k, fused):
     """At 100 x 100, one chain, the rebuild (247-258 M operations) is
-    under MAX_SPAN_REBUILD_OPS at each k: the launch alone decides."""
+    under the limit at each k: the launch alone decides."""
     _, _, eng = _engine(k)
     assert (span_cuda.rebuild_ops(100, 100, k)
-            <= multichain.MAX_SPAN_REBUILD_OPS)
+            <= multichain.max_span_rebuild_ops(1))
     assert eng._fused_ok() is fused
 
 
@@ -118,3 +124,53 @@ def test_k90_cogaps_runs_per_call(monkeypatch):
                                  ss.p_sumsq, ss.n_stat)))
     np.testing.assert_array_equal(np.asarray(res.Amean), amean)
     np.testing.assert_array_equal(np.asarray(res.Pmean), pmean)
+
+
+# profile_iter --gate (NVIDIA H100 80GB HBM3, 700.00 W), wall ms an
+# iteration: (genes, samples, k, chains, per-call, fused)
+GATE_ROWS = [
+    (1363, 9, 10, 16, 1.3977, 0.5657), (1363, 9, 10, 4, 1.8684, 0.4916),
+    (1363, 9, 20, 16, 1.4983, 1.0083),
+    (2000, 32, 10, 16, 1.9196, 0.7829), (2000, 32, 10, 4, 2.0429, 0.6604),
+    (5005, 100, 10, 16, 1.5641, 1.6220), (5005, 100, 10, 4, 1.4443, 0.9498),
+    (6000, 100, 10, 16, 1.8258, 1.9176), (6000, 100, 10, 4, 2.1152, 1.0916),
+    (6000, 100, 20, 16, 2.1929, 6.2081), (6000, 100, 20, 4, 1.9545, 3.2196),
+    (10000, 100, 10, 16, 1.7584, 2.9157),
+    (10000, 100, 10, 4, 2.9392, 1.4944),
+    (20000, 100, 10, 16, 1.8942, 5.3702),
+    (20000, 100, 10, 4, 1.8314, 2.5762),
+]
+
+
+@pytest.mark.parametrize("G,S,k,nch,per_call,fused", GATE_ROWS)
+def test_fused_gate_takes_the_faster_route(G, S, k, nch, per_call, fused):
+    """Each measured row goes to the route that ran it faster."""
+    cfg = CogapsParams(n_patterns=k).engine_config(G, S)
+    assert multichain.span_size_ok(G, S, k, nch, cfg.batch_a,
+                                   cfg.batch_p) is (fused < per_call)
+
+
+@pytest.mark.parametrize("nch,limit", [
+    (1, 500_000_000), (4, 500_000_000), (5, 200_000_000),
+    (16, 200_000_000), (200, 200_000_000)])
+def test_fused_gate_limit_by_chain_count(nch, limit):
+    assert multichain.max_span_rebuild_ops(nch) == limit
+
+
+@pytest.mark.parametrize("n_chains,fused", [(8, False), (4, True)])
+def test_fused_gate_reads_the_programs_chains(n_chains, fused):
+    """2500 x 100 at k=20 (386 M operations) spans at 4 chains and not at
+    8; on a mesh, each rank decides by the program's chains, not by the
+    ones it holds, so every rank count takes one route."""
+    from cogaps_tpu_torch.parallel import multihost
+    G, S, k = 2500, 100, 20
+    assert 200_000_000 < span_cuda.rebuild_ops(G, S, k) <= 500_000_000
+    cfg = CogapsParams(n_patterns=k, n_iterations=2,
+                       output_frequency=0).engine_config(G, S)
+    data = multichain.stack_device_data(
+        [np.ones((G, S), np.float32)] * n_chains, None, cfg, "cpu")
+    for size in (1, 2, 4):
+        for rank in range(size):
+            mesh = multihost.ProcessMesh("chains", None, size, rank, "none")
+            eng = multichain.MultichainEngine(data, cfg, "cpu", mesh=mesh)
+            assert eng._fused_ok() is fused, (size, rank)

@@ -107,20 +107,25 @@ def test_tables_match_jax_rebuilds(G, S, k):
 # ----------------------------------------------------------------------
 # (a') the kernel's split of the rebuild over a thread-block cluster
 # ----------------------------------------------------------------------
-H100_ACTIVE = {8: 16, 4: 33, 2: 66, 1: 132}  # clusters of 1024-thread CTAs
+# clusters of 1024-thread CTAs resident at once: 16 only where a GPC
+# holds 16 SMs
+H100_ACTIVE = {16: 7, 8: 16, 4: 33, 2: 66, 1: 132}
 
 
 @pytest.mark.parametrize("nch,active,want", [
-    (1, H100_ACTIVE, 8), (16, H100_ACTIVE, 8), (32, H100_ACTIVE, 4),
+    (1, H100_ACTIVE, 16), (4, H100_ACTIVE, 16), (7, H100_ACTIVE, 16),
+    (8, H100_ACTIVE, 8), (16, H100_ACTIVE, 8), (32, H100_ACTIVE, 4),
     (64, H100_ACTIVE, 2), (200, H100_ACTIVE, 1),
     # fewer clusters resident than chains: the next size down
-    (16, {8: 14, 4: 33, 2: 66, 1: 132}, 4),
-    (16, {8: 15, 4: 15, 2: 66, 1: 132}, 2),
-    (64, {8: 16, 4: 33, 2: 63, 1: 132}, 1),
-    (1, {8: 0, 4: 0, 2: 0, 1: 0}, 1),
+    (4, {16: 3, 8: 16, 4: 33, 2: 66, 1: 132}, 8),
+    (16, {16: 7, 8: 14, 4: 33, 2: 66, 1: 132}, 4),
+    (16, {16: 7, 8: 15, 4: 15, 2: 66, 1: 132}, 2),
+    (64, {16: 7, 8: 16, 4: 33, 2: 63, 1: 132}, 1),
+    (1, {16: 0, 8: 0, 4: 0, 2: 0, 1: 0}, 1),
     # small CTAs: many resident a cluster size, still one CTA an SM
-    (16, {8: 64, 4: 128, 2: 256, 1: 528}, 8),
-    (20, {8: 64, 4: 128, 2: 256, 1: 528}, 4),
+    (8, {16: 32, 8: 64, 4: 128, 2: 256, 1: 528}, 16),
+    (9, {16: 32, 8: 64, 4: 128, 2: 256, 1: 528}, 8),
+    (20, {16: 32, 8: 64, 4: 128, 2: 256, 1: 528}, 4),
 ])
 def test_cluster_size_rule(nch, active, want):
     asked = []
@@ -131,42 +136,46 @@ def test_cluster_size_rule(nch, active, want):
 
     cl = span_cuda.cluster_size(nch, 132, max_active)
     assert cl == want
-    assert cl in (1, 2, 4, 8) and (cl == 1 or nch * cl <= 132)
+    assert cl in span_cuda.CLUSTER_SIZES and (cl == 1 or nch * cl <= 132)
     assert all(c > cl for c in asked[:-1]) and 1 not in asked
 
 
 def covered(NR, m, k, threads, cl):
     """How often the kernel's loops (csrc/span.cu::rebuild, as planned)
-    reach each (row, partner, column group): ranks, row tiles, partner
-    tiles, and each thread's item (row pair, group, lane)."""
+    reach each (row, partner, column tile): ranks' runs of units, passes
+    over the column blocks, partner tiles, and each warp's item (16 rows
+    by a column block)."""
     plan = span_cuda.rebuild_plan(NR, m, k, threads, cl)
-    gy, gz = span_cuda.column_groups(k)
-    ng, L, half = gy + gz, plan.lanes, plan.tile_rows // 2
-    assert 32 % L == 0 and plan.tile_rows % 2 == 0
-    assert half * ng * L <= threads  # every item has a thread
-    assert plan.tile_rows <= span_cuda.MAX_TILE_ROWS
-    assert plan.tile_j <= span_cuda.MAX_TILE_J
-    hits = np.zeros((NR, m, ng), np.int64)
-    items = [(t // L % half, t // L // half, t % L) for t in range(threads)]
+    ny, nt = span_cuda.column_tiles(k)
+    assert plan.tile_rows % 16 == 0 and plan.tile_j % 8 == 0
+    assert plan.cj % 4 == 0
+    nsub, warps = plan.tile_rows // 16, threads // 32
+    assert nsub * plan.cb_wave <= warps  # every item has a warp
+    assert -(-nt // plan.ncb) <= span_cuda.NTW  # and fits its registers
+    hits = np.zeros((NR, m, nt), np.int64)
+    n_rt = -(-NR // plan.tile_rows)
+    n_units = n_rt * plan.nchunk
     for rank in range(cl):
-        lo = min(rank * plan.per_rank, NR if plan.split_rows else m)
-        hi = min(lo + plan.per_rank, NR if plan.split_rows else m)
-        (r_lo, r_hi), (j_lo, j_hi) = (((lo, hi), (0, m)) if plan.split_rows
-                                      else ((0, NR), (lo, hi)))
-        for rt0 in range(r_lo, r_hi, plan.tile_rows):
-            nr = min(plan.tile_rows, r_hi - rt0)
-            for jt0 in range(j_lo, j_hi, plan.tile_j):
-                nj = min(plan.tile_j, j_hi - jt0)
-                for rp, g, jl in items:
-                    if g >= ng:
+        for u in range(rank * n_units // cl, (rank + 1) * n_units // cl):
+            ch, rt = divmod(u, n_rt)
+            r0, j0 = rt * plan.tile_rows, ch * plan.cj
+            nr, nj_ch = min(plan.tile_rows, NR - r0), min(plan.cj, m - j0)
+            for cb0 in range(0, plan.ncb, plan.cb_wave):
+                cb1 = min(plan.ncb, cb0 + plan.cb_wave)
+                for warp in range(warps):
+                    sub, cb = warp % nsub, cb0 + warp // nsub
+                    if warp // nsub >= plan.cb_wave or cb >= cb1:
                         continue
-                    for row in (rp, rp + half):
-                        if row < nr:
-                            hits[rt0 + row, jt0 + jl:jt0 + nj:L, g] += 1
+                    cols = slice(span_cuda.block_start(nt, plan.ncb, cb),
+                                 span_cuda.block_start(nt, plan.ncb, cb + 1))
+                    rows = slice(r0 + 16 * sub, r0 + min(16 * sub + 16, nr))
+                    for jt in range(0, nj_ch, plan.tile_j):
+                        js = slice(j0 + jt, j0 + min(jt + plan.tile_j, nj_ch))
+                        hits[rows, js, cols] += 1
     return plan, hits
 
 
-@pytest.mark.parametrize("cl", [1, 2, 4, 8])
+@pytest.mark.parametrize("cl", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("NR,m,k,threads", [
     (1363, 9, 7, 1024), (9, 1363, 7, 1024), (30, 8, 3, 32), (8, 30, 3, 32),
     (5, 3, 1, 32), (3, 700, 2, 64), (600, 5, 3, 1024), (130, 7, 4, 256),
@@ -174,27 +183,29 @@ def covered(NR, m, k, threads, cl):
 def test_rebuild_plan_covers_each_entry_once(NR, m, k, threads, cl):
     plan, hits = covered(NR, m, k, threads, cl)
     assert (hits == 1).all()
-    assert plan.split_rows == (cl == 1 or NR >= m)
-    gy, gz = span_cuda.column_groups(k)
-    # within the card's 227 KB a CTA (the sweep's own shared memory aside)
-    assert span_cuda.smem_bytes([plan], k) <= 200 * 1024
+    # the order of the sums: chunks from the shape alone
+    assert (plan.cj, plan.nchunk) == span_cuda.chunks(NR, m)
+    # within the card's 227 KB a CTA beside the sweep's own shared memory
+    assert span_cuda.rebuild_bytes(plan, k) <= span_cuda.TILE_BYTES
 
 
 def test_rebuild_plan_at_the_main_path_shapes():
-    """GIST and 20000x100 k=10 at clusters of 8 and 4: rows split on the A
-    side, each sum in partner order; partners (genes) split on the P side,
-    its nine rows' sums split over lanes too."""
-    for cl, per in ((8, 171), (4, 341)):
+    """GIST and 20000x100 k=10: the A side's sums (9 or 100 partners) in
+    one chunk, each in partner order; the P side's over the genes in
+    chunks, at most 256 partners each, their partials added in order."""
+    for cl in (16, 8, 4):
         a = span_cuda.rebuild_plan(1363, 9, 7, 1024, cl)
         p = span_cuda.rebuild_plan(9, 1363, 7, 1024, cl)
-        assert a.split_rows and a.per_rank == per and a.lanes == 1
-        assert a.tile_j == 9  # every partner in one tile
-        assert not p.split_rows and p.per_rank == per and p.lanes == 16
-    wide_a = span_cuda.rebuild_plan(20000, 100, 10, 1024, 8)
-    wide_p = span_cuda.rebuild_plan(100, 20000, 10, 1024, 8)
-    assert wide_a.split_rows and wide_a.lanes == 1
-    assert not wide_p.split_rows and wide_p.per_rank == 2500
-    assert wide_p.tile_j < wide_p.per_rank  # more partners than a tile
+        assert (a.cj, a.nchunk, a.tile_j) == (12, 1, 16)  # staged once
+        assert (p.cj, p.nchunk) == (172, 8) and p.tile_rows == 16
+        n_rt = -(-1363 // a.tile_rows)
+        assert n_rt >= cl - 1 and -(-n_rt // cl) <= 3  # 1-3 row tiles a CTA
+    wide_a = span_cuda.rebuild_plan(20000, 100, 10, 1024, 4)
+    wide_p = span_cuda.rebuild_plan(100, 20000, 10, 1024, 4)
+    assert (wide_a.cj, wide_a.nchunk) == (100, 1)
+    assert wide_a.tile_j < wide_a.cj  # more partners than a tile
+    assert (wide_p.cj, wide_p.nchunk) == (256, 79)
+    assert wide_a.ncb == wide_a.cb_wave == 3  # 9 column tiles, one pass
     assert span_cuda.block_threads(1024, 32, 7) == 1024
     assert span_cuda.block_threads(32, 32, 16) == 64  # 4 + 34 groups
 
@@ -202,18 +213,18 @@ def test_rebuild_plan_at_the_main_path_shapes():
 @pytest.mark.parametrize("cl", [1, 2, 8])
 @pytest.mark.parametrize("G,S,k", [(40, 9, 3), (130, 7, 4), (2100, 5, 3)])
 def test_split_tables_match_plain_and_jax(G, S, k, cl):
-    """The kernel's order of sums (rank partials added in order) gives the
-    plain tables bit for bit, and JAX's within float32 rounding; (2100, 5,
-    3) has more partners than a P-side tile holds."""
+    """The kernel's order of sums (chunk partials added in order) gives
+    the plain tables bit for bit, and JAX's within float32 rounding;
+    (2100, 5, 3) has more P-side partners than a chunk holds."""
     data, M_a, M_p, jax_tables = tables_case(G, S, k)
     split = span_cuda.rebuild_tables_split(data, M_a, M_p, cl)
     plain = span.rebuild_tables_plain(data, M_a, M_p)
     for name, x, y in zip(split._fields, split, plain):
         assert torch.equal(x, y), name
     assert_tables_match_jax(split, jax_tables)
-    if G == 2100:
+    if G == 2100:  # the P side's chunks, added in chunk order
         p = span_cuda.rebuild_plan(S, G, k, 1024, cl)
-        assert (p.per_rank if not p.split_rows else G) > p.tile_j
+        assert p.nchunk > 1
 
 
 # ----------------------------------------------------------------------
@@ -391,27 +402,35 @@ def test_engine_gate_bounds_the_rebuild_work(monkeypatch, slack, fused):
     ops = span_cuda.rebuild_ops(eng.n_genes, eng.n_samples,
                                 eng.config.n_patterns)
     assert ops == 2 * 12 * 20 * (7 * 2 + 2 + 3 * 3)
-    monkeypatch.setattr(multichain, "MAX_SPAN_REBUILD_OPS", ops + slack)
+    monkeypatch.setattr(multichain, "MAX_SPAN_REBUILD_OPS",
+                        ((1, 0), (2, ops + slack), (16, 10 ** 12)))
+    assert multichain.max_span_rebuild_ops(2) == ops + slack
     assert eng._fused_ok() is fused
 
 
-@pytest.mark.parametrize("G,S,k,fused", [
-    (2000, 32, 7, True),      # 17.3 M rebuild operations
-    (4000, 64, 7, True),      # 69.1 M
-    (6000, 100, 10, True),    # 284 M
-    (10000, 100, 10, False),  # 474 M
-    (20000, 100, 10, False),  # 948 M
+@pytest.mark.parametrize("G,S,k,fused16,fused4", [
+    (2000, 32, 7, True, True),        # 17.3 M rebuild operations
+    (4000, 64, 7, True, True),        # 69.1 M
+    (5005, 100, 10, False, True),     # 237 M
+    (6000, 100, 10, False, True),     # 284 M
+    (10000, 100, 10, False, True),    # 474 M
+    (20000, 100, 10, False, False),   # 948 M
 ])
-def test_engine_gate_at_the_measured_shapes(G, S, k, fused):
-    """profile_iter's shapes of wide data with few samples, 16 chains: the
-    span route below the measured crossover, per-call beyond it; 2000x32
-    lies between the first design's 10 M gate and this one."""
+def test_engine_gate_at_the_measured_shapes(G, S, k, fused16, fused4):
+    """profile_iter's shapes of wide data with few samples: the span route
+    below the crossover measured at the program's chain count, per-call
+    beyond it (16 chains: 200 M; up to 4: 500 M); a one-chain engine
+    takes the few-chains limit; 2000x32 lies between the first design's
+    10 M gate and these."""
     cfg = CogapsParams(n_patterns=k, n_iterations=2,
                        output_frequency=0).engine_config(G, S)
+    for n, fused in ((16, fused16), (4, fused4)):
+        assert multichain.span_size_ok(G, S, k, n, cfg.batch_a,
+                                       cfg.batch_p) is fused
     data = multichain.stack_device_data([np.ones((G, S), np.float32)], None,
                                         cfg, "cpu")
     eng = multichain.MultichainEngine(data, cfg, "cpu")
-    assert eng._fused_ok() is fused
+    assert eng._fused_ok() is fused4
     if G == 2000:
         assert 10_000_000 < span_cuda.rebuild_ops(G, S, k)
 
