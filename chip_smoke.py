@@ -3,8 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 kernels from cogaps_tpu_torch/csrc/ (sweep.cu, atlas.cu, span.cu,
-tables.cu, probe_mosaic.cu and probe_dma.cu, one nvcc each, started
-together),
+tables.cu, sparse_tables.cu, probe_mosaic.cu and probe_dma.cu, one nvcc
+each, started together),
 holds each against its plain PyTorch version on the card, drives the
 port's dense main path through ``CoGAPS()`` and the multi-chain
 throughput harness on GIST (the fused span, and the per-call route on
@@ -97,6 +97,20 @@ Phases:
               beside quads_kernel forced on the same inputs (its stream
               ms, and the bits equal), with rows_kernel at 20000 x 40 A
               k=10 as a yardstick;
+              the sparse model's tables kernel (csrc/sparse_tables.cu,
+              ops/sparse_tables_cuda.sparse_tables) at phase 7's 2000 x
+              10000 k=10 (a row emptied), A and P, and A at k=20; four
+              such chains (phases 8 and 11), A and P; shard 0 of phase
+              15 (c), 7500 x 50000 at 2% k=50, its A tables and its
+              partial of P's; random factors with an empty partner
+              column: every entry of SQ, Y0 and G within 1e-5 of its
+              summed |terms| of the float64 tables rounded once and no
+              worse than twice the cuBLAS tables' (dense weights,
+              models/sparse.kernel_tables) own error, within 1e-5 of the
+              terms of its plain version, G symmetric, one launch a call;
+              ms by events and the stream's ms, the cuBLAS tables'
+              device ms (the library time), the plain version's ms, the
+              bound (sparse_tables_counts) and the plan;
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda,
               debug_checks=True): meanChiSq below 2x the golden GIST
               value, the kernel launched at least twice per iteration of
@@ -127,10 +141,11 @@ Phases:
               structural zeros, then CoGAPS(sparse_optimization=True,
               k=10, 500 iterations, debug_checks=True): finite meanChiSq,
               chi^2 history falling 5x, two kernel launches per
-              iteration, the sparse state checked after each phase;
+              iteration, the sparse tables kernel once a K2 call, the
+              sparse state checked after each phase;
   8 sparse multichain — SparseMultichainEngine, 4 such chains, 200 + 200
               iterations: finite, falling chi^2 in every chain; updates/s
-              and peak memory;
+              and peak memory; the sparse tables kernel once a K2 call;
   9 atlas   — AtlasEngine (the engine of run_atlas) on a 30000 x 50000
               COO matrix with 2% nonzeros, k=50, 100 + 100 iterations:
               finite, falling chi^2, M equal to the atom masses per
@@ -1566,6 +1581,170 @@ def phase_tables(device, report, card, reps=20):
     return rows, max_err
 
 
+# ----------------------------------------------------------------------
+# phase 3: the sparse model's tables kernel
+# ----------------------------------------------------------------------
+SPARSE_TABLES_HEADLINE = "phase 15 (c) shard A x1 (7500x50000, k=50)"
+
+
+def sparse_tables_cases(D_sparse, coo):
+    """(name, CSR rows on the CPU, partners m, k) of phase 3's sparse
+    tables cases: phase 7's 2000 x 10000 (12.5% nonzeros; its row 1
+    emptied) A and P at k=10 and A at k=20; four such chains (phase 8,
+    and phase 11's scCoGAPS subsets of 10,000 cells) A and P; shard 0 of
+    phase 15 (c)'s 4 shards of a 30000 x 50000 COO at 2% (the rows of
+    7500 genes), k=50: its A tables and its partial of P's; and phase 7's
+    first 500 rows at k=200, where a row's items take two slabs."""
+    from cogaps_tpu_torch.bench_harness import synthetic_sparse
+    from cogaps_tpu_torch.models import sparse
+    r, c = np.nonzero(D_sparse)
+    keep = r != 1
+    one = (r[keep], c[keep], D_sparse[r[keep], c[keep]])
+    four = []
+    for D in synthetic_sparse(2000, 10000, 10, 4, 12):
+        rr, cc = np.nonzero(D)
+        four.append((rr, cc, D[rr, cc]))
+    rows = np.asarray(coo.rows, np.int64)
+    cols = np.asarray(coo.cols, np.int64)
+    vals = np.asarray(coo.vals, np.float32)
+    g_local = -(-coo.shape[0] // 4)
+    m = rows < g_local
+    shard = (rows[m], cols[m], vals[m])
+    return [
+        ("phase 7 A x1 (2000x10000, k=10)", sparse.stack_csr([one], 2000),
+         10000, 10),
+        ("phase 7 P x1 (10000x2000, k=10)", sparse.stack_csr(
+            [(one[1], one[0], one[2])], 10000), 2000, 10),
+        ("phase 7 A x1 k=20", sparse.stack_csr([one], 2000), 10000, 20),
+        ("phases 8, 11 A x4 (2000x10000, k=10)", sparse.stack_csr(
+            four, 2000), 10000, 10),
+        ("phases 8, 11 P x4 (10000x2000, k=10)", sparse.stack_csr(
+            [(b, a, v) for a, b, v in four], 10000), 2000, 10),
+        (SPARSE_TABLES_HEADLINE, sparse.stack_csr([shard], g_local),
+         coo.shape[1], 50),
+        ("phase 15 (c) shard P partial x1 (50000x7500, k=50)",
+         sparse.stack_csr([(shard[1], shard[0], shard[2])], coo.shape[1]),
+         g_local, 50),
+        ("phase 7 A x1 500 rows, k=200 (two slabs)", sparse.stack_csr(
+            [tuple(x[one[0] < 500] for x in one)], 500), 10000, 200)]
+
+
+def device_weights(csr, m):
+    """The dense (NCH, NR, m) weights Wd = 1 - 1/d^2 and D1 = 1/d at the
+    nonzeros of csr (on the card), as models/sparse.dense_weights."""
+    import torch
+    dev = csr.idx.device
+    Wd = torch.zeros((csr.n_chains, csr.n_rows, m), device=dev)
+    D1 = torch.zeros_like(Wd)
+    for c in range(csr.n_chains):
+        one = csr.chain(c)
+        at = (c, one.row_ids(), one.idx.long())
+        Wd[at] = 1.0 - 1.0 / (one.val * one.val)
+        D1[at] = 1.0 / one.val
+    return Wd, D1
+
+
+def sparse_exact(Wd, D1, O, M):
+    """(the float64 tables rounded once, each entry's sum of |terms| in
+    float64): beta (|O|^T |O| + |Wd| |O O^T|) for G and SQ, beta |D1| |O|
+    + sum_c' |M_c'| |G_cc'| for Y0."""
+    import torch
+    from cogaps_tpu_torch.models import sparse
+    exact = [x.float() for x in sparse.kernel_tables(
+        Wd.double(), D1.double(), O.double(), M.double())]
+    k = O.shape[-1]
+    A = O.double().abs()
+    OO = (A.unsqueeze(-1) * A.unsqueeze(-2)).flatten(-2)
+    G = 100.0 * ((A.transpose(-1, -2) @ A).unsqueeze(-3) + (
+        Wd.double().abs() @ OO).reshape(Wd.shape[:-1] + (k, k)))
+    Y0 = 100.0 * (D1.double().abs() @ A) + (
+        M.double().abs().unsqueeze(-2) * G).sum(-1)
+    return exact, (torch.diagonal(G, dim1=-2, dim2=-1), Y0,
+                   G.reshape(G.shape[:-3] + (-1, k)))
+
+
+def phase_sparse_tables(device, report, card, D_sparse, coo):
+    """The sparse tables kernel (ops/sparse_tables_cuda.sparse_tables) at
+    sparse_tables_cases against the float64 tables rounded once (within
+    1e-5 of each entry's |terms|, no worse than twice the cuBLAS tables'
+    own error), its plain version and the cuBLAS tables
+    (models/sparse.kernel_tables on dense weights, the library time);
+    per case the kernel's ms by events around back-to-back calls and the
+    stream's ms a call (stream_ms), the plain version's ms, the bound
+    (sparse_tables_counts), one launch a call. Returns (rows {name:
+    (shape, ms, plain_ms, bound, by, device_ms, library_ms, error,
+    cuBLAS error)}, the largest |kernel - plain| entry)."""
+    import torch
+    from cogaps_tpu_torch.models import sparse
+    from cogaps_tpu_torch.ops import sparse_tables_cuda as st
+    from cogaps_tpu_torch.probes import bound_ms
+    rows, max_err, bad = {}, 0.0, []
+    g = torch.Generator(device).manual_seed(41)
+    log(f"  sparse_tables_kernel ptxas (registers, bytes of spill stores): "
+        + ", ".join(f"<{t}> {ptxas_of(report, f'kernelILi{t}E')}"
+                    for t in (128, 512, 1024)))
+    for name, csr, m, k in sparse_tables_cases(D_sparse, coo):
+        csr = csr.to(device)
+        nch, NR = csr.n_chains, csr.n_rows
+        O = 2.0 * torch.rand((nch, m, k), generator=g, device=device)
+        O[:, :, -1] = 0.0
+        M = torch.rand((nch, NR, k), generator=g, device=device)
+        M = torch.where(torch.rand((nch, NR, k), generator=g,
+                                   device=device) < 0.3, 0.0, 2.0 * M)
+        before = st.sparse_tables.launches
+        got = st.sparse_tables(csr, O, M)
+        launched = st.sparse_tables.launches - before
+        plain = st.sparse_tables_plain(csr, O, M)
+        Wd, D1 = device_weights(csr, m)
+        cublas = sparse.kernel_tables(Wd, D1, O, M)
+        exact, terms = sparse_exact(Wd, D1, O, M)
+        err_k, ok = tables_errors(got, exact, terms)
+        err_c, _ = tables_errors(cublas, exact, terms)
+        err_p, ok_p = tables_errors(got, plain, terms)
+        diff = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+        max_err = max(max_err, diff)
+        G4 = got[2].reshape(nch, NR, k, k)
+        ok = (ok and ok_p and err_k <= 2 * err_c and launched == 1
+              and torch.equal(G4, G4.transpose(-1, -2))
+              and torch.equal(got[0], torch.diagonal(G4, dim1=-2,
+                                                     dim2=-1)))
+        del got, plain, cublas, exact, terms, G4
+        big = NR * k * k > 1 << 26
+        reps, tries = (3, 3) if big else (20, 5)
+        ms = time_calls(lambda: st.sparse_tables(csr, O, M), reps)
+        dev, host = stream_ms(lambda: st.sparse_tables(csr, O, M), reps,
+                              tries)
+        lib, _ = stream_ms(lambda: sparse.kernel_tables(Wd, D1, O, M), reps,
+                           tries)
+        del Wd, D1
+        plain_ms = time_plain(lambda: st.sparse_tables_plain(csr, O, M))
+        nnz = int(csr.idx.numel())
+        bound, by = bound_ms(*st.sparse_tables_counts(nnz, NR, m, k, nch))
+        plan = st.sparse_plan(k)
+        rows[name] = (f"{nch} x ({NR},{m}) k={k}, {nnz} nonzeros", ms,
+                      plain_ms, bound, by, dev, lib, err_k, err_c)
+        log(f"  sparse tables {name}: {nnz} nonzeros; kernel {ms:.4f} ms "
+            f"(device {dev:.4f}, the host's {host:.4f}), cuBLAS tables "
+            f"(dense weights) device {lib:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}), bound/device {bound / dev:.3f}; "
+            f"worst |error|/terms against the float64 tables {err_k:.3g} "
+            f"(cuBLAS {err_c:.3g}), against the plain version {err_p:.3g}, "
+            f"max|kernel - plain| {diff:.3g}; {launched} launch a call; "
+            f"plan P={plan.P} G={plan.G} SUB={plan.SUB} SEG={plan.SEG} "
+            f"S={plan.S} "
+            f"threads={plan.threads}, {plan.smem} B shared; card: {card}"
+            + ("" if ok else "  MISMATCH"))
+        if not ok:
+            bad.append(name)
+        del csr, O, M
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"the sparse tables kernel disagrees with the "
+                             f"float64 tables or launched otherwise than "
+                             f"once: {bad}")
+    return rows, max_err
+
+
 def tables_form(plan):
     """The tables kernel a plan runs, as phase 3 prints it."""
     if plan.form in ("mma", "short") and plan.NCT:
@@ -1781,8 +1960,8 @@ def phase_many_patterns(device, card, n=100, k=90, n_it=100, seed=17):
 def build_all():
     """nvcc for every source at once; returns {name: (seconds, report)}."""
     from concurrent.futures import ThreadPoolExecutor
-    from cogaps_tpu_torch.ops import (atlas_cuda, span_cuda, sweep_cuda,
-                                      tables_cuda)
+    from cogaps_tpu_torch.ops import (atlas_cuda, sparse_tables_cuda,
+                                      span_cuda, sweep_cuda, tables_cuda)
     from cogaps_tpu_torch.probes import dma, mosaic
 
     def timed(fn):
@@ -1790,11 +1969,12 @@ def build_all():
         _, report = fn()
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         futs = {"sweep": pool.submit(timed, sweep_cuda.build),
                 "atlas": pool.submit(timed, atlas_cuda.build),
                 "span": pool.submit(timed, span_cuda.build),
                 "tables": pool.submit(timed, tables_cuda.build),
+                "sparse_tables": pool.submit(timed, sparse_tables_cuda.build),
                 "probe_mosaic": pool.submit(timed, mosaic.build),
                 "probe_dma": pool.submit(timed, dma.build),
                 "fastparse": pool.submit(timed, build_native)}
@@ -1855,11 +2035,12 @@ def falling(hist):
 # ----------------------------------------------------------------------
 def launch_counters():
     """The wrappers whose launch counts phases 11-15 read: the kernels a
-    distributed stage records (parallel/distributed.KERNELS) and the
-    per-call tables kernel."""
-    from cogaps_tpu_torch.ops import tables_cuda
+    distributed stage records (parallel/distributed.KERNELS), the
+    per-call tables kernel and the sparse model's tables kernel."""
+    from cogaps_tpu_torch.ops import sparse_tables_cuda, tables_cuda
     from cogaps_tpu_torch.parallel.distributed import KERNELS
-    return {**KERNELS, "dense_tables": tables_cuda.dense_tables}
+    return {**KERNELS, "dense_tables": tables_cuda.dense_tables,
+            "sparse_tables": sparse_tables_cuda.sparse_tables}
 
 
 def chisq_fit(D, A, P, S, device):
@@ -2055,7 +2236,7 @@ def phase_distributed(device, card, seed=13):
                 for n in KERNELS):
             raise AssertionError(f"stage launches {stages} do not add up "
                                  f"to the run's {launches}")
-        return res, t_run, stages, launches["dense_tables"]
+        return res, t_run, stages, launches
 
     def report(what, res, t_run, n_it, modes, base):
         stages = res.diagnostics["stages"]
@@ -2082,8 +2263,9 @@ def phase_distributed(device, card, seed=13):
         output_frequency=0)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    res, t_run, stages, gw_tables = drive(cogaps_tpu_torch.GWCoGAPS, D,
-                                          params, gene_names=genes)
+    res, t_run, stages, gw_launches = drive(cogaps_tpu_torch.GWCoGAPS, D,
+                                            params, gene_names=genes)
+    gw_tables = gw_launches["dense_tables"]
     report("[11 distributed] GWCoGAPS 20000x100 k=10", res, t_run, n_it,
            "dense model (stage 1 fused span K3, stage 2 per-call K1)",
            base)
@@ -2130,8 +2312,10 @@ def phase_distributed(device, card, seed=13):
     mode = resolve_sparse_mode(4, 2000, 10000, 10, device)
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    res, t_run, stages, sc_tables = drive(cogaps_tpu_torch.scCoGAPS, D,
-                                          params, sample_names=cells)
+    res, t_run, stages, sc_launches = drive(cogaps_tpu_torch.scCoGAPS, D,
+                                            params, sample_names=cells)
+    sc_tables = sc_launches["dense_tables"]
+    sc_sparse = sc_launches["sparse_tables"]
     report(f"scCoGAPS 2000x40000 k=10 ({(D == 0).mean():.4f} zeros)",
            res, t_run, n_it, f"sparse model, mode {mode}", base)
     by_run["scCoGAPS"] = [st["launches"] for st in stages]
@@ -2156,9 +2340,17 @@ def phase_distributed(device, card, seed=13):
     if sc_tables:
         raise AssertionError(f"scCoGAPS launched the dense tables kernel "
                              f"{sc_tables} times")
+    sparse_updates = sum(st["launches"]["sweep"] for st in stages)
+    log(f"  scCoGAPS sparse tables kernel launches {sc_sparse} (one a "
+        f"sparse update call on K2: {sparse_updates})")
+    if sc_sparse != sparse_updates:
+        raise AssertionError(f"scCoGAPS launched the sparse tables kernel "
+                             f"{sc_sparse} times for {sparse_updates} K2 "
+                             f"calls")
     total = {n: sum(st[n] for runs in by_run.values() for st in runs)
              for n in KERNELS}
-    return total, by_run, err, gw_tables + beside["dense_tables"]
+    return (total, by_run, err, gw_tables + beside["dense_tables"],
+            sc_sparse)
 
 
 # ----------------------------------------------------------------------
@@ -2336,7 +2528,7 @@ def phase_cli(D, card, n_it=500, seed=13):
         # "dense"-mode update calls, and no other kernel
         want = 2 * 2 * n_it
         if (launches != {"sweep": want, "span": 0, "atlas": 0,
-                         "dense_tables": 0}
+                         "dense_tables": 0, "sparse_tables": want}
                 or dict(table_calls) != {"dense": want}):
             raise AssertionError(f"launches {launches} and sparse update "
                                  f"calls {dict(table_calls)} for {n_it} + "
@@ -2876,8 +3068,10 @@ def phase_sharded(device, card, n_full=200, n_atlas=40):
         if not falling(hist) or drift > limit:
             raise AssertionError("sparse sharded run: chi^2 not falling "
                                  "or P drifted")
-        want = ({"atlas": 2 * n_atlas, "tables": 2 * n_atlas}
-                if eng.mode == "xla" else {"tables": 4 * n_atlas})
+        want = ({"atlas": 2 * n_atlas, "tables": 2 * n_atlas,
+                 "sparse_tables": 2 * n_atlas}
+                if eng.mode == "xla" else {"tables": 4 * n_atlas,
+                                           "sparse_tables": 4 * n_atlas})
         if got != want:
             raise AssertionError(f"sparse sharded launches {got}, expected "
                                  f"{want} in mode {eng.mode!r}")
@@ -2933,8 +3127,8 @@ def main() -> int:
         log("no CUDA device: torch.cuda.is_available() is false")
         return 3
     import cogaps_tpu_torch
-    from cogaps_tpu_torch.ops import (atlas_cuda, span_cuda, sweep_cuda,
-                                      tables_cuda)
+    from cogaps_tpu_torch.ops import (atlas_cuda, sparse_tables_cuda,
+                                      span_cuda, sweep_cuda, tables_cuda)
 
     device = torch.device("cuda")
     card = nvidia_smi()
@@ -2948,7 +3142,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     builds = build_all()
-    log(f"[2 build] the six kernel sources and the native parser built "
+    log(f"[2 build] the seven kernel sources and the native parser built "
         f"and loaded in "
         f"{time.perf_counter() - t0:.1f} s (" + ", ".join(
             f"{name} {sec:.1f} s" for name, (sec, _) in builds.items()) + ")")
@@ -2978,14 +3172,17 @@ def main() -> int:
                         chisq_every=1, device=device)
     torch.cuda.synchronize()
     atlas_setup = (t2 - t1, time.perf_counter() - t2, len(coo.vals))
+    sparse_rows, sparse_err = phase_sparse_tables(
+        device, builds["sparse_tables"][1], card, D_sparse, coo)
     del coo
     atlas_times, atlas_err = phase_atlas_kernel(device, atlas.side_a,
                                                 atlas.side_p)
     span_times, span_err, span_extra = phase_span(device, builds["span"][1])
     dense_rows, dense_err = phase_tables(device, builds["tables"][1], card)
     log(f"[3 kernels] K1, K2, K3 == plain versions, K4 within its per-call "
-        f"contract, the tables kernel within its tolerance, at the "
-        f"main-path shapes ({time.perf_counter() - t0:.1f} s)")
+        f"contract, the tables kernel and the sparse tables kernel within "
+        f"their tolerance, at the main-path shapes "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # 4. CoGAPS() on GIST: the main path, with its debug checks
     from cogaps_tpu_torch import api
@@ -3123,6 +3320,7 @@ def main() -> int:
     n_sp = 500
     sweep_cuda.run_updates_multi.launches = 0
     atlas_cuda.run_updates_atlas_multi.launches = 0
+    sparse_tables_cuda.sparse_tables.launches = 0
     t0 = time.perf_counter()
     checked.clear()
     res = cogaps_tpu_torch.CoGAPS(D_sparse, n_patterns=10,
@@ -3131,7 +3329,9 @@ def main() -> int:
                                   output_frequency=100, debug_checks=True,
                                   device="cuda")
     sparse_launches = {"sweep": sweep_cuda.run_updates_multi.launches,
-                       "atlas": atlas_cuda.run_updates_atlas_multi.launches}
+                       "atlas": atlas_cuda.run_updates_atlas_multi.launches,
+                       "sparse_tables":
+                           sparse_tables_cuda.sparse_tables.launches}
     elapsed = time.perf_counter() - t0
     h = np.asarray(res.diagnostics["chisqHistory"])
     ups = res.diagnostics["totalUpdates"] / res.diagnostics[
@@ -3144,8 +3344,11 @@ def main() -> int:
         f"{np.round(h, 1).tolist()}")
     if not np.isfinite(res.mean_chi_sq) or not h[-1] < 0.2 * h[0]:
         raise AssertionError("sparse CoGAPS did not converge")
-    if sum(sparse_launches.values()) < 2 * 2 * n_sp:
+    if sparse_launches["sweep"] + sparse_launches["atlas"] < 2 * 2 * n_sp:
         raise AssertionError(f"only {sparse_launches} kernel launches")
+    if sparse_launches["sparse_tables"] != sparse_launches["sweep"]:
+        raise AssertionError(f"launches {sparse_launches}: not one sparse "
+                             f"tables launch a K2 call")
     if len(checked) != 2:
         raise AssertionError(f"check_state ran {len(checked)} times")
 
@@ -3167,12 +3370,15 @@ def main() -> int:
     t1 = time.perf_counter()
     sweep_cuda.run_updates_multi.launches = 0
     atlas_cuda.run_updates_atlas_multi.launches = 0
+    sparse_tables_cuda.sparse_tables.launches = 0
     for ph in (EQUILIBRATION, SAMPLING):
         state, stats = eng.run_phase(state, stats, rand, ph)
     hist = stats.chisq_hist.cpu().numpy()
     t2 = time.perf_counter()
     multi_launches = {"sweep": sweep_cuda.run_updates_multi.launches,
-                      "atlas": atlas_cuda.run_updates_atlas_multi.launches}
+                      "atlas": atlas_cuda.run_updates_atlas_multi.launches,
+                      "sparse_tables":
+                          sparse_tables_cuda.sparse_tables.launches}
     log(f"[8 sparse multichain] 4 chains x 2000x10000, k=10, mode "
         f"{eng.config.sparse_table_mode}, 200+200 iterations: "
         f"{int(stats.upd.sum()) / (t2 - t1):.1f} updates/s, {t2 - t1:.2f} s "
@@ -3183,6 +3389,9 @@ def main() -> int:
         log(f"  chain {c} chi^2 history {np.round(hist[c], 1).tolist()}")
     if not all(falling(hist[c]) for c in range(4)):
         raise AssertionError("sparse chi^2 history is not finite and falling")
+    if multi_launches["sparse_tables"] != multi_launches["sweep"]:
+        raise AssertionError(f"launches {multi_launches}: not one sparse "
+                             f"tables launch a K2 call")
 
     # 9. atlas
     from cogaps_tpu_torch.ops.atoms import total_mass_per_element
@@ -3241,7 +3450,7 @@ def main() -> int:
 
     # 11. distributed runs through GWCoGAPS() and scCoGAPS()
     t0 = time.perf_counter()
-    dist_launches, dist_by_run, padded_err, dense_by["11"] = (
+    dist_launches, dist_by_run, padded_err, dense_by["11"], sc_sparse = (
         phase_distributed(device, card))
     log(f"  launches by run and stage {json.dumps(dist_by_run)}; phase "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3300,6 +3509,15 @@ def main() -> int:
                 "9": atlas_launches, "11": dist_launches["atlas"]}
     if sharded_launches.get("atlas"):
         atlas_by["15"] = sharded_launches["atlas"]
+    # the sparse model's tables kernel: every "dense"/"ell" update call
+    # of the sparse engines on the card
+    sparse_by = {"7": sparse_launches["sparse_tables"],
+                 "8": multi_launches["sparse_tables"], "11": sc_sparse,
+                 "13": cli_launches["sparse_tables"],
+                 "15": sharded_launches.get("sparse_tables", 0)}
+    if min(sparse_by.values()) <= 0:
+        raise AssertionError(f"the sparse tables kernel was not launched in "
+                             f"every sparse phase: {sparse_by}")
 
     def by_phase(counts):
         return dict(launches=sum(counts.values()), launches_by_phase=counts)
@@ -3330,6 +3548,13 @@ def main() -> int:
               dense_rows[TABLES_HEADLINE], device_ms=dense_rows[
                   TABLES_HEADLINE][5], library_ms=dense_rows[
                       TABLES_HEADLINE][2]) | by_phase(dense_by),
+        # no Pallas counterpart either: the XLA dots of the sparse model's
+        # tables
+        entry("sparse_tables", "cogaps_tpu_torch/csrc/sparse_tables.cu",
+              "cogaps_tpu/models/sparse.py:246", 0, sparse_err,
+              sparse_rows[SPARSE_TABLES_HEADLINE], device_ms=sparse_rows[
+                  SPARSE_TABLES_HEADLINE][5], library_ms=sparse_rows[
+                      SPARSE_TABLES_HEADLINE][6]) | by_phase(sparse_by),
     ] + probe_suite.kernel_entries(probe_records, probe_launches)}
     if min(e["launches"] for e in kernel_line["kernels"]) <= 0:
         raise AssertionError("a kernel of the path was never launched")

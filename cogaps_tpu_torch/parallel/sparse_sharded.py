@@ -19,20 +19,24 @@ SparseNormalModel closed forms, src/gibbs_sampler/SparseNormalModel.cpp:
   sparse_engine.resolve_sparse_mode picks at one shard's size: K2 on
   tables built a shard at a time ("dense", "ell"), or K4 on the CSR rows
   ("xla"). The rank's shards are the chains of one launch;
-* memory — "ell" and "xla" keep the matrix sparse on the device. "dense"
-  also holds each of the rank's shards densified: its two (g_local, S)
-  float32 weight matrices (sparse.dense_weights), 8 * g_local * S bytes
-  a shard, so 8 * Gp * S / ranks bytes a rank. The rule admits "dense"
-  when ONE shard's weights and tables fit in
-  sparse_engine.MEMORY_SHARE of the device's memory; a rank holding
-  several shards holds that many times the weights (mesh=None holds
-  every shard's). Set the config's sparse_table_mode to "ell" to keep a
-  large matrix sparse;
+* tables — on the card both table modes build every shard's tables of a
+  sampler in one launch of the sparse tables kernel on the shards' CSR
+  rows (ops/sparse_tables_cuda, csrc/sparse_tables.cu), the shards as its
+  chains; on the CPU a shard at a time by models/sparse.kernel_tables
+  ("dense") or kernel_tables_ell ("ell");
+* memory — on the card every mode keeps the matrix sparse on the device.
+  On the CPU "dense" also holds each of the rank's shards densified: its
+  two (g_local, S) float32 weight matrices (sparse.dense_weights), 8 *
+  g_local * S bytes a shard. The rule admits "dense" when ONE shard's
+  weights and tables fit in sparse_engine.MEMORY_SHARE of the device's
+  memory (the weights term as the JAX package counts it, also on the
+  card);
 * P sampler — replicated, on tables summed over shards: every
   closed-form term (the "all elements" parts through Z2 and the
   nonzero corrections) is additive over genes, so each shard builds its
-  partial (SQ, Y0, G) from its genes (models/sparse.kernel_tables or
-  kernel_tables_ell), multihost.ordered_sum adds them in shard order,
+  partial (SQ, Y0, G) from its genes (the sparse tables kernel; on the
+  CPU kernel_tables or kernel_tables_ell), multihost.ordered_sum adds
+  them in shard order,
   and one K2 launch runs, identical on every rank. JAX instead psums
   each sweep's alpha terms (_psum_model): the same sums, rounded in
   another order;
@@ -59,6 +63,7 @@ from ..io.coo import CooMatrix
 from ..models import dense, sparse
 from ..ops.atlas_cuda import run_updates_atlas_multi
 from ..ops.atoms import AtomTable, init_atoms
+from ..ops.sparse_tables_cuda import sparse_tables
 from ..ops.sweep import make_consts
 from ..ops.sweep_cuda import run_updates_multi
 from ..params import EngineConfig
@@ -91,7 +96,7 @@ def atlas_memory_plan(n_cells: int, n_genes: int, k: int, density: float,
 class SparseShardedEngine(UnitChain):
     """One sparse chain whose genes are cut into n_shards shards, the
     rank's contiguous group of them on `device`. `coo` is a CooMatrix
-    (genes x samples), densified on the device only in "dense" mode (the
+    (genes x samples), densified only in "dense" mode on the CPU (the
     module docstring). `mesh` is a multihost.ProcessMesh, or None for one
     rank holding every shard; n_shards defaults to the rank count."""
 
@@ -155,7 +160,7 @@ class SparseShardedEngine(UnitChain):
         if self.mode not in ("dense", "ell", "xla"):
             raise ValueError(f"unknown sparse_table_mode {self.mode!r}")
         self.Wd = self.D1 = None
-        if self.mode == "dense":
+        if self.mode == "dense" and device.type != "cuda":
             Wd, D1 = sparse.dense_weights(csr_a, S)
             self.Wd, self.D1 = Wd.to(device), D1.to(device)
         self.csr_a, self.csr_p = csr_a.to(device), csr_p.to(device)
@@ -177,9 +182,23 @@ class SparseShardedEngine(UnitChain):
                           self.n_samples, self.hist, self.device)
 
     # ------------------------------------------------------------------
+    def _side_tables(self, p_side: bool, M_a, M_p) -> tuple:
+        """Every shard's (SQ, Y0, G) tables of one sampler, stacked: the A
+        sampler's over each shard's rows, or each shard's partial of the
+        P sampler's over its genes. On the card one launch of the sparse
+        tables kernel, the shards as its chains; on the CPU a shard at a
+        time."""
+        if self.device.type == "cuda":
+            if p_side:
+                return sparse_tables(self.csr_p, M_a, M_p)
+            return sparse_tables(self.csr_a, M_p, M_a)
+        return tuple(torch.stack(x) for x in zip(*[
+            self._tables(j, p_side, M_a, M_p)
+            for j in range(len(self.shards))]))
+
     def _tables(self, j: int, p_side: bool, M_a, M_p):
-        """Shard j's (SQ, Y0, G) tables of one sampler: the A sampler's
-        over the shard's rows, or the shard's partial of the P
+        """Shard j's (SQ, Y0, G) tables of one sampler on the CPU: the A
+        sampler's over the shard's rows, or the shard's partial of the P
         sampler's over its genes."""
         if p_side:
             other, M = M_a[j], M_p[0]
@@ -197,16 +216,13 @@ class SparseShardedEngine(UnitChain):
         """The arguments of the A sampler's one launch, the rank's shards
         as its chains: K4's (ops/atlas_cuda.run_updates_atlas_multi) over
         the CSR rows in "xla" mode, else K2's (ops/sweep_cuda.
-        run_updates_multi) on each shard's tables, built one shard at a
-        time."""
+        run_updates_multi) on each shard's tables (_side_tables)."""
         spr = len(self.shards)
         if self.mode == "xla":
             other = state.M_p.expand(spr, -1, -1).contiguous()
             return (state.atoms_a, state.M_a, self.csr_a, other, temp, n_a,
                     self.consts_a, self.mass_a, key)
-        SQ, Y0, G = (torch.stack(x) for x in zip(*[
-            self._tables(j, False, state.M_a, state.M_p)
-            for j in range(spr)]))
+        SQ, Y0, G = self._side_tables(False, state.M_a, state.M_p)
         col_nz = (state.M_p.amax(dim=1) > 0.0).expand(spr, -1).contiguous()
         return (state.atoms_a, state.M_a, Y0,
                 dense.DensePhase(SQ=SQ, Z=G, col_nz=col_nz), temp, n_a,
@@ -223,8 +239,7 @@ class SparseShardedEngine(UnitChain):
     def p_parts(self, M_a: torch.Tensor, M_p: torch.Tensor) -> list:
         """Each of the rank's shards' partial (SQ, Y0, G) of the P
         sampler's tables, from its genes."""
-        return [self._tables(j, True, M_a, M_p)
-                for j in range(len(self.shards))]
+        return list(zip(*self._side_tables(True, M_a, M_p)))
 
     def sum_p_parts(self, parts: list, M_a: torch.Tensor):
         """The replicated P sampler's tables (Y0, DensePhase), leading

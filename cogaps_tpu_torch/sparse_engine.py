@@ -12,16 +12,20 @@ R/HelperFunctions.R:223-224).
 Each sampler's update call runs in one of three modes (the names are
 the JAX package's, so EngineConfig.sparse_table_mode overrides work):
 
-* "dense" — (SQ, Y0, G) tables from dense (G x S) weight matrices
-  (models/sparse.kernel_tables), then the dense sweep kernel with G in
+* "dense" — (SQ, Y0, G) tables, then the dense sweep kernel with G in
   the Z table's place (ops/sweep_cuda, csrc/sweep.cu: the port of the
-  TPU kernel's tables mode, K2);
-* "ell"   — the same tables built from each chain's rows without dense
-  weights (models/sparse.kernel_tables_ell), then the same kernel;
+  TPU kernel's tables mode, K2); on the CPU the tables come from dense
+  (G x S) weight matrices (models/sparse.kernel_tables);
+* "ell"   — the same tables and kernel; on the CPU the tables come from
+  each chain's rows without dense weights (models/sparse.
+  kernel_tables_ell);
 * "xla"   — no tables: the CSR sweep kernel (ops/atlas_cuda, csrc/
   atlas.cu, K4) on CUDA tensors; the plain sparse sweep on the CPU.
 
-On CUDA tensors every call launches one of the two kernels or raises.
+On CUDA tensors both table modes build the tables from the CSR rows in
+one launch of the sparse tables kernel (ops/sparse_tables_cuda, csrc/
+sparse_tables.cu), and hold no dense weights; every call launches its
+kernels or raises.
 The default mode is chosen from the memory each mode needs on the
 device (resolve_sparse_mode); PERF.md states the rule with the card's
 measured iteration times of each mode.
@@ -42,6 +46,7 @@ from .engine import (SAMPLER_A, SAMPLER_P, ChainEngine,
 from .io.coo import CooMatrix
 from .models import dense, sparse
 from .ops.atlas_cuda import run_updates_atlas_multi
+from .ops.sparse_tables_cuda import sparse_tables
 from .ops.sweep import MassParams, SamplerConsts
 from .ops.sweep_cuda import run_updates_multi
 from .params import EngineConfig
@@ -55,7 +60,8 @@ MEMORY_SHARE = 0.5
 class SparseDeviceData:
     """Device-resident sparse data of NCH chains: the nonzeros in both
     orientations, the data-derived mass-prior parameters, and, in
-    "dense" mode, the dense weight matrices kernel_tables reads."""
+    "dense" mode on the CPU, the dense weight matrices kernel_tables
+    reads."""
 
     csr_a: sparse.CsrMatrix  # gene-major rows (A sampler)
     csr_p: sparse.CsrMatrix  # sample-major rows (P sampler)
@@ -85,7 +91,10 @@ def mode_bytes(n_chains: int, n_genes: int, n_samples: int, k: int) -> dict:
     """Device bytes each mode needs beyond the CSR data and the factors:
     the (NR*k, k) G table of the larger side with its two same-size
     transients (U and M*G), plus the two dense (G, S) weight matrices in
-    "dense" mode and the bounded row-chunk gather in "ell" mode."""
+    "dense" mode and the bounded row-chunk gather in "ell" mode. On the
+    card neither mode holds weights or the gather (the sparse tables
+    kernel reads the CSR rows): the rule is kept as the JAX package
+    states it, and the modes pick the same."""
     tables = 4 * 3 * n_chains * max(n_genes, n_samples) * k * k
     return {"dense": tables + 2 * 4 * n_chains * n_genes * n_samples,
             "ell": tables + 4 * sparse._ELL_CHUNK_ELEMS,
@@ -153,9 +162,12 @@ def _mass(lam: np.ndarray, max_gibbs_mass: float) -> MassParams:
 def _table_call(mode, atoms, M, csr, Wd, D1, other, temp, n_upd, consts,
                 mparams, rand):
     """One sampler's update call of every chain in "dense"/"ell" mode:
-    the tables, then the dense sweep kernel with G as its Z table (noise
-    floors 0, as the JAX tables path). Y is call-scoped."""
-    if mode == "ell":
+    the tables (on the card the sparse tables kernel on the CSR rows, in
+    either mode), then the dense sweep kernel with G as its Z table
+    (noise floors 0, as the JAX tables path). Y is call-scoped."""
+    if M.device.type == "cuda":
+        SQ, Y0, G = sparse_tables(csr, other, M)
+    elif mode == "ell":
         SQ, Y0, G = (torch.stack(x) for x in zip(*[
             sparse.kernel_tables_ell(csr.ell(c), other[c], M[c])
             for c in range(M.shape[0])]))
@@ -230,8 +242,8 @@ class SparseChainEngine(ChainEngine):
     """The chains of a SparseDeviceData run together (the sparse analog
     of engine.ChainEngine, whose state, statistics and run_phase it
     shares). A config without a sparse_table_mode gets the default of
-    resolve_sparse_mode; "dense" mode builds the dense weights when the
-    data has none."""
+    resolve_sparse_mode. On the CPU "dense" mode builds the dense weights
+    when the data has none; on the card no mode holds them."""
 
     iterate = staticmethod(run_iteration_sparse)
     sparse_model = True
@@ -248,7 +260,9 @@ class SparseChainEngine(ChainEngine):
             raise ValueError("sparse_table_mode must be one of "
                              f"{SPARSE_MODES}, not "
                              f"{config.sparse_table_mode!r}")
-        if config.sparse_table_mode == "dense" and data.Wd_a is None:
+        if device.type == "cuda":
+            data = dataclasses.replace(data, Wd_a=None, D1_a=None)
+        elif config.sparse_table_mode == "dense" and data.Wd_a is None:
             Wd, D1 = sparse.dense_weights(data.csr_a.to("cpu"),
                                           data.csr_p.n_rows)
             data = dataclasses.replace(data, Wd_a=Wd, D1_a=D1)

@@ -3,7 +3,7 @@ checkouts of the package in one run.
 
     python3 kernel_times.py [--root DIR] [--placements | --profile |
                              --golden N | --quads | --tables | --chisq |
-                             --span]
+                             --span | --sparse-tables]
                             [--out FILE]
 
 times the cogaps_tpu_torch package found in DIR (default: the checkout
@@ -93,6 +93,20 @@ With --span it splits K3 instead (span_split), at GIST x16, 4 x 5005 x
 100 k=10 (phase 11's subsets) and 16 x 20000 x 100 k=10: span_kernel's
 device ms an iteration with and without sweeps (every budget 0),
 rebuild_kernel alone, the launch shapes and the bounds.
+
+With --sparse-tables it times instead the sparse model's tables as DIR's
+package builds them on the card: its sparse tables kernel
+(ops/sparse_tables_cuda.sparse_tables) where it has one, else the cuBLAS
+products of models/sparse.kernel_tables on dense weights built
+beforehand (what "dense" mode held). First at chip_smoke's
+sparse_tables_cases (phase 3's): the stream's ms a call, events' ms, the
+host's ms and the bound (this checkout's sparse_tables_counts); then an
+iteration of phase 15 (c) (SparseShardedEngine on synthetic_coo(30000,
+50000, 0.02), k=50, 4 shards, mesh=None) in each mode, "dense", "ell"
+and "xla", after 4 equilibration iterations: the engine's set-up
+seconds and peak device memory, and two more iterations each split in
+parts by chip_smoke.sparse_split (A tables, A launch, P table build,
+sum, P launch) with the peak memory of those iterations.
 
 To compare a change with its parent on one card, unpack the parent
 (`git archive`) into a git-ignored directory and run this script on
@@ -664,6 +678,94 @@ def chisq_times(cs, device, n_it=250) -> dict:
     return {"calls": calls, "runs": runs}
 
 
+def root_sparse_tables(cs, csr, m):
+    """fn(other, M) building one call's (SQ, Y0, G) as the root's package
+    does on the card: its sparse tables kernel, or the cuBLAS products
+    of kernel_tables on dense weights made here once (the parent's
+    "dense" mode held them); and the name of that route."""
+    from cogaps_tpu_torch.models import sparse
+    try:
+        from cogaps_tpu_torch.ops import sparse_tables_cuda
+    except ImportError:
+        Wd, D1 = cs.device_weights(csr, m)
+        return (lambda other, M: sparse.kernel_tables(Wd, D1, other, M),
+                "cuBLAS kernel_tables")
+    return (lambda other, M: sparse_tables_cuda.sparse_tables(csr, other,
+                                                              M),
+            "sparse_tables kernel")
+
+
+def sparse_tables_times(cs, device, n_warm=4) -> dict:
+    """The root's sparse tables at phase 3's cases and phase 15 (c)'s
+    iteration in parts in each mode (see the module's docstring)."""
+    import dataclasses
+    import torch
+    import cogaps_tpu_torch
+    from cogaps_tpu_torch.bench_harness import synthetic_coo, synthetic_sparse
+    from cogaps_tpu_torch.engine import EQUILIBRATION
+    from cogaps_tpu_torch.parallel.sharded import ShardedRandom
+    from cogaps_tpu_torch.parallel.sparse_sharded import SparseShardedEngine
+    from cogaps_tpu_torch.probes import bound_ms
+    try:  # the bound where the root's package counts it
+        from cogaps_tpu_torch.ops.sparse_tables_cuda import (
+            sparse_tables_counts as counts)
+    except ImportError:
+        counts = None
+    [D_sparse] = synthetic_sparse(2000, 10000, 10, 1, 11)
+    coo = synthetic_coo(30000, 50000, 0.02, 19)
+    g = torch.Generator(device).manual_seed(41)
+    cases = []
+    for name, csr, m, k in cs.sparse_tables_cases(D_sparse, coo):
+        csr = csr.to(device)
+        nch, NR = csr.n_chains, csr.n_rows
+        O = 2.0 * torch.rand((nch, m, k), generator=g, device=device)
+        O[:, :, -1] = 0.0
+        M = 2.0 * torch.rand((nch, NR, k), generator=g, device=device)
+        fn, route = root_sparse_tables(cs, csr, m)
+        big = NR * k * k > 1 << 26
+        reps, tries = (3, 3) if big else (20, 5)
+        dev, host = cs.stream_ms(lambda: fn(O, M), reps, tries)
+        ev = cs.time_calls(lambda: fn(O, M), reps)
+        nnz = int(csr.idx.numel())
+        bound, by = (bound_ms(*counts(nnz, NR, m, k, nch)) if counts
+                     else (None, None))
+        cases.append({"case": name, "route": route, "stream_ms": dev,
+                      "host_ms": host, "events_ms": ev, "bound_ms": bound,
+                      "bound_by": by, "nnz": nnz})
+        print(json.dumps(cases[-1]), flush=True)
+        del fn, csr, O, M
+        torch.cuda.empty_cache()
+    modes = {}
+    for mode in ("dense", "ell", "xla"):
+        cfg = dataclasses.replace(cogaps_tpu_torch.CogapsParams(
+            n_patterns=50, n_iterations=40, seed=19,
+            output_frequency=20).engine_config(*coo.shape),
+            sparse_table_mode=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = SparseShardedEngine(coo, cfg, n_shards=4, device=device)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        setup_peak = torch.cuda.max_memory_allocated() - held
+        st, ss = eng.init_state(), eng.init_stats()
+        st, ss = eng.run_phase(st, ss, ShardedRandom(19, device),
+                               EQUILIBRATION, 0, n_warm)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        splits = [cs.sparse_split(eng, st, n_warm + i) for i in range(2)]
+        modes[mode] = {"setup_s": setup, "setup_peak_gib":
+                       setup_peak / 2**30, "iteration_peak_gib":
+                       (torch.cuda.max_memory_allocated() - held) / 2**30,
+                       "split_ms": splits,
+                       "iteration_ms": [sum(x.values()) for x in splits]}
+        print(json.dumps({mode: modes[mode]}), flush=True)
+        del eng, st, ss
+        torch.cuda.empty_cache()
+    return {"cases": cases, "phase 15 (c)": modes}
+
+
 def build_kernels():
     """The root's sweep, span and atlas kernels, built at once: {name:
     (seconds, ptxas report)}."""
@@ -711,6 +813,9 @@ def main() -> int:
     ap.add_argument("--span", action="store_true",
                     help="split K3 into rebuilds and sweeps at SPAN_CASES "
                          "instead")
+    ap.add_argument("--sparse-tables", action="store_true",
+                    help="time the sparse model's tables and phase 15 "
+                         "(c)'s iteration in parts instead")
     args = ap.parse_args()
     import chip_smoke as cs  # this checkout's, before DIR goes on the path
     root = os.path.abspath(args.root)
@@ -728,7 +833,7 @@ def main() -> int:
     device = torch.device("cuda")
     t0 = time.perf_counter()
     if (args.profile or args.golden or args.quads or args.chisq
-            or args.tables or args.span):
+            or args.tables or args.span or args.sparse_tables):
         record = {"root": root, "card": cs.nvidia_smi()}
         if args.profile:
             record["profile"] = profile_times(device)
@@ -742,6 +847,8 @@ def main() -> int:
                                             args.cases)
         elif args.span:
             record["span"] = span_split(cs, device)
+        elif args.sparse_tables:
+            record["sparse_tables"] = sparse_tables_times(cs, device)
         else:
             record["chisq"] = chisq_times(cs, device)
         record["seconds"] = time.perf_counter() - t0

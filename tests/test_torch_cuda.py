@@ -68,7 +68,18 @@ through MultichainEngine(..., mesh=...) made directly, give each chain
 the bits it gets beside the others, one tables launch a sampled factor
 an iteration. F4's row form is exact at NR = 1, 50, 1363 and B = 1, 100,
 1024 with NaN and out-of-range lanes; the dependent-load floor's chain
-equals its plain version."""
+equals its plain version. The sparse model's tables kernel
+(csrc/sparse_tables.cu, ops/sparse_tables_cuda.sparse_tables) is within
+1e-5 of each entry's summed |terms| of the float64 tables rounded once
+and no worse than twice the cuBLAS tables' (models/sparse.kernel_tables
+on dense weights) own error, at phase 7's shapes, rows of many segments
+and k = 3 to 300 (past k = 172 a row's items in slabs), with empty rows
+and columns and no nonzeros, and a sparse engine at k = 200; a chain's
+sparse tables are the same bits alone, as one of 4 and of 16 and as a
+slice; a SparseMultichainEngine chain gives the same bits alone and
+beside three others; SparseShardedEngine on 1, 2 and 4 ranks sharing the
+card gives the bits of one process; bad inputs raise; "dense" mode holds
+no weights on the card."""
 
 import os
 import re
@@ -1985,3 +1996,351 @@ def test_nccl_ranks_on_their_own_cards_match_one(cuda_device, tmp_path):
     torch_ranks.assert_same_bits(
         torch_ranks.result("dense", str(tmp_path / "ranks")),
         torch_ranks.result("dense", str(tmp_path / "one")), f"{n} ranks")
+
+
+# ----------------------------------------------------------------------
+# the sparse model's tables kernel (csrc/sparse_tables.cu)
+# ----------------------------------------------------------------------
+def _sparse_tables_case(device, NR, m, k, nch, seed, density=0.3):
+    """nch chains' CSR rows (an empty row 1, a one-nonzero row 2, an
+    empty data column 3, a few large values) on the card, with their
+    factors M (sparse) and partner factors (an empty last column)."""
+    rs = np.random.default_rng(seed)
+    coos = []
+    for _ in range(nch):
+        D = (rs.gamma(2.0, 2.0, (NR, m))
+             * (rs.random((NR, m)) < density)).astype(np.float32)
+        D[rs.random(D.shape) < 0.001] *= 1000.0
+        if NR > 2 and density > 0:
+            D[1] = 0.0
+            D[2] = 0.0
+            D[2, m // 2] = 0.5
+        if m > 3:
+            D[:, 3] = 0.0
+        r, c = np.nonzero(D)
+        coos.append((r, c, D[r, c]))
+    csr = sparse.stack_csr(coos, NR).to(device)
+    M = rs.gamma(1.0, 1.0, (nch, NR, k)).astype(np.float32)
+    M[rs.random(M.shape) < 0.3] = 0.0
+    O = rs.gamma(2.0, 1.0, (nch, m, k)).astype(np.float32)
+    O[:, :, -1] = 0.0
+    return (csr, torch.as_tensor(O, device=device),
+            torch.as_tensor(M, device=device))
+
+
+def _sparse_exact(csr, O, M):
+    """The float64 tables rounded once, the cuBLAS tables of
+    models/sparse.kernel_tables, and each entry's sum of |terms| in
+    float64 (beta (|O|^T |O| + sum_nz |w| |o| |o|^T) for G and SQ, beta
+    sum_nz |o| / d + sum_c' |M_c'| |G_cc'| for Y0), from dense weights."""
+    Wd, D1 = (w.to(O.device) for w in sparse.dense_weights(
+        csr.to("cpu"), O.shape[-2]))
+    exact = [x.float() for x in sparse.kernel_tables(
+        Wd.double(), D1.double(), O.double(), M.double())]
+    cublas = sparse.kernel_tables(Wd, D1, O, M)
+    k = O.shape[-1]
+    A = O.double().abs()
+    OO = (A.unsqueeze(-1) * A.unsqueeze(-2)).flatten(-2)
+    G = 100.0 * ((A.transpose(-1, -2) @ A).unsqueeze(-3)
+                 + (Wd.double().abs() @ OO).unsqueeze(-1).reshape(
+                     Wd.shape[:-1] + (k, k)))
+    Y0 = 100.0 * (D1.double().abs() @ A) + (
+        M.double().abs().unsqueeze(-2) * G).sum(-1)
+    terms = (torch.diagonal(G, dim1=-2, dim2=-1), Y0,
+             G.reshape(G.shape[:-3] + (-1, k)))
+    return exact, cublas, terms
+
+
+def _sparse_errors(got, exact, terms):
+    """The largest |table - exact| / terms over SQ, Y0 and G, and whether
+    every entry is within 1e-5 of its terms (0 where they are 0)."""
+    worst, ok = 0.0, True
+    for x, e, t in zip(got, exact, terms):
+        d = (x.double() - e.double()).abs()
+        ok = ok and bool((d <= 1e-5 * t).all())
+        pos = t > 0
+        if pos.any():
+            worst = max(worst, float((d[pos] / t[pos]).max()))
+    return worst, ok
+
+
+SPARSE_TABLES_SHAPES = {  # (rows, partners, k, chains, density)
+    "phase7-A-k10": (2000, 10000, 10, 1, 0.125),
+    "phase7-P-x4": (10000, 2000, 10, 4, 0.125),
+    "k3": (60, 35, 3, 3, 0.3), "k4-x3": (60, 35, 4, 3, 0.3),
+    "k13": (300, 400, 13, 2, 0.2), "k20": (500, 800, 20, 2, 0.1),
+    "k50-long-rows": (200, 6000, 50, 1, 0.2),
+    "k64": (100, 500, 64, 2, 0.2), "k90": (60, 300, 90, 1, 0.3),
+    "k150": (30, 200, 150, 1, 0.3), "k172": (20, 180, 172, 1, 0.3),
+    "k173": (16, 150, 173, 1, 0.3), "k200-x2": (20, 1500, 200, 2, 0.3),
+    "k300": (8, 200, 300, 1, 0.3),
+    "one-row": (1, 4000, 10, 3, 0.3), "one-partner": (50, 1, 3, 2, 0.5),
+    "empty": (40, 30, 5, 2, 0.0)}
+
+
+@pytest.mark.parametrize("shape", list(SPARSE_TABLES_SHAPES.values()),
+                         ids=list(SPARSE_TABLES_SHAPES))
+def test_sparse_tables_kernel_matches_float64(cuda_device, shape):
+    """ops/sparse_tables_cuda.sparse_tables on the card (one launch)
+    against the float64 tables rounded once: every entry of SQ, Y0 and G
+    within 1e-5 of its summed |terms|, and no worse than twice the cuBLAS
+    tables' (models/sparse.kernel_tables) own worst error on the same
+    inputs (ROADMAP's table tolerance; where m > 1, as the dense tables
+    test); within 1e-5 of the terms of the
+    plain version; G symmetric, SQ its diagonal; the same bits again.
+    Rows of one segment and of many (k50-long-rows: ~1200 nonzeros a
+    row), one row per block and up to 64, k = 3 to 300 (past k = 172 a
+    row's items in slabs; k200-x2's Z2 in more than one chunk), an empty
+    row, a one-nonzero row, an empty column, one partner and no
+    nonzeros."""
+    from cogaps_tpu_torch.ops import sparse_tables_cuda as st
+    NR, m, k, nch, density = shape
+    csr, O, M = _sparse_tables_case(cuda_device, NR, m, k, nch,
+                                    seed=NR + m + k, density=density)
+    before = st.sparse_tables.launches
+    got = st.sparse_tables(csr, O, M)
+    assert st.sparse_tables.launches == before + 1
+    again = st.sparse_tables(csr, O, M)
+    plain = st.sparse_tables_plain(csr, O, M)
+    exact, cublas, terms = _sparse_exact(csr, O, M)
+    torch.cuda.synchronize()
+    err_k, ok = _sparse_errors(got, exact, terms)
+    err_c, _ = _sparse_errors(cublas, exact, terms)
+    assert ok, (err_k, err_c)
+    if m > 1:
+        assert err_k <= 2 * err_c, (err_k, err_c)
+    _, ok_p = _sparse_errors(got, plain, terms)
+    assert ok_p
+    G4 = got[2].reshape(nch, NR, k, k)
+    assert torch.equal(G4, G4.transpose(-1, -2))
+    assert torch.equal(got[0], torch.diagonal(G4, dim1=-2, dim2=-1))
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape", [(300, 500, 10), (500, 300, 4),
+                                   (200, 900, 20), (60, 400, 50),
+                                   (40, 200, 100), (12, 1200, 200)],
+                         ids=["k10", "k4", "k20", "k50", "k100", "k200"])
+def test_sparse_tables_bits_do_not_follow_the_chain_count(cuda_device,
+                                                          shape):
+    """A chain's sparse tables are the same bits alone, as one of 4 and
+    as one of 16 (first, middle and last index, at each place in the 4),
+    as a slice of the 16's factors (a view at its offset), and with a
+    partner factor shared by every chain (a leading dimension of one):
+    the plan takes no chain count, and no chain's sums read another's."""
+    from cogaps_tpu_torch.ops import sparse_tables_cuda as st
+    NR, m, k = shape
+    csr, O, M = _sparse_tables_case(cuda_device, NR, m, k, 16, seed=3,
+                                    density=0.15)
+    coos = []
+    for c in range(16):
+        one = csr.chain(c)
+        coos.append((one.row_ids().cpu().numpy(), one.idx.cpu().numpy(),
+                     one.val.cpu().numpy()))
+
+    def tables_of(idx, shared=False):
+        sub = sparse.stack_csr([coos[i] for i in idx], NR).to(cuda_device)
+        return st.sparse_tables(sub, O[:1] if shared else O[idx], M[idx])
+
+    every = st.sparse_tables(csr, O, M)
+    shared = st.sparse_tables(csr, O[:1], M)
+    for c in (0, 7, 15):
+        four = [c] + [x for x in range(16) if x != c][:3]
+        for pos in (0, 2, 3):
+            group = four[1:pos + 1] + [c] + four[pos + 1:]
+            for x, y in zip(tables_of(group), every):
+                assert torch.equal(x[pos], y[c]), (c, pos)
+        for x, y in zip(tables_of([c]), every):
+            assert torch.equal(x[0], y[c]), c
+        view = st.sparse_tables(csr.chain(c), O[c:c + 1], M[c:c + 1])
+        for x, y in zip(view, every):
+            assert torch.equal(x[0], y[c]), c
+    for x, y in zip(tables_of([5], shared=True), shared):
+        assert torch.equal(x[0], y[5])
+
+
+def test_sparse_multichain_chain_bits_beside_three(cuda_device):
+    """A SparseMultichainEngine chain ("dense" and "ell" modes, both on
+    the sparse tables kernel) gives the same bits alone as beside three
+    others: M, atoms and chi^2 history after 20 + 20 iterations; the
+    kernel launched once a sampler an iteration, and no dense weights
+    held."""
+    import dataclasses
+    from cogaps_tpu_torch.bench_harness import synthetic_sparse
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.ops import sparse_tables_cuda as st
+    from cogaps_tpu_torch.params import CogapsParams
+    from cogaps_tpu_torch.sparse_engine import (SparseMultichainEngine,
+                                                stack_sparse_device_data)
+    Ds = synthetic_sparse(300, 500, 6, 4, 21)
+    for mode in ("dense", "ell"):
+        cfg = dataclasses.replace(CogapsParams(
+            n_patterns=6, n_iterations=20, seed=21,
+            output_frequency=5).engine_config(300, 500),
+            sparse_table_mode=mode)
+
+        def run(chains):
+            data, _ = stack_sparse_device_data([Ds[c] for c in chains], cfg,
+                                               cuda_device)
+            eng = SparseMultichainEngine(data, cfg, cuda_device)
+            assert eng.data.Wd_a is None and eng.data.D1_a is None
+            rand = PhiloxRandom([21 + c for c in chains], cuda_device)
+            st_, ss = eng.init_state(), eng.init_stats()
+            before = st.sparse_tables.launches
+            for ph in (EQUILIBRATION, SAMPLING):
+                st_, ss = eng.run_phase(st_, ss, rand, ph)
+            assert st.sparse_tables.launches - before == 2 * 2 * 20
+            return st_, ss
+
+        st4, ss4 = run([0, 1, 2, 3])
+        for c in (0, 2):
+            st1, ss1 = run([c])
+            for name, x, y in (("M_a", st1.M_a[0], st4.M_a[c]),
+                               ("M_p", st1.M_p[0], st4.M_p[c]),
+                               ("elem_a", st1.atoms_a.elem[0],
+                                st4.atoms_a.elem[c]),
+                               ("chisq", ss1.chisq_hist[0],
+                                ss4.chisq_hist[c])):
+                assert torch.equal(x, y), (mode, c, name)
+
+
+def test_sparse_sharded_ranks_sharing_the_card_match_one(cuda_device,
+                                                         tmp_path):
+    """SparseShardedEngine (4 shards, in the "dense" mode the rule picks
+    at this size: the sparse tables kernel for every shard's A tables and
+    P partials, no weights held)
+    on 1, 2 and 4 gloo ranks sharing the card gives the bits of the
+    one-process run (mesh=None)."""
+    import torch_ranks
+    from cogaps_tpu_torch.bench_harness import synthetic_sparse
+    from cogaps_tpu_torch.io.coo import CooMatrix
+    from cogaps_tpu_torch.parallel import launch
+    [D] = synthetic_sparse(400, 300, 5, 1, 23)
+    r, c = np.nonzero(D)
+    coo = CooMatrix(r.astype(np.int32), c.astype(np.int32), D[r, c], D.shape)
+    params = dict(n_patterns=5, n_iterations=8, seed=23, output_frequency=2)
+    kw = {"n_shards": 4}
+    eng, _, _ = torch_ranks.run("sparse", coo, params, kw,
+                                str(tmp_path / "one"), device="cuda")
+    assert eng.mode == "dense" and eng.Wd is None and eng.D1 is None
+    one = torch_ranks.result("sparse", str(tmp_path / "one"))
+    for n in (1, 2, 4):
+        out = str(tmp_path / f"ranks{n}")
+        launch.join(launch.start(torch_ranks.rank_run, n, "sparse", coo,
+                                 params, kw, out, None, None, "cuda"),
+                    timeout=300)
+        torch_ranks.assert_same_bits(torch_ranks.result("sparse", out), one,
+                                     f"{n} ranks")
+
+
+def test_sparse_tables_kernel_checks_inputs(cuda_device):
+    """A wrong dtype, device, shape, chain count or contiguity raises
+    before any launch."""
+    from cogaps_tpu_torch.ops import sparse_tables_cuda as st
+    csr, O, M = _sparse_tables_case(cuda_device, 30, 20, 4, 2, seed=1)
+    before = st.sparse_tables.launches
+    with pytest.raises(TypeError, match="dtype"):
+        st.sparse_tables(csr, O.double(), M.double())
+    with pytest.raises(ValueError, match="is on"):
+        st.sparse_tables(csr, O.cpu(), M)
+    with pytest.raises(ValueError, match="shape"):
+        st.sparse_tables(csr, O, M[:, :10])
+    with pytest.raises(ValueError, match="chains or 1"):
+        st.sparse_tables(csr, torch.cat([O, O]), M)
+    with pytest.raises(ValueError, match="contiguous"):
+        st.sparse_tables(csr, O, M.transpose(1, 2).contiguous().transpose(
+            1, 2))
+    bad = sparse.CsrMatrix(indptr=csr.indptr, idx=csr.idx.long(),
+                           val=csr.val)
+    with pytest.raises(TypeError, match="dtype"):
+        st.sparse_tables(bad, O, M)
+    bad = sparse.CsrMatrix(indptr=csr.indptr.cpu(), idx=csr.idx,
+                           val=csr.val)
+    with pytest.raises(ValueError, match="is on"):
+        st.sparse_tables(bad, O, M)
+    with pytest.raises(ValueError, match="sparse tables kernel takes"):
+        st.sparse_tables(csr, torch.zeros((2, 20, 0), device=cuda_device),
+                         torch.zeros((2, 30, 0), device=cuda_device))
+    assert st.sparse_tables.launches == before
+
+
+def test_sparse_engine_past_a_block_of_items(cuda_device):
+    """A sparse engine at k = 200, where a row's 1325 items take two
+    slabs of the sparse tables kernel, in "dense" and "ell" mode on the
+    card: the first update calls' tables (A and P sampler) are within
+    1e-5 of the float64 tables' summed |terms| and no worse than twice
+    the cuBLAS tables' own error; the kernel launches once a sampler an
+    iteration, and chi^2 stays finite."""
+    import dataclasses
+    from cogaps_tpu_torch import sparse_engine
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.ops import sparse_tables_cuda as st
+    from cogaps_tpu_torch.params import CogapsParams
+    D = sparse_data(60, 50, 9, density=0.4)
+    real = sparse_engine.sparse_tables
+    for mode in ("dense", "ell"):
+        cfg = dataclasses.replace(CogapsParams(
+            n_patterns=200, n_iterations=5, seed=9,
+            output_frequency=5).engine_config(*D.shape),
+            sparse_table_mode=mode)
+        eng = sparse_engine.SparseGapsEngine(D, cfg, cuda_device)
+        seen = []
+
+        def spy(csr, other, M):
+            out = real(csr, other, M)
+            if len(seen) < 2:
+                seen.append((csr, other.clone(), M.clone(),
+                             [x.clone() for x in out]))
+            return out
+
+        before = st.sparse_tables.launches
+        try:
+            sparse_engine.sparse_tables = spy
+            st_, ss = eng.init_state(), eng.init_stats()
+            rand = PhiloxRandom([9], cuda_device)
+            for ph in (EQUILIBRATION, SAMPLING):
+                st_, ss = eng.run_phase(st_, ss, rand, ph)
+        finally:
+            sparse_engine.sparse_tables = real
+        assert st.sparse_tables.launches - before == 2 * 2 * 5
+        assert len(seen) == 2 and seen[0][0].n_rows != seen[1][0].n_rows
+        for csr, O, M, got in seen:
+            exact, cublas, terms = _sparse_exact(csr, O, M)
+            err_k, ok = _sparse_errors(got, exact, terms)
+            err_c, _ = _sparse_errors(cublas, exact, terms)
+            assert ok and err_k <= 2 * err_c, (mode, err_k, err_c)
+        assert np.isfinite(ss.chisq_hist[0].cpu().numpy()).all()
+
+
+def test_sparse_dense_mode_holds_no_weights_on_the_card(cuda_device):
+    """"dense" mode on the card builds and holds no dense weights: the
+    engines' data has none, an update call's tables come from the sparse
+    tables kernel (one launch a sampler, none of cuBLAS's tables), and
+    the run's chi^2 falls; on the CPU the mode still builds them."""
+    import dataclasses
+    from cogaps_tpu_torch.engine import EQUILIBRATION, SAMPLING, PhiloxRandom
+    from cogaps_tpu_torch.ops import sparse_tables_cuda as st
+    from cogaps_tpu_torch.params import CogapsParams
+    from cogaps_tpu_torch.sparse_engine import SparseGapsEngine
+    D = sparse_data(40, 30, 8, density=0.4)
+    cfg = dataclasses.replace(CogapsParams(
+        n_patterns=3, n_iterations=100, seed=8,
+        output_frequency=50).engine_config(*D.shape), sparse_table_mode="dense")
+    eng = SparseGapsEngine(D, cfg, cuda_device)
+    assert eng.data.Wd_a is None and eng.data.D1_a is None
+    assert SparseGapsEngine(D, cfg, "cpu").data.Wd_a is not None
+    calls = []
+    real = sparse.kernel_tables
+    try:
+        sparse.kernel_tables = lambda *a: calls.append(1) or real(*a)
+        before = st.sparse_tables.launches
+        st_, ss = eng.init_state(), eng.init_stats()
+        rand = PhiloxRandom([8], cuda_device)
+        for ph in (EQUILIBRATION, SAMPLING):
+            st_, ss = eng.run_phase(st_, ss, rand, ph)
+    finally:
+        sparse.kernel_tables = real
+    assert st.sparse_tables.launches - before == 2 * 2 * 100 and not calls
+    h = ss.chisq_hist[0].cpu().numpy()
+    assert np.isfinite(h).all() and h[-1] < h[0]
