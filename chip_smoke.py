@@ -110,7 +110,10 @@ Phases:
               terms of its plain version, G symmetric, one launch a call;
               ms by events and the stream's ms, the cuBLAS tables'
               device ms (the library time), the plain version's ms, the
-              bound (sparse_tables_counts) and the plan;
+              bound (sparse_tables_counts), the plan and its form
+              (lanes_kernel<k> up to k = 16, tiles_kernel to 172,
+              slabs_kernel past it) with that kernel's ptxas registers
+              and spills, and every instantiation's;
   4 CoGAPS  — CoGAPS("data/GIST.csv", k=7, 2000 iterations, device=cuda,
               debug_checks=True): meanChiSq below 2x the golden GIST
               value, the kernel launched at least twice per iteration of
@@ -1680,9 +1683,15 @@ def phase_sparse_tables(device, report, card, D_sparse, coo):
     from cogaps_tpu_torch.probes import bound_ms
     rows, max_err, bad = {}, 0.0, []
     g = torch.Generator(device).manual_seed(41)
-    log(f"  sparse_tables_kernel ptxas (registers, bytes of spill stores): "
-        + ", ".join(f"<{t}> {ptxas_of(report, f'kernelILi{t}E')}"
-                    for t in (128, 512, 1024)))
+    log("  sparse tables kernels' ptxas (registers, bytes of spill "
+        "stores): " + ", ".join(
+            f"lanes_kernel<{k}> {ptxas_of(report, f'lanes_kernelILi{k}E')}"
+            for k in range(1, st.LANES_MAX_K + 1))
+        + f", tiles_kernel<32, 8> "
+        f"{ptxas_of(report, 'tiles_kernelILi32ELi8E')}, tiles_kernel<128, 3> "
+        f"{ptxas_of(report, 'tiles_kernelILi128ELi3E')}, tiles_kernel<256, "
+        f"1> {ptxas_of(report, 'tiles_kernelILi256ELi1E')}, slabs_kernel "
+        f"{ptxas_of(report, 'slabs_kernel')}")
     for name, csr, m, k in sparse_tables_cases(D_sparse, coo):
         csr = csr.to(device)
         nch, NR = csr.n_chains, csr.n_rows
@@ -1730,9 +1739,8 @@ def phase_sparse_tables(device, report, card, D_sparse, coo):
             f"worst |error|/terms against the float64 tables {err_k:.3g} "
             f"(cuBLAS {err_c:.3g}), against the plain version {err_p:.3g}, "
             f"max|kernel - plain| {diff:.3g}; {launched} launch a call; "
-            f"plan P={plan.P} G={plan.G} SUB={plan.SUB} SEG={plan.SEG} "
-            f"S={plan.S} "
-            f"threads={plan.threads}, {plan.smem} B shared; card: {card}"
+            f"plan {sparse_form(plan, m)}, ptxas "
+            f"{ptxas_of(report, sparse_symbol(plan))}; card: {card}"
             + ("" if ok else "  MISMATCH"))
         if not ok:
             bad.append(name)
@@ -1743,6 +1751,39 @@ def phase_sparse_tables(device, report, card, D_sparse, coo):
                              f"float64 tables or launched otherwise than "
                              f"once: {bad}")
     return rows, max_err
+
+
+def sparse_form(plan, m):
+    """The sparse tables kernel's form and plan at m partners, as phase 3
+    prints it."""
+    from cogaps_tpu_torch.ops import sparse_tables_cuda as st
+    zseg, nzc = st.z2_chunks(plan.k, m)
+    z2 = f"Z2 in {nzc} chunks of {zseg}"
+    if plan.form == "lanes":
+        return (f"lanes: lanes_kernel<{plan.k}>, a warp a row, {plan.P} "
+                f"entries a lane, KP={plan.KP}, a ring of "
+                f"{st.LANE_STAGES} stages, {plan.smem} B shared a block of "
+                f"{plan.threads}, {z2}")
+    if plan.form == "tiles":
+        inst = ("32, 8" if plan.threads == 32 else "128, 3"
+                if plan.threads <= 128 else "256, 1")
+        return (f"tiles: tiles_kernel<{inst}>, {plan.P} 8 x 8 tiles x "
+                f"{plan.G} groups of {plan.threads} threads, SUB={plan.SUB} "
+                f"SEG={plan.SEG} FL={plan.FL}, {plan.smem} B shared, {z2}")
+    return (f"slabs: slabs_kernel, {plan.P} items in {plan.S} slabs of "
+            f"{plan.threads}, SEG={plan.SEG}, {plan.smem} B shared, {z2}")
+
+
+def sparse_symbol(plan):
+    """The part of the mangled name of the sparse tables kernel a plan
+    runs that ptxas_of looks for."""
+    if plan.form == "lanes":
+        return f"lanes_kernelILi{plan.k}E"
+    if plan.form == "tiles":
+        return ("tiles_kernelILi32ELi8E" if plan.threads == 32
+                else "tiles_kernelILi128ELi3E" if plan.threads <= 128
+                else "tiles_kernelILi256ELi1E")
+    return "slabs_kernel"
 
 
 def tables_form(plan):

@@ -2075,7 +2075,11 @@ SPARSE_TABLES_SHAPES = {  # (rows, partners, k, chains, density)
     "k173": (16, 150, 173, 1, 0.3), "k200-x2": (20, 1500, 200, 2, 0.3),
     "k300": (8, 200, 300, 1, 0.3),
     "one-row": (1, 4000, 10, 3, 0.3), "one-partner": (50, 1, 3, 2, 0.5),
-    "empty": (40, 30, 5, 2, 0.0)}
+    "empty": (40, 30, 5, 2, 0.0),
+    "k16-lanes": (300, 400, 16, 2, 0.2), "k17-tiles": (300, 400, 17, 2, 0.2),
+    "k10-short-rows": (2000, 100, 10, 2, 0.05),
+    "k10-long-rows": (50, 4000, 10, 2, 0.3),
+    "k10-short-rows-x4": (5000, 60, 10, 4, 0.05)}
 
 
 @pytest.mark.parametrize("shape", list(SPARSE_TABLES_SHAPES.values()),
@@ -2089,10 +2093,13 @@ def test_sparse_tables_kernel_matches_float64(cuda_device, shape):
     test); within 1e-5 of the terms of the
     plain version; G symmetric, SQ its diagonal; the same bits again.
     Rows of one segment and of many (k50-long-rows: ~1200 nonzeros a
-    row), one row per block and up to 64, k = 3 to 300 (past k = 172 a
-    row's items in slabs; k200-x2's Z2 in more than one chunk), an empty
-    row, a one-nonzero row, an empty column, one partner and no
-    nonzeros."""
+    row), one row per block and up to 64, k = 3 to 300 (up to k = 16 a
+    warp a row, k16-lanes and k17-tiles on the two sides of that
+    boundary; past k = 172 a row's items in slabs; k200-x2's Z2 in more
+    than one chunk), rows shorter than a warp's 32 nonzeros a stage
+    (k10-short-rows, and over 4 chains), k = 10 rows of ~1200 nonzeros
+    (more stages than the ring holds), an empty row, a one-nonzero row,
+    an empty column, one partner and no nonzeros."""
     from cogaps_tpu_torch.ops import sparse_tables_cuda as st
     NR, m, k, nch, density = shape
     csr, O, M = _sparse_tables_case(cuda_device, NR, m, k, nch,
@@ -2120,15 +2127,21 @@ def test_sparse_tables_kernel_matches_float64(cuda_device, shape):
 
 @pytest.mark.parametrize("shape", [(300, 500, 10), (500, 300, 4),
                                    (200, 900, 20), (60, 400, 50),
-                                   (40, 200, 100), (12, 1200, 200)],
-                         ids=["k10", "k4", "k20", "k50", "k100", "k200"])
+                                   (40, 200, 100), (12, 1200, 200),
+                                   (300, 500, 16), (200, 900, 17),
+                                   (3000, 80, 10)],
+                         ids=["k10", "k4", "k20", "k50", "k100", "k200",
+                              "k16-lanes", "k17-tiles",
+                              "k10-short-rows"])
 def test_sparse_tables_bits_do_not_follow_the_chain_count(cuda_device,
                                                           shape):
     """A chain's sparse tables are the same bits alone, as one of 4 and
     as one of 16 (first, middle and last index, at each place in the 4),
     as a slice of the 16's factors (a view at its offset), and with a
     partner factor shared by every chain (a leading dimension of one):
-    the plan takes no chain count, and no chain's sums read another's."""
+    the plan takes no chain count, and no chain's sums read another's.
+    Each form: lanes (k = 4, 10, 16; rows of a few nonzeros at 3000 x
+    80), tiles (k = 17 to 100), slabs (k = 200)."""
     from cogaps_tpu_torch.ops import sparse_tables_cuda as st
     NR, m, k = shape
     csr, O, M = _sparse_tables_case(cuda_device, NR, m, k, 16, seed=3,

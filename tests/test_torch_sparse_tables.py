@@ -139,72 +139,174 @@ def test_plain_broadcasts_a_shared_factor():
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("k", [1, 3, 4, 5, 10, 12, 13, 20, 39, 50, 64, 90,
-                               100, 150, 172, 173, 200, 256, 300, 500])
+H100_SMEM = 232_448  # shared memory a block can use
+H100_SM_SMEM = 233_472  # an SM's shared memory (228 KB, 1 KB a block kept)
+H100_REGS = 255  # registers a thread at most
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 10, 12, 13, 16, 17, 20, 39, 50,
+                               64, 90, 100, 120, 121, 150, 172, 173, 200,
+                               256, 300, 500])
 def test_plan_fits_and_takes_k_alone(k):
-    """The plan is a function of k alone (no chain count, no SM count):
-    the G groups of a row's P items fit the block's threads, 128 threads
-    where a row fits them (as many groups as fit), else one group of a
-    multiple of 32 up to 1024, in as few slabs as hold it; without slabs
-    the staged partner rows hold the row's G (SEG KP >= k^2); Z2's chunks
-    are whole segments; the shared memory adds up and fits an H100
-    block."""
+    """The plan is a function of k alone (no chain count, no SM count),
+    and each form fits an H100: lanes up to k = 16 (a warp a row, a lane
+    a nonzero: every entry of U's upper triangle and T4 in a lane's
+    registers, under the 255 a thread can hold, and the ring of
+    LANE_STAGES stages of 32 staged rows a warp, 16-byte aligned, on
+    distinct banks for 8 lanes' 16-byte loads); tiles up to k = 172 (a
+    row's 8 x 8 tiles of U's upper triangle over G groups of a block of
+    64 threads up to 16 tiles, else over one group of the fewest warps
+    that hold them, up to 256 threads; SUB nonzeros a group a
+    segment, the ring of TILE_AHEAD + 1 segments under TILE_RING bytes,
+    fmaf chains of FL
+    segments, CHAIN nonzeros at least and less than CHAIN + SUB); slabs
+    past it (4 x 4 items over as few slabs of up to 1024 threads as hold
+    them). The shared memory adds up and fits a block, at least two
+    blocks an SM in the lanes and tiles forms."""
     assert list(inspect.signature(st.sparse_plan).parameters) == ["k"]
     p = st.sparse_plan(k)
-    assert p.KP == 4 * -(-k // 4) and p.nt * 4 == p.KP
-    assert p.P == p.nt * (p.nt + 1) // 2 + p.nt
-    assert p.G * p.P <= p.S * p.threads and p.threads <= st.MAX_THREADS
-    assert p.threads % 32 == 0
-    assert p.S == -(-p.P // st.MAX_THREADS)
-    if p.P <= st.THREADS:
-        assert p.threads == st.THREADS and p.G == st.THREADS // p.P
+    assert st.sparse_plan(k) == p and p.k == k
+    assert p.threads % 32 == 0 and p.threads <= st.MAX_THREADS
+    assert p.smem <= H100_SMEM
+    if k <= st.LANES_MAX_K:
+        assert p.form == "lanes"
+        assert p.KP == 4 * -(-k // 4) and p.RS >= p.KP and p.RS % 8 == 4
+        E = k * (k + 1) // 2 + k
+        assert p.P == E and E + p.KP + 40 <= H100_REGS
+        assert (p.G, p.SUB, p.SEG, p.FL, p.S) == (1, 1, st.LANES, 1, 1)
+        assert p.threads == st.LANE_THREADS
+        warp = (st.LANE_STAGES * st.LANES * p.RS
+                + 4 * st.LANE_STAGES * st.LANES + E + k * k)
+        assert p.smem == 4 * (p.threads // 32) * (4 * -(-warp // 4))
+    elif k <= st.TILES_MAX_K:
+        assert p.form == "tiles"
+        nt = -(-k // st.TILE)
+        assert p.KP == st.TILE * nt and p.RS == p.KP + 4
+        assert p.P == nt * (nt + 1) // 2
+        if p.P <= st.TILE_SMALL:
+            assert p.threads == 64
+        else:
+            assert p.threads - 32 < p.P <= p.threads <= 256
+        assert p.G == p.threads // p.P and p.G * p.P <= p.threads
+        assert p.SEG == p.G * p.SUB and 1 <= p.SUB <= st.CHAIN
+        slots = st.TILE_AHEAD + 1
+        assert (p.SUB == 1
+                or slots * p.SEG * (p.RS + 4) * 4 <= st.TILE_RING)
+        assert st.CHAIN <= p.FL * p.SUB < st.CHAIN + p.SUB
+        assert p.S == 1
+        assert p.smem == 4 * (72 * p.threads + slots * p.SEG * (p.RS + 2)
+                              + 4 * st.TILE_AHEAD * p.SEG + p.KP * nt
+                              + 16)
     else:
-        assert p.G == 1 and (p.S - 1) * p.threads < p.P
+        assert p.form == "slabs"
+        assert p.KP == 4 * -(-k // 4) and p.RS == p.KP
+        nt = p.KP // 4
+        assert p.P == nt * (nt + 1) // 2 + nt
+        assert p.S == -(-p.P // st.MAX_THREADS) >= 2
+        assert p.G == 1 and (p.S - 1) * p.threads < p.P <= p.S * p.threads
         assert p.threads - 32 < -(-p.P // p.S)
-    assert p.SEG == p.G * p.SUB and p.SUB >= 1
-    assert p.ZSEG % p.SEG == 0
-    if p.S == 1:
-        assert p.SEG * p.KP >= k * k and p.ZSEG == p.SEG
-    else:
-        assert st.ZCHUNK <= p.ZSEG < st.ZCHUNK + p.SEG
-    assert p.smem == 4 * (p.SEG * (p.KP + 3) + p.KP
-                          + (p.G * p.P * 16 if p.G > 1 else 0))
-    assert p.smem <= 232_448
-    assert st.sparse_plan(k) == p
+        assert p.SEG == p.SUB >= 1 and p.FL == 1
+        assert p.smem == 4 * (p.SEG * (p.KP + 3) + p.KP)
+    if p.form != "slabs":
+        assert 2 * (p.smem + 1024) <= H100_SM_SMEM
 
 
-def test_plan_slabs_past_a_block():
-    """Up to k = 172 a row's P = nt (nt + 3) / 2 items fit one block's
-    threads; one tile row more takes two slabs, and k < 1 raises."""
-    p = st.sparse_plan(172)
-    assert p.P <= st.MAX_THREADS and p.S == 1
-    q = st.sparse_plan(173)
-    assert q.nt == p.nt + 1 and q.P > st.MAX_THREADS and q.S == 2
+def test_plan_forms_meet_at_16():
+    """k = 16 is the last lanes plan (152 entries a lane) and k = 17 the
+    first tiles plan (6 tiles of 8 x 8 over k padded to 24, 10 groups of
+    them in 64 threads); the lanes
+    form takes every k from 1 to 16, the tiles form every k from 17 to
+    172, and the plan raises below k = 1."""
+    assert st.LANES_MAX_K == 16
+    assert [st.sparse_plan(k).form for k in range(1, 17)] == ["lanes"] * 16
+    assert all(st.sparse_plan(k).form == "tiles" for k in range(17, 173))
+    last, first = st.sparse_plan(16), st.sparse_plan(17)
+    assert last.P == 152 and last.KP == 16
+    assert first.KP == 24 and first.P == 6 and first.G == 10
     for k in (0, -3):
         with pytest.raises(ValueError, match="sparse tables kernel takes"):
             st.sparse_plan(k)
 
 
-@pytest.mark.parametrize("k", [4, 10, 20, 50, 200])
+def test_plan_slabs_past_a_block():
+    """Up to k = 172 a row's 8 x 8 tiles fit 256 threads (253 of them at
+    k = 172); past it the 4 x 4 items of k = 173 take two slabs."""
+    p = st.sparse_plan(172)
+    assert p.form == "tiles" and p.P == 253 and p.threads == 256
+    q = st.sparse_plan(173)
+    assert q.form == "slabs" and q.P > st.MAX_THREADS and q.S == 2
+
+
+@pytest.mark.parametrize("k", [4, 10, 16, 17, 20, 50, 100, 200])
 def test_segments_follow_k_and_row_length(k):
-    """A row's sums run in segments of SEG nonzeros from its start, each
-    cut into its groups' ranges of SUB (the last of each shorter), in
-    order, covering the row once; they depend on (k, n) alone (segments
-    takes nothing else), and a row of no nonzeros has none."""
+    """A row's sums, as segments(k, n) gives them, cover its n nonzeros
+    once; they depend on (k, n) alone (segments takes nothing else), a
+    row of no nonzeros has none, and each form keeps its shape: lanes,
+    lane l summing positions l, l + 32, ... in order; tiles, group g's
+    chains running over its ranges of SUB in FL segments of SEG in turn;
+    slabs, one group whose chains are the segments of SEG."""
     assert list(inspect.signature(st.segments).parameters) == ["k", "n"]
     p = st.sparse_plan(k)
     assert st.segments(k, 0) == ()
-    for n in (1, p.SUB + 1, p.SEG - 1, p.SEG, p.SEG + 1, 5 * p.SEG + 3):
-        segs = st.segments(k, n)
-        assert len(segs) == -(-n // p.SEG)
-        flat = [r for seg in segs for r in seg]
-        assert flat[0][0] == 0 and flat[-1][1] == n
-        assert all(a[1] == b[0] for a, b in zip(flat, flat[1:]))
-        assert all(0 < hi - lo <= p.SUB for lo, hi in flat)
-        for i, seg in enumerate(segs):
-            assert seg[0][0] == i * p.SEG and len(seg) <= p.G
-            assert all(lo == i * p.SEG + g * p.SUB
-                       for g, (lo, _) in enumerate(seg))
+    for n in (1, 31, 32, 33, p.SEG + 1, 5 * p.SEG + 3, 40 * p.SEG + 7):
+        groups = st.segments(k, n)
+        flat = sorted(i for g in groups for c in g for i in c)
+        assert flat == list(range(n))
+        assert all(c for g in groups for c in g)
+        if p.form == "lanes":
+            assert len(groups) == min(st.LANES, n)
+            for lane, g in enumerate(groups):
+                assert g == (tuple(range(lane, n, st.LANES)),)
+        elif p.form == "tiles":
+            assert len(groups) <= p.G
+            for g, chains in enumerate(groups):
+                for c, chain in enumerate(chains):
+                    assert len(chain) <= p.FL * p.SUB
+                    segs = {i // p.SEG for i in chain}
+                    assert segs <= set(range(c * p.FL, (c + 1) * p.FL))
+                    assert all(g * p.SUB <= i % p.SEG < (g + 1) * p.SUB
+                               for i in chain)
+                    assert list(chain) == sorted(chain)
+        else:
+            (chains,) = groups
+            assert [c[0] for c in chains] == list(range(0, n, p.SEG))
+            assert all(len(c) <= p.SEG for c in chains)
+        assert st.segments(k, n) == groups
+
+
+@pytest.mark.parametrize("k", [3, 10, 20, 50, 200])
+def test_z2_chunks_follow_k_and_m(k):
+    """Z2 = O^T O's chunks depend on (k, m) alone: whole stages (lanes:
+    32 partners; tiles: SEG) and at most MAX_CHUNKS a chain in the lanes
+    and tiles forms, whole segments of ZCHUNK partners at least in the
+    slabs form; they cover the m partners, and m = 0 has none."""
+    assert list(inspect.signature(st.z2_chunks).parameters) == ["k", "m"]
+    p = st.sparse_plan(k)
+    assert st.z2_chunks(k, 0)[1] == 0
+    for m in (1, 31, 32, 1000, 10000, 50000, 123457):
+        zseg, nzc = st.z2_chunks(k, m)
+        assert zseg % p.SEG == 0 and (nzc - 1) * zseg < m <= nzc * zseg
+        if p.form == "slabs":
+            assert st.ZCHUNK <= zseg < st.ZCHUNK + p.SEG
+        else:
+            assert nzc <= st.MAX_CHUNKS
+            assert zseg == p.SEG or (zseg - p.SEG) * st.MAX_CHUNKS < m
+        assert st.z2_chunks(k, m) == (zseg, nzc)
+
+
+def test_scratch_by_hand():
+    """scratch_floats at small shapes, counted by hand: lanes (k = 3, m =
+    100: 4 chunks of 32) Z2's partials (2 chains x 9 entries x 4 chunk
+    slots: 72 floats, to 96), Z2 (2 chains x 9 entries, each chain's in
+    32 floats of its own), the padded copy of O (one shared factor, 100
+    x 4), 2 x 2 counters and flags; slabs (k = 200, m = 3000: 3 chunks
+    of 1050) partials and Z2 of one chain."""
+    p = st.sparse_plan(3)
+    assert st.z2_chunks(3, 100) == (32, 4)
+    assert st.scratch_floats(p, 2, 1, 100) == 96 + 2 * 32 + 100 * 4 + 4
+    q = st.sparse_plan(200)
+    assert st.z2_chunks(200, 3000) == (1050, 3)
+    assert st.scratch_floats(q, 1, 1, 3000) == 4 * 200 * 200
 
 
 def test_counts_by_hand():
