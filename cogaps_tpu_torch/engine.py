@@ -119,6 +119,7 @@ class PhiloxRandom:
         self.key0 = torch.tensor([int(s) & 0xFFFFFFFF for s in seeds],
                                  dtype=torch.int64, device=device)
         self._normals = None  # (phase, first iteration, z_a, z_p)
+        self.blocks_drawn = 0  # of normals, by _block
 
     def _block(self, phase: int, it: int):
         """(first iteration, z_a, z_p) of the block holding `it`: the
@@ -131,6 +132,7 @@ class PhiloxRandom:
                 dtype=torch.int64, device=self.key0.device)
             self._normals = (phase, first,
                              *gaps_rng.philox_normals(self.key0, keys))
+            self.blocks_drawn += 1
         return self._normals[1:]
 
     def budgets(self, phase: int, it: int, n_a: torch.Tensor,

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..utils import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -38,27 +40,30 @@ def _nvcc() -> str:
 @functools.cache
 def load(name: str) -> tuple:
     """Compile csrc/<name>.cu (once per hash) and load it. Returns
-    (ctypes library, compiler report)."""
-    source = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for part in [source, *sorted(CSRC.glob("*.cuh"))]:
-        h.update(part.read_bytes())
-    lib_path = BUILD_DIR / f"libcogaps_{name}_{h.hexdigest()[:16]}.so"
-    report_path = lib_path.with_suffix(".log")
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name} "
-                               f"({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        report_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    report = report_path.read_text() if report_path.exists() else ""
+    (ctypes library, compiler report). Its span counts 1 where nvcc
+    ran."""
+    with trace.span("build.load", compiled=0) as sp:
+        source = CSRC / f"{name}.cu"
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for part in [source, *sorted(CSRC.glob("*.cuh"))]:
+            h.update(part.read_bytes())
+        lib_path = BUILD_DIR / f"libcogaps_{name}_{h.hexdigest()[:16]}.so"
+        report_path = lib_path.with_suffix(".log")
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source.name} "
+                                   f"({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            report_path.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, lib_path)
+            sp.add(compiled=1)
+        lib = ctypes.CDLL(str(lib_path))
+        report = report_path.read_text() if report_path.exists() else ""
     return lib, report
 
 

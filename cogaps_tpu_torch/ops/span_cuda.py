@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .. import engine
+from ..utils import trace
 from . import cuda_build
 from .span import SpanTables, rebuild_tables_plain, run_span_plain
 from .sweep_cuda import (MAX_BATCH, PLACED, SMEM_BLOCK, STATIC_SMEM,
@@ -279,30 +280,37 @@ def launch_shape(kernel: int, device, nch: int, G: int, S: int, k: int,
     """The cluster size, both sides' plans, the sweeps' placements (of
     span_kernel: `caps`, the samplers' atom capacities) and the shared
     memory of a launch of span_kernel (kernel 0) or rebuild_kernel (1) on
-    `device`."""
-    lib, _ = build()
-    places = (() if caps is None else
-              (sweep_plan(G, k, caps[0]), sweep_plan(S, k, caps[1])))
+    `device`. Its span counts the occupancy queries it made."""
+    with trace.span("span.shape", kernel=kernel) as sp:
+        lib, _ = build()
+        places = (() if caps is None else
+                  (sweep_plan(G, k, caps[0]), sweep_plan(S, k, caps[1])))
 
-    def shape(cl):
-        plans = (rebuild_plan(G, S, k, threads, cl),
-                 rebuild_plan(S, G, k, threads, cl))
-        return LaunchShape(cl, *plans, smem_bytes(plans, k, places),
-                           *places)
+        def shape(cl):
+            plans = (rebuild_plan(G, S, k, threads, cl),
+                     rebuild_plan(S, G, k, threads, cl))
+            return LaunchShape(cl, *plans, smem_bytes(plans, k, places),
+                               *places)
 
-    def max_active(cl):
-        n = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            err = lib.cogaps_span_max_clusters(kernel, cl, threads,
-                                               shape(cl).smem,
-                                               ctypes.byref(n))
-        if err != 0:
-            raise RuntimeError(f"span cluster occupancy query: CUDA error "
-                               f"{err}")
-        return n.value
+        asked = []
 
-    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    return shape(cluster_size(nch, sm_count, max_active))
+        def max_active(cl):
+            asked.append(cl)
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = lib.cogaps_span_max_clusters(kernel, cl, threads,
+                                                   shape(cl).smem,
+                                                   ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"span cluster occupancy query: CUDA "
+                                   f"error {err}")
+            return n.value
+
+        sm_count = torch.cuda.get_device_properties(
+            device).multi_processor_count
+        out = shape(cluster_size(nch, sm_count, max_active))
+        sp.add(queries=len(asked), cluster=out.cl)
+    return out
 
 
 def _partials(nch: int, shape: LaunchShape, G: int, S: int, k: int, dev):
@@ -345,15 +353,18 @@ def run_span(cfg, consts_a, consts_p, hist: engine.HistConfig, phase: int,
             or cfg.take_pump_samples):
         raise ValueError("the fused span samples both factors and records "
                          "no history, snapshot or PUMP count")
-    if state.M_a.device.type == "cpu":
-        return run_span_plain(cfg, consts_a, consts_p, hist, phase, data,
-                              it0, n_it, state, stats, rand)
-    if state.M_a.device.type != "cuda":
-        raise ValueError(f"no fused span for tensors on {state.M_a.device}")
-    if not isinstance(rand, engine.PhiloxRandom):
-        raise TypeError("the fused span draws from an engine.PhiloxRandom")
-    return _run_kernel(cfg, consts_a, consts_p, phase, data, it0, n_it,
-                       state, stats, rand)
+    with trace.span("run_span", iterations=n_it, chains=state.M_a.shape[0]):
+        if state.M_a.device.type == "cpu":
+            return run_span_plain(cfg, consts_a, consts_p, hist, phase,
+                                  data, it0, n_it, state, stats, rand)
+        if state.M_a.device.type != "cuda":
+            raise ValueError(
+                f"no fused span for tensors on {state.M_a.device}")
+        if not isinstance(rand, engine.PhiloxRandom):
+            raise TypeError(
+                "the fused span draws from an engine.PhiloxRandom")
+        return _run_kernel(cfg, consts_a, consts_p, phase, data, it0, n_it,
+                           state, stats, rand)
 
 
 run_span.launches = 0
@@ -373,71 +384,79 @@ def _run_kernel(cfg, consts_a, consts_p, phase, data, it0, n_it, state,
     NCH, G, K = state.M_a.shape
     S = state.M_p.shape[1]
     dev = state.M_a.device
-    f32, i32 = torch.float32, torch.int32
-    _check_data(data, NCH, G, S, dev)
-    for name, t, dt, shape in (
-            ("a_sum", stats.a_sum, f32, (NCH, G, K)),
-            ("a_sumsq", stats.a_sumsq, f32, (NCH, G, K)),
-            ("p_sum", stats.p_sum, f32, (NCH, S, K)),
-            ("p_sumsq", stats.p_sumsq, f32, (NCH, S, K)),
-            ("n_stat", stats.n_stat, i32, (NCH,)),
-            ("upd", stats.upd, torch.int64, (NCH,)),
-            ("prop_counts", stats.prop_counts, i32, (NCH, 2, 4)),
-            ("acc_counts", stats.acc_counts, i32, (NCH, 2, 4)),
-            ("sweep_counts", stats.sweep_counts, i32, (NCH, 2)),
-            ("key0", rand.key0, torch.int64, (NCH,))):
-        cuda_build.check(name, t, dt, shape, dev)
-    budget = torch.empty((2, NCH), dtype=i32, device=dev)
-    st_a = KernelState.make(state.atoms_a, state.M_a, consts_a, data.mass_a,
-                            budget[0])
-    st_p = KernelState.make(state.atoms_p, state.M_p, consts_p, data.mass_p,
-                            budget[1])
-    # the kernel adds to copies of what it changes: the sums only while
-    # sampling
-    sums = [x.clone() if phase == engine.SAMPLING else x
-            for x in (stats.a_sum, stats.a_sumsq, stats.p_sum,
-                      stats.p_sumsq)]
-    counts = [x.clone() for x in (stats.n_stat, stats.upd, stats.prop_counts,
-                                  stats.acc_counts, stats.sweep_counts)]
-    scratch = [torch.empty(shape, dtype=f32, device=dev) for shape in (
-        (NCH, G, K), (NCH, G, K), (NCH, G * K, K),   # Y, SQ, Z of A
-        (NCH, S, K), (NCH, S, K), (NCH, S * K, K))]  # Y, SQ, Z of P
-    colnz = torch.empty((2, NCH, K), dtype=i32, device=dev)
-    threads = block_threads(consts_a.batch, consts_p.batch, K)
-    shape = launch_shape(0, dev, NCH, G, S, K, threads,
-                         caps=(consts_a.capacity, consts_p.capacity))
-    part = _partials(NCH, shape, G, S, K, dev)
-    ints = shape.plan_ints()
-    plan = (ctypes.c_int * len(ints))(*ints)
-    lib, _ = build()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = [x.data_ptr() for x in (
-        data.mass_a.lam, data.mass_a.max_gibbs_mass, data.mass_p.lam,
-        data.mass_p.max_gibbs_mass, data.D, data.invS2, data.D_t,
-        data.invS2_t)]
+    with trace.span("span.prepare"):
+        f32, i32 = torch.float32, torch.int32
+        _check_data(data, NCH, G, S, dev)
+        for name, t, dt, shape in (
+                ("a_sum", stats.a_sum, f32, (NCH, G, K)),
+                ("a_sumsq", stats.a_sumsq, f32, (NCH, G, K)),
+                ("p_sum", stats.p_sum, f32, (NCH, S, K)),
+                ("p_sumsq", stats.p_sumsq, f32, (NCH, S, K)),
+                ("n_stat", stats.n_stat, i32, (NCH,)),
+                ("upd", stats.upd, torch.int64, (NCH,)),
+                ("prop_counts", stats.prop_counts, i32, (NCH, 2, 4)),
+                ("acc_counts", stats.acc_counts, i32, (NCH, 2, 4)),
+                ("sweep_counts", stats.sweep_counts, i32, (NCH, 2)),
+                ("key0", rand.key0, torch.int64, (NCH,))):
+            cuda_build.check(name, t, dt, shape, dev)
+        budget = torch.empty((2, NCH), dtype=i32, device=dev)
+        st_a = KernelState.make(state.atoms_a, state.M_a, consts_a,
+                                data.mass_a, budget[0])
+        st_p = KernelState.make(state.atoms_p, state.M_p, consts_p,
+                                data.mass_p, budget[1])
+        # the kernel adds to copies of what it changes: the sums only while
+        # sampling
+        sums = [x.clone() if phase == engine.SAMPLING else x
+                for x in (stats.a_sum, stats.a_sumsq, stats.p_sum,
+                          stats.p_sumsq)]
+        counts = [x.clone() for x in (stats.n_stat, stats.upd,
+                                      stats.prop_counts, stats.acc_counts,
+                                      stats.sweep_counts)]
+        scratch = [torch.empty(shape, dtype=f32, device=dev) for shape in (
+            (NCH, G, K), (NCH, G, K), (NCH, G * K, K),   # Y, SQ, Z of A
+            (NCH, S, K), (NCH, S, K), (NCH, S * K, K))]  # Y, SQ, Z of P
+        colnz = torch.empty((2, NCH, K), dtype=i32, device=dev)
+        threads = block_threads(consts_a.batch, consts_p.batch, K)
+        shape = launch_shape(0, dev, NCH, G, S, K, threads,
+                             caps=(consts_a.capacity, consts_p.capacity))
+        part = _partials(NCH, shape, G, S, K, dev)
+        ints = shape.plan_ints()
+        plan = (ctypes.c_int * len(ints))(*ints)
+        lib, _ = build()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptr = [x.data_ptr() for x in (
+            data.mass_a.lam, data.mass_a.max_gibbs_mass, data.mass_p.lam,
+            data.mass_p.max_gibbs_mass, data.D, data.invS2, data.D_t,
+            data.invS2_t)]
     with torch.cuda.device(dev):
         for off in range(0, n_it, CHUNK):
             n = min(CHUNK, n_it - off)
-            z = rand.budget_normals(phase, it0 + off, n)
-            err = lib.cogaps_span_launch(
-                NCH, G, S, K, n, phase, it0 + off, cfg.n_iterations,
-                consts_a.batch, consts_a.capacity, consts_p.batch,
-                consts_p.capacity, int(consts_a.local_moves), threads,
-                shape.cl, shape.smem, plan,
-                float(consts_a.alpha * consts_a.n_bins),
-                float(consts_a.domain_length),
-                float(consts_p.alpha * consts_p.n_bins),
-                float(consts_p.domain_length), *ptr, z.data_ptr(),
-                st_a.mass.data_ptr(), st_a.elem.data_ptr(),
-                st_a.n.data_ptr(), st_p.mass.data_ptr(),
-                st_p.elem.data_ptr(), st_p.n.data_ptr(), st_a.M.data_ptr(),
-                st_p.M.data_ptr(), *(x.data_ptr() for x in sums),
-                *(x.data_ptr() for x in counts), part.data_ptr(),
-                part.shape[1], *(x.data_ptr() for x in scratch), colnz[0].data_ptr(),
-                colnz[1].data_ptr(), budget[0].data_ptr(),
-                budget[1].data_ptr(), st_a.out.data_ptr(),
-                st_p.out.data_ptr(), st_a.scratch.data_ptr(),
-                st_p.scratch.data_ptr(), rand.key0.data_ptr(), stream)
+            with trace.span("span.normals") as sp:
+                drawn = rand.blocks_drawn
+                z = rand.budget_normals(phase, it0 + off, n)
+                sp.add(blocks=rand.blocks_drawn - drawn)
+            with trace.span("span.launch"):
+                err = lib.cogaps_span_launch(
+                    NCH, G, S, K, n, phase, it0 + off, cfg.n_iterations,
+                    consts_a.batch, consts_a.capacity, consts_p.batch,
+                    consts_p.capacity, int(consts_a.local_moves), threads,
+                    shape.cl, shape.smem, plan,
+                    float(consts_a.alpha * consts_a.n_bins),
+                    float(consts_a.domain_length),
+                    float(consts_p.alpha * consts_p.n_bins),
+                    float(consts_p.domain_length), *ptr, z.data_ptr(),
+                    st_a.mass.data_ptr(), st_a.elem.data_ptr(),
+                    st_a.n.data_ptr(), st_p.mass.data_ptr(),
+                    st_p.elem.data_ptr(), st_p.n.data_ptr(),
+                    st_a.M.data_ptr(), st_p.M.data_ptr(),
+                    *(x.data_ptr() for x in sums),
+                    *(x.data_ptr() for x in counts), part.data_ptr(),
+                    part.shape[1], *(x.data_ptr() for x in scratch),
+                    colnz[0].data_ptr(), colnz[1].data_ptr(),
+                    budget[0].data_ptr(),
+                    budget[1].data_ptr(), st_a.out.data_ptr(),
+                    st_p.out.data_ptr(), st_a.scratch.data_ptr(),
+                    st_p.scratch.data_ptr(), rand.key0.data_ptr(), stream)
             if err != 0:
                 raise RuntimeError(
                     f"span kernel launch failed: CUDA error {err}")

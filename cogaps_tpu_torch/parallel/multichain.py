@@ -29,6 +29,7 @@ from ..models import dense
 from ..ops.atoms import AtomTable
 from ..ops import span_cuda
 from ..params import EngineConfig
+from ..utils import trace
 from . import multihost
 
 # the fused span's domain: the JAX package's semantic condition
@@ -156,9 +157,13 @@ class MultichainEngine(ChainEngine):
                   stop_iter: Optional[int] = None, progress_cb=None):
         """Iterations [start, stop) of one phase: run_spans when
         _fused_ok() holds, else ChainEngine.run_phase."""
-        run = self.run_spans if self._fused_ok() else super().run_phase
-        return run(state, stats, rand, phase, start_iter, stop_iter,
-                   progress_cb)
+        fused = self._fused_ok()
+        run = self.run_spans if fused else super().run_phase
+        stop = self.config.n_iterations if stop_iter is None else stop_iter
+        with trace.span("run_phase", phase=phase,
+                        iterations=stop - start_iter, route=int(fused)):
+            return run(state, stats, rand, phase, start_iter, stop_iter,
+                       progress_cb)
 
     def run_spans(self, state: ChainState, stats: RunStats, rand,
                   phase: int, start_iter: int = 0,
